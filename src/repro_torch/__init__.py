@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of the RDMA-vs-RPC distributed data structures.
+
+Mirrors the JAX package `repro` module by module (`core/`, `kernels/`) and
+is held against it by the parity tests in `tests/test_torch_*.py`. It
+imports neither JAX nor `repro`. Entry points take an explicit `device`
+that defaults to ``"cuda"``; the tests ask for ``"cpu"`` by name. On a
+CUDA tensor the owner lanes and RPC handler bodies launch the hand-written
+kernels in `kernels/csrc/`; on a CPU tensor they run the plain PyTorch
+versions in `kernels/ref.py`.
+"""
+from . import convert, core, kernels
+
+__all__ = ["convert", "core", "kernels"]

@@ -1,0 +1,370 @@
+"""Distributed hosted queue (ring buffer) — paper §III-B2, Table III, Fig. 4
+(port of `repro.core.queue`).
+
+A ``DQueue`` lives on a single *host* rank but is visible to every rank. It
+is a ring buffer with four control words followed by the data region:
+
+    word 0: tail          (reserve frontier for pushes, advanced by FAA)
+    word 1: tail_ready    (publish frontier: data below this is readable)
+    word 2: head          (reserve frontier for pops)
+    word 3: head_ready    (release frontier: space below this is reusable)
+
+Implementations and their best-case costs (paper Table III):
+
+  push C_RW (rdma):      A_FAO + W + A_CAS-P   (reserve, write, publish)
+  push C_W  (rdma):      A_FAO + W             (barrier supplies the fence)
+  push checksum C_RW:    A_FAO + W             (in-payload checksum word)
+  pop  C_RW (rdma):      A_FAO + R + A_CAS-P
+  pop  C_R  (rdma):      A_FAO + R
+  push/pop C_L:          local vector ops, zero network phases
+  push/pop (rpc):        one AM round trip + owner-side handler
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from .. import intops
+from . import am as am_mod
+from . import routing
+from . import window as win_mod
+from .types import (AmoKind, Backend, Promise, as_i32, as_mask,
+                    explicit_backend)
+from .window import Window, rdma_cas, rdma_fao, rdma_get, rdma_put
+
+Tensor = torch.Tensor
+
+TAIL, TAIL_READY, HEAD, HEAD_READY = 0, 1, 2, 3
+CTRL_WORDS = 4
+
+
+@dataclass
+class DQueue:
+    """Hosted ring buffer. Slot i of the data region starts at word
+    CTRL_WORDS + (i % capacity) * slot_w."""
+
+    win: Window
+    host: int
+    capacity: int      # slots
+    val_words: int     # payload words per slot
+    checksum: bool = False  # slots carry a trailing checksum word
+
+    @property
+    def nranks(self) -> int:
+        return self.win.nranks
+
+    @property
+    def slot_w(self) -> int:
+        return self.val_words + (1 if self.checksum else 0)
+
+
+def make_queue(nranks: int, host: int, capacity: int, val_words: int,
+               checksum: bool = False, device="cuda") -> DQueue:
+    slot_w = val_words + (1 if checksum else 0)
+    win = win_mod.make_window(nranks, CTRL_WORDS + capacity * slot_w,
+                              device=device)
+    return DQueue(win=win, host=host, capacity=capacity,
+                  val_words=val_words, checksum=checksum)
+
+
+def _with_win(q: DQueue, win: Window) -> DQueue:
+    return DQueue(win=win, host=q.host, capacity=q.capacity,
+                  val_words=q.val_words, checksum=q.checksum)
+
+
+def _csum(vals: Tensor) -> Tensor:
+    """Checksum over the payload words of each slot (..., vw): FNV-style
+    xor-multiply in wrapping int32, nonzero by construction (0 marks an
+    unwritten slot)."""
+    c = torch.full(vals.shape[:-1], 0x811C9DC5, dtype=torch.int64,
+                   device=vals.device)
+    for w in range(vals.shape[-1]):
+        c = intops.mul_u32(c ^ intops.u32(vals[..., w]), 0x01000193)
+    c = intops.i32(c)
+    return torch.where(c == 0, 1, c)
+
+
+def _host_dst(q: DQueue, shape) -> Tensor:
+    return torch.full(shape, q.host, dtype=torch.int32,
+                      device=q.win.data.device)
+
+
+# ---------------------------------------------------------------------------
+# RDMA backend — push
+# ---------------------------------------------------------------------------
+def push_rdma(q: DQueue, vals, promise: Promise = Promise.CRW, valid=None,
+              max_cas_rounds: int = 8, planned: bool = True,
+              coalesce: bool = False) -> Tuple[DQueue, Tensor]:
+    """Batched push of vals (P, n, vw) onto the hosted ring buffer.
+
+    Returns (queue', pushed (P, n) bool). Overflowing reservations are
+    returned by one extra FAA and reported failed (the caller sizes the
+    ring, as in BCL).
+
+    planned=True (default): every component phase reuses ONE RoutePlan
+    (the host destination never changes). coalesce=True: the reserve and
+    failure-return FAOs send ONE wire row per origin, tickets reconstructed
+    sender-side bit-exactly."""
+    if promise not in (Promise.CRW, Promise.CW):
+        raise ValueError(f"push promise must be CRW or CW, not {promise}")
+    dev = q.win.data.device
+    vals = as_i32(vals, dev)
+    P, n, vw = vals.shape
+    if vw != q.val_words:
+        raise ValueError(f"push of {vw} words into a {q.val_words}-word "
+                         f"queue")
+    valid = as_mask(valid, (P, n), dev)
+    dst = _host_dst(q, (P, n))
+    use_csum = q.checksum and promise == Promise.CRW
+    plan = (routing.make_plan(dst, valid, cap=n, role="q_push")
+            if planned else None)
+
+    # Phase 1 — A_FAO: reserve space by advancing `tail`.
+    off_tail = torch.full((P, n), TAIL, dtype=torch.int32, device=dev)
+    ticket, win = rdma_fao(q.win, dst, off_tail, 1, AmoKind.FAA,
+                           valid=valid, plan=plan, coalesce=coalesce)
+
+    # Ring-capacity check against head_ready; a full ring fails the push.
+    head_ready = win.data[q.host, HEAD_READY]
+    ok = valid & (ticket - head_ready < q.capacity)
+    # Failed reservations are the top of the reserved range: return them.
+    neg = torch.where(valid & ~ok, -1, 0).to(torch.int32)
+    _, win = rdma_fao(win, dst, off_tail, neg, AmoKind.FAA,
+                      valid=valid & ~ok, plan=plan, coalesce=coalesce)
+
+    # Phase 2 — W: write the payload into the reserved slot.
+    base = CTRL_WORDS + (ticket % q.capacity) * q.slot_w
+    if use_csum:
+        payload = torch.cat([vals, _csum(vals)[..., None]], dim=-1)
+    elif q.checksum:
+        # checksum layout but phasal promise: a zero checksum word
+        payload = torch.cat([vals, torch.zeros_like(vals[..., :1])], dim=-1)
+    else:
+        payload = vals
+    win = rdma_put(win, dst, base, payload, valid=ok, plan=plan)
+
+    if promise == Promise.CRW and not use_csum:
+        # Phase 3 — persistent CAS: advance tail_ready ticket -> ticket+1.
+        # Each op may publish only once every earlier ticket has published.
+        off_tr = torch.full((P, n), TAIL_READY, dtype=torch.int32,
+                            device=dev)
+        pending = ok
+        for _ in range(max_cas_rounds):
+            old, win = rdma_cas(win, dst, off_tr, ticket, ticket + 1,
+                                valid=pending, plan=plan)
+            pending = pending & ~(old == ticket)
+        ok = ok & ~pending  # unpublished pushes report failure
+    return _with_win(q, win), ok
+
+
+# ---------------------------------------------------------------------------
+# RDMA backend — pop
+# ---------------------------------------------------------------------------
+def pop_rdma(q: DQueue, n: int, promise: Promise = Promise.CR, valid=None,
+             max_cas_rounds: int = 8, planned: bool = True,
+             coalesce: bool = False) -> Tuple[DQueue, Tensor, Tensor]:
+    """Batched pop of up to n values per rank. Returns (q', got (P,n), vals).
+
+    C_R : A_FAO (reserve head) + R (read slot).
+    C_RW: A_FAO + R + persistent CAS advancing head_ready (release), the
+          reservation validated against tail_ready.
+    Failed pops report zero values."""
+    if promise not in (Promise.CRW, Promise.CR):
+        raise ValueError(f"pop promise must be CRW or CR, not {promise}")
+    dev = q.win.data.device
+    P = q.nranks
+    valid = as_mask(valid, (P, n), dev)
+    dst = _host_dst(q, (P, n))
+    plan = (routing.make_plan(dst, valid, cap=n, role="q_pop")
+            if planned else None)
+
+    off_head = torch.full((P, n), HEAD, dtype=torch.int32, device=dev)
+    ticket, win = rdma_fao(q.win, dst, off_head, 1, AmoKind.FAA,
+                           valid=valid, plan=plan, coalesce=coalesce)
+
+    # May only read below the publish frontier (checksum queues read below
+    # `tail` and validate the in-payload checksum instead).
+    use_ready = promise == Promise.CRW and not q.checksum
+    frontier = win.data[q.host, TAIL_READY if use_ready else TAIL]
+    got = valid & (ticket < frontier)
+    neg = torch.where(valid & ~got, -1, 0).to(torch.int32)
+    _, win = rdma_fao(win, dst, off_head, neg, AmoKind.FAA,
+                      valid=valid & ~got, plan=plan, coalesce=coalesce)
+
+    base = CTRL_WORDS + (ticket % q.capacity) * q.slot_w
+    rec = rdma_get(win, dst, base, q.slot_w, valid=got, plan=plan)
+    vals = rec[..., :q.val_words]
+
+    if q.checksum and promise == Promise.CRW:
+        got = got & (rec[..., -1] == _csum(vals))
+
+    if promise == Promise.CRW:
+        off_hr = torch.full((P, n), HEAD_READY, dtype=torch.int32,
+                            device=dev)
+        pending = got
+        for _ in range(max_cas_rounds):
+            old, win = rdma_cas(win, dst, off_hr, ticket, ticket + 1,
+                                valid=pending, plan=plan)
+            pending = pending & ~(old == ticket)
+    vals = torch.where(got[..., None], vals, 0)
+    return _with_win(q, win), got, vals
+
+
+# ---------------------------------------------------------------------------
+# C_L: local push/pop — the host manipulates its own ring, no network.
+# ---------------------------------------------------------------------------
+def push_local(q: DQueue, vals, valid=None) -> Tuple[DQueue, Tensor]:
+    """Host-local batched push: vals (n, vw) appended at tail. Zero phases."""
+    dev = q.win.data.device
+    vals = as_i32(vals, dev)
+    n, vw = vals.shape
+    valid = as_mask(valid, (n,), dev)
+    data = q.win.data
+    local = data[q.host]
+    L = q.win.local_size
+    tail, head_ready = local[TAIL], local[HEAD_READY]
+    ticket = tail + torch.cumsum(valid.to(torch.int32), 0) - 1
+    ok = valid & (ticket - head_ready < q.capacity)
+    base = CTRL_WORDS + (ticket % q.capacity) * q.slot_w
+    cols = base[:, None] + torch.arange(vw, device=dev)
+    local = intops.set_drop(local[None],
+                            torch.where(ok[:, None], cols, L)[None],
+                            vals[None])[0]
+    if q.checksum:
+        local = intops.set_drop(local[None],
+                                torch.where(ok, base + vw, L)[None],
+                                _csum(vals)[None])[0]
+    new_tail = (tail + ok.sum()).to(torch.int32)
+    local[TAIL] = new_tail
+    local[TAIL_READY] = new_tail
+    data = data.clone()
+    data[q.host] = local
+    return _with_win(q, Window(data=data)), ok
+
+
+def pop_local(q: DQueue, n: int) -> Tuple[DQueue, Tensor, Tensor]:
+    """Host-local batched pop of up to n values. Zero network phases."""
+    dev = q.win.data.device
+    data = q.win.data
+    local = data[q.host]
+    head, tail_ready = local[HEAD], local[TAIL_READY]
+    ticket = head + torch.arange(n, dtype=torch.int32, device=dev)
+    got = ticket < tail_ready
+    base = CTRL_WORDS + (ticket % q.capacity) * q.slot_w
+    cols = base[:, None] + torch.arange(q.val_words, device=dev)
+    vals = intops.get_fill(local[None], cols[None])[0]
+    vals = torch.where(got[:, None], vals, 0)
+    new_head = (head + got.sum()).to(torch.int32)
+    data = data.clone()
+    data[q.host, HEAD] = new_head
+    data[q.host, HEAD_READY] = new_head
+    return _with_win(q, Window(data=data)), got, vals
+
+
+# ---------------------------------------------------------------------------
+# RPC backend (paper Fig. 2 applied to the queue)
+# ---------------------------------------------------------------------------
+def build_am_handlers(q: DQueue, engine: am_mod.AMEngine):
+    """push/pop handlers at the host: bounds checks, wraparound and publish
+    in ONE round trip. The sequential per-request semantics are reproduced
+    with prefix-rank tickets (a failed op never consumes a ticket, and
+    capacity failures are a contiguous suffix of the valid ops), so each
+    owner services its whole request list in one vector step."""
+    vw, slot_w, cap = q.val_words, q.slot_w, q.capacity
+
+    def push_batched(data, payload, mask):
+        L = data.shape[1]
+        tail = data[:, TAIL:TAIL + 1]
+        head_ready = data[:, HEAD_READY:HEAD_READY + 1]
+        ticket = tail + torch.cumsum(mask.to(torch.int32), 1) - 1
+        can = mask & (ticket - head_ready < cap)
+        base = CTRL_WORDS + (ticket % cap) * slot_w
+        cols = base[..., None] + torch.arange(vw, device=data.device)
+        data = intops.set_drop(data, torch.where(can[..., None], cols, L),
+                               payload[..., :vw])
+        if q.checksum:
+            data = intops.set_drop(data, torch.where(can, base + vw, L),
+                                   _csum(payload[..., :vw]))
+        adv = can.sum(1).to(torch.int32)
+        data[:, TAIL] += adv
+        data[:, TAIL_READY] += adv
+        return data, can.to(torch.int32)[..., None]
+
+    def pop_batched(data, payload, mask):
+        head = data[:, HEAD:HEAD + 1]
+        tail_ready = data[:, TAIL_READY:TAIL_READY + 1]
+        ticket = head + torch.cumsum(mask.to(torch.int32), 1) - 1
+        can = mask & (ticket < tail_ready)
+        base = CTRL_WORDS + (ticket % cap) * slot_w
+        cols = base[..., None] + torch.arange(vw, device=data.device)
+        rec = torch.where(can[..., None], intops.get_fill(data, cols), 0)
+        adv = can.sum(1).to(torch.int32)
+        data = data.clone()
+        data[:, HEAD] += adv
+        data[:, HEAD_READY] += adv
+        return data, torch.cat([can.to(torch.int32)[..., None], rec], -1)
+
+    push_h = engine.register("q_push", push_batched, reply_width=1)
+    pop_h = engine.register("q_pop", pop_batched, reply_width=1 + vw)
+    return push_h, pop_h
+
+
+def push_rpc(q: DQueue, engine: am_mod.AMEngine, vals, valid=None,
+             decision=None) -> Tuple[DQueue, Tensor]:
+    """Push via ONE AM round trip."""
+    dev = q.win.data.device
+    vals = as_i32(vals, dev)
+    P, n, _ = vals.shape
+    dst = _host_dst(q, (P, n))
+    data, replies, delivered = engine.dispatch(
+        engine.handler("q_push"), q.win.data, dst, vals,
+        None if valid is None else as_mask(valid, (P, n), dev),
+        decision=decision)
+    ok = delivered & (replies[..., 0] > 0)
+    return _with_win(q, Window(data=data)), ok
+
+
+def pop_rpc(q: DQueue, engine: am_mod.AMEngine, n: int, valid=None,
+            decision=None) -> Tuple[DQueue, Tensor, Tensor]:
+    """Pop up to n values per rank via ONE AM round trip."""
+    dev = q.win.data.device
+    P = q.nranks
+    dst = _host_dst(q, (P, n))
+    payload = torch.zeros((P, n, 1), dtype=torch.int32, device=dev)
+    data, replies, delivered = engine.dispatch(
+        engine.handler("q_pop"), q.win.data, dst, payload,
+        None if valid is None else as_mask(valid, (P, n), dev),
+        decision=decision)
+    got = delivered & (replies[..., 0] > 0)
+    vals = torch.where(got[..., None], replies[..., 1:], 0)
+    return _with_win(q, Window(data=data)), got, vals
+
+
+# ---------------------------------------------------------------------------
+# Front doors for an explicit backend (the AUTO chooser is not ported yet).
+# C_L short-circuits before any backend decision (zero network phases).
+# ---------------------------------------------------------------------------
+def push(q, vals, *, promise=Promise.CRW, backend=Backend.AUTO, engine=None,
+         **kw):
+    """Batched push onto the hosted ring buffer — paper §III-B2.
+
+    vals (P, n, vw) int32 ((n, vw) for C_L); backend "rdma" or "rpc".
+    Returns (queue', pushed bool)."""
+    if promise == Promise.CL:
+        return push_local(q, vals, **kw)
+    if explicit_backend(backend) == Backend.RPC:
+        return push_rpc(q, engine, vals, valid=kw.get("valid"))
+    return push_rdma(q, vals, promise=promise, **kw)
+
+
+def pop(q, n, *, promise=Promise.CR, backend=Backend.AUTO, engine=None,
+        **kw):
+    """Batched pop of up to n values per rank. Backends as in `push`.
+    Returns (queue', got (P, n) bool, vals (P, n, vw)), zeros where not got."""
+    if promise == Promise.CL:
+        return pop_local(q, n)
+    if explicit_backend(backend) == Backend.RPC:
+        return pop_rpc(q, engine, n, valid=kw.get("valid"))
+    return pop_rdma(q, n, promise=promise, **kw)

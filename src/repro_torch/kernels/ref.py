@@ -1,0 +1,212 @@
+"""Plain PyTorch versions of the four owner-lane kernels (ports of
+`repro.kernels.ref` amo_apply, fused_apply, hash_find, hash_insert).
+
+They take all owners at once (the leading P axis JAX vmaps over) and keep
+the JAX oracles' semantics word for word, including what happens at an
+offset outside [0, L): the plain `jnp` gather wraps a negative index once
+and clamps, the scatter wraps and drops. The CPU tests hold these against
+the JAX oracles; chip_smoke.py holds the CUDA kernels against these.
+
+The serial walks loop in Python over the op positions where some owner
+has a live op (an all-masked position changes nothing) and are vectorized
+across owners, so they are slow references, not fast paths.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .. import intops
+
+Tensor = torch.Tensor
+
+OP_PUT, OP_GET, OP_CAS, OP_FAA, OP_FOR, OP_FAND, OP_FXOR = range(7)
+OP_CAS_PUT, OP_CAS_PUT_PUB, OP_FAO_GET = 7, 8, 9
+STATE_MASK, STATE_EMPTY, STATE_READY = 255, 0, 2
+
+
+def _fao_any(cur: Tensor, a: Tensor, code: Tensor) -> Tensor:
+    """Per-op fetch-and-op with a runtime kind (no-op for other codes)."""
+    out = torch.where(code == OP_FAA, intops.add(cur, a), cur)
+    out = torch.where(code == OP_FOR, cur | a, out)
+    out = torch.where(code == OP_FAND, cur & a, out)
+    return torch.where(code == OP_FXOR, cur ^ a, out)
+
+
+def _amo_new(cur: Tensor, code: Tensor, a: Tensor, b: Tensor) -> Tensor:
+    """New word for primitive codes 0-6 (any other code leaves it)."""
+    out = _fao_any(cur, a, code)
+    out = torch.where(code == OP_PUT, b, out)
+    return torch.where(code == OP_CAS, torch.where(cur == a, b, cur), out)
+
+
+def _live(mask: Tensor):
+    """Op positions where at least one owner has a live op."""
+    return torch.nonzero(mask.any(0)).flatten().tolist()
+
+
+def _word_rmw(out: Tensor, off: Tensor, do: Tensor, fn) -> Tensor:
+    """One serialized step on every owner's shard: cur = out[off] (plain
+    `jnp` gather), out[off] = fn(cur) where `do` (dropped out of range).
+    Returns cur."""
+    L = out.shape[1]
+    rows = torch.arange(out.shape[0], device=out.device)
+    r = intops.clip_index(off, L)
+    cur = out[rows, r]
+    j = intops.wrap_index(off, L)
+    w = do & (j >= 0) & (j < L)
+    out[rows, r] = torch.where(w, fn(cur), cur)
+    return cur
+
+
+def amo_apply(local: Tensor, ops: Tensor, mask: Tensor
+              ) -> Tuple[Tensor, Tensor]:
+    """Serialized AMOs. local (P, L) int32; ops (P, m, 4) int32 rows
+    [off, opcode, a, b]; mask (P, m) bool. Returns (old (P, m), local').
+    Op j observes the state left by ops < j, NIC arrival-order semantics."""
+    out = local.clone()
+    old = torch.zeros(ops.shape[:2], dtype=torch.int32, device=local.device)
+    for j in _live(mask):
+        off, code, a, b = ops[:, j].unbind(-1)
+        ok = mask[:, j]
+        cur = _word_rmw(out, off, ok, lambda c: _amo_new(c, code, a, b))
+        old[:, j] = torch.where(ok, cur, 0)
+    return old, out
+
+
+def fused_apply(local: Tensor, ops: Tensor, mask: Tensor, *,
+                reply_width: int) -> Tuple[Tensor, Tensor]:
+    """Fused descriptor lane. ops (P, m, 6 + V) rows
+    [off, opcode, a, b, aux0, aux1, vals...]. Returns
+    (reply (P, m, reply_width), local'): reply[..., 0] is the old value at
+    `off`, reply[..., 1:] the FAO_GET gather (zeros for other opcodes).
+
+    Sub-phase decomposed, each sub-phase serialized in op order:
+      1. all atomics (CAS_PUT[_PUB]'s CAS, FAO_GET's fetch-and-op with
+         sub-kind `b`, primitive codes 0-6);
+      2. the V-word puts of winning CAS_PUT[_PUB] ops at aux0, dropped
+         whole when out of range;
+      3. the publish flips of winning CAS_PUT_PUB ops (mem[off] ^= aux1);
+      4. the FAO_GET gathers of G words from aux0 (a phase-end snapshot).
+    """
+    P, L = local.shape
+    m = ops.shape[1]
+    V = ops.shape[2] - 6
+    G = reply_width - 1
+    dev = local.device
+    out = local.clone()
+    old = torch.zeros((P, m), dtype=torch.int32, device=dev)
+    win = torch.zeros((P, m), dtype=torch.bool, device=dev)
+    code = ops[..., 1]
+    is_csp = (code == OP_CAS_PUT) | (code == OP_CAS_PUT_PUB)
+    for j in _live(mask):
+        off, c, a, b = ops[:, j, :4].unbind(-1)
+        ok = mask[:, j]
+
+        def new(cur):
+            csp = (c == OP_CAS_PUT) | (c == OP_CAS_PUT_PUB)
+            nw = torch.where(csp, torch.where(cur == a, b, cur),
+                             _amo_new(cur, c, a, b))
+            return torch.where(c == OP_FAO_GET, _fao_any(cur, a, b), nw)
+
+        cur = _word_rmw(out, off, ok, new)
+        old[:, j] = torch.where(ok, cur, 0)
+        win[:, j] = ok & (cur == a)
+
+    rows = torch.arange(P, device=dev)[:, None]
+    aux0 = ops[..., 4]
+    if V > 0:
+        do_put = win & is_csp & (aux0 >= 0) & (aux0 <= L - V)
+        for j in _live(do_put):
+            do = do_put[:, j, None]
+            cols = (torch.where(do[:, 0], aux0[:, j], 0)[:, None]
+                    + torch.arange(V, device=dev))
+            out[rows, cols] = torch.where(do, ops[:, j, 6:], out[rows, cols])
+
+    do_flip = win & (code == OP_CAS_PUT_PUB)
+    for j in _live(do_flip):
+        _word_rmw(out, ops[:, j, 0], do_flip[:, j],
+                  lambda cur: cur ^ ops[:, j, 5])
+
+    reply = torch.zeros((P, m, reply_width), dtype=torch.int32, device=dev)
+    reply[..., 0] = old
+    if G > 0:
+        is_get = mask & (code == OP_FAO_GET) & (aux0 >= 0) & (aux0 <= L - G)
+        idx = (torch.where(is_get, aux0, 0)[..., None]
+               + torch.arange(G, device=dev))
+        g = torch.gather(out, 1, idx.reshape(P, -1)).reshape(P, m, G)
+        reply[..., 1:] = torch.where(is_get[..., None], g, 0)
+    return reply, out
+
+
+def hash_find(table: Tensor, starts: Tensor, keys: Tensor, mask: Tensor, *,
+              nslots: int, rec_w: int, max_probes: int = 8
+              ) -> Tuple[Tensor, Tensor]:
+    """Independent open-addressing lookups. table (P, L) int32 holding
+    nslots records of rec_w words [flag|key|val...]; starts/keys/mask
+    (P, m). Up to max_probes linear probes; flag low byte 2 = READY hits on
+    a key match, 0 = EMPTY stops. Returns (found (P, m) bool,
+    vals (P, m, rec_w-2) int32, zero where not found)."""
+    P, L = table.shape
+    vw = rec_w - 2
+    dev = table.device
+    found = torch.zeros(starts.shape, dtype=torch.bool, device=dev)
+    stop = torch.zeros_like(found)
+    vals = torch.zeros(starts.shape + (vw,), dtype=torch.int32, device=dev)
+    words = torch.arange(rec_w, device=dev)
+    for j in range(max_probes):
+        s = (starts.to(torch.int64) + j) % nslots
+        base = intops.slice_start(s * rec_w, rec_w, L)
+        rec = torch.gather(table, 1, (base[..., None] + words).reshape(P, -1)
+                           ).reshape(starts.shape + (rec_w,))
+        state = rec[..., 0] & STATE_MASK
+        hit = ~stop & (state == STATE_READY) & (rec[..., 1] == keys)
+        empty = ~stop & (state == STATE_EMPTY)
+        vals = torch.where(hit[..., None], rec[..., 2:], vals)
+        found = found | hit
+        stop = stop | hit | empty
+    found = found & mask
+    return found, torch.where(found[..., None], vals, 0)
+
+
+def hash_insert(table: Tensor, starts: Tensor, keys: Tensor, vals: Tensor,
+                mask: Tensor, *, nslots: int, rec_w: int, max_probes: int = 8
+                ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Serialized insert-or-assign per owner: request j sees requests < j.
+    vals (P, m, rec_w-2). Returns (ok (P, m) bool, probes (P, m) int32 —
+    slots examined until the request decided, max_probes on a full-window
+    miss, 0 for masked requests — and table')."""
+    P, L = table.shape
+    dev = table.device
+    out = table.clone()
+    rows = torch.arange(P, device=dev)
+    words = torch.arange(rec_w, device=dev)
+    ok_out = torch.zeros(starts.shape, dtype=torch.bool, device=dev)
+    probes_out = torch.zeros(starts.shape, dtype=torch.int32, device=dev)
+    for j in _live(mask):
+        start, key, ok = starts[:, j].to(torch.int64), keys[:, j], mask[:, j]
+        slot = torch.full((P,), -1, dtype=torch.int64, device=dev)
+        kind = torch.zeros((P,), dtype=torch.int64, device=dev)  # 0 searching
+        probes = torch.zeros((P,), dtype=torch.int32, device=dev)
+        for p in range(max_probes):
+            s = (start + p) % nslots
+            b = intops.slice_start(s * rec_w, 2, L)
+            state = out[rows, b] & STATE_MASK
+            searching = kind == 0
+            hit = (searching & (state == STATE_READY)
+                   & (out[rows, b + 1] == key))
+            empty = searching & (state == STATE_EMPTY)
+            slot = torch.where(hit | empty, s, slot)
+            kind = torch.where(hit, 1, torch.where(empty, 2, kind))
+            probes = probes + searching.to(torch.int32)
+        can = ok & (kind > 0)
+        base = intops.slice_start(torch.where(can, slot * rec_w, 0), rec_w, L)
+        cols = base[:, None] + words
+        rec = torch.cat([torch.full((P, 1), STATE_READY, dtype=torch.int32,
+                                    device=dev), key[:, None], vals[:, j]], 1)
+        out[rows[:, None], cols] = torch.where(can[:, None], rec,
+                                               out[rows[:, None], cols])
+        ok_out[:, j] = can
+        probes_out[:, j] = torch.where(ok, probes, 0)
+    return ok_out, probes_out, out

@@ -1,0 +1,160 @@
+"""Parity of the port's owner-lane and handler kernels with the JAX oracles.
+
+repro_torch.kernels.ref (the plain versions the CPU runs, and the spec of
+the CUDA kernels) against repro.kernels.ref vmapped over owners: masked
+rows, repeated offsets, CAS chains, every opcode, offsets outside [0, L),
+aux0 out of range, a full table and wraparound at nslots. Bit-exact. The
+CUDA kernels themselves are held against these on the card (the `cuda`
+tests below and chip_smoke.py).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from torch_parity import (amo_inputs, probe_table, same,  # noqa: F401
+                          torch_one_thread, tt)
+
+
+def jv(fn):
+    """A per-owner JAX oracle, vmapped over owners and jitted."""
+    return jax.jit(jax.vmap(fn))
+
+
+@pytest.mark.parametrize("P,L,m,span", [(1, 16, 12, 3), (3, 32, 40, 5),
+                                        (4, 64, 64, 64)])
+def test_amo_apply_matches_jax_ref(P, L, m, span):
+    rng = np.random.default_rng(100 + m)
+    local, ops, mask = amo_inputs(rng, P, L, m, span)
+    old_j, new_j = jv(jref.amo_apply)(jnp.asarray(local), jnp.asarray(ops),
+                                      jnp.asarray(mask))
+    old_t, new_t = tref.amo_apply(tt(local), tt(ops), tt(mask))
+    same(old_t, old_j, "old")
+    same(new_t, new_j, "local'")
+
+
+def test_amo_apply_cas_chain_and_masked_rows():
+    """A CAS chain on one word (each op sees the last) with masked rows in
+    between: masked rows reply 0 and leave the word alone."""
+    L, m = 8, 10
+    local = np.zeros((1, L), np.int32)
+    ops = np.zeros((1, m, 4), np.int32)
+    ops[0, :, 0] = 3
+    ops[0, :, 1] = 2                          # CAS k -> k+1
+    ops[0, :, 2] = np.arange(m)
+    ops[0, :, 3] = np.arange(m) + 1
+    mask = np.ones((1, m), bool)
+    mask[0, [2, 5]] = False
+    old_j, new_j = jv(jref.amo_apply)(jnp.asarray(local), jnp.asarray(ops),
+                                      jnp.asarray(mask))
+    old_t, new_t = tref.amo_apply(tt(local), tt(ops), tt(mask))
+    same(old_t, old_j)
+    same(new_t, new_j)
+    assert int(new_t[0, 3]) == 2  # the chain stops at the first masked row
+    assert int(old_t[0, 2]) == 0
+
+
+@pytest.mark.parametrize("P,L,m,V,G", [(1, 32, 8, 2, 3), (3, 64, 20, 1, 0),
+                                       (2, 128, 50, 3, 4), (2, 16, 24, 0, 1)])
+def test_fused_apply_matches_jax_ref(P, L, m, V, G):
+    """Heterogeneous descriptors (codes 0-9 and unknown codes), repeated
+    offsets, out-of-range off and aux0."""
+    rng = np.random.default_rng(7 * m + V)
+    local = rng.integers(0, 6, (P, L)).astype(np.int32)
+    ops = np.zeros((P, m, 6 + V), np.int32)
+    ops[..., 0] = rng.integers(0, min(L, 8), (P, m))
+    ops[..., 0] = np.where(rng.random((P, m)) < 0.1,
+                           rng.choice([-1, -L - 1, L, L + 2], (P, m)),
+                           ops[..., 0])
+    ops[..., 1] = rng.integers(0, 12, (P, m))
+    ops[..., 2] = rng.integers(0, 6, (P, m))
+    ops[..., 3] = rng.integers(0, 10, (P, m))
+    ops[..., 4] = rng.integers(-3, L + 3, (P, m))
+    ops[..., 5] = rng.integers(-5, 5, (P, m))
+    ops[..., 6:] = rng.integers(0, 100, (P, m, V))
+    mask = rng.random((P, m)) > 0.25
+    rep_j, new_j = jv(lambda l, o, mm: jref.fused_apply(
+        l, o, mm, reply_width=1 + G))(jnp.asarray(local), jnp.asarray(ops),
+                                      jnp.asarray(mask))
+    rep_t, new_t = tref.fused_apply(tt(local), tt(ops), tt(mask),
+                                    reply_width=1 + G)
+    same(rep_t, rep_j, "reply")
+    same(new_t, new_j, "local'")
+
+
+@pytest.mark.parametrize("P,nslots,vw,m,fill", [(2, 16, 1, 10, 0.5),
+                                                (1, 64, 3, 33, 0.7),
+                                                (3, 32, 2, 17, 1.0)])
+def test_hash_find_matches_jax_ref(P, nslots, vw, m, fill):
+    rng = np.random.default_rng(nslots + m)
+    table = probe_table(rng, P, nslots, vw, fill, key_span=12)
+    starts = rng.integers(0, nslots, (P, m)).astype(np.int32)
+    starts[:, :3] = nslots - 1 - np.arange(3)    # wraparound at nslots
+    keys = rng.integers(0, 12, (P, m)).astype(np.int32)
+    mask = rng.random((P, m)) > 0.2
+    rec_w = 2 + vw
+    f_j, v_j = jv(lambda t, s, k, mm: jref.hash_find(
+        t, s, k, mm, nslots, rec_w, 8))(jnp.asarray(table),
+                                        jnp.asarray(starts),
+                                        jnp.asarray(keys), jnp.asarray(mask))
+    f_t, v_t = tref.hash_find(tt(table), tt(starts), tt(keys), tt(mask),
+                              nslots=nslots, rec_w=rec_w, max_probes=8)
+    same(f_t, f_j, "found")
+    same(v_t, v_j, "vals")
+
+
+@pytest.mark.parametrize("P,nslots,vw,m,fill", [(2, 16, 1, 24, 0.3),
+                                                (1, 64, 3, 40, 0.6),
+                                                (3, 8, 2, 12, 1.0)])
+def test_hash_insert_matches_jax_ref(P, nslots, vw, m, fill):
+    """Serialized insert-or-assign: duplicate keys in one list (the later
+    request sees the earlier), a full table, wraparound at nslots."""
+    rng = np.random.default_rng(3 * nslots + m)
+    table = probe_table(rng, P, nslots, vw, fill, key_span=10)
+    starts = rng.integers(0, nslots, (P, m)).astype(np.int32)
+    starts[:, :2] = nslots - 1
+    keys = rng.integers(0, 10, (P, m)).astype(np.int32)
+    vals = rng.integers(-50, 50, (P, m, vw)).astype(np.int32)
+    mask = rng.random((P, m)) > 0.2
+    rec_w = 2 + vw
+    ok_j, pr_j, t_j = jv(lambda t, s, k, v, mm: jref.hash_insert(
+        t, s, k, v, mm, nslots, rec_w, 8))(
+            jnp.asarray(table), jnp.asarray(starts), jnp.asarray(keys),
+            jnp.asarray(vals), jnp.asarray(mask))
+    ok_t, pr_t, t_t = tref.hash_insert(tt(table), tt(starts), tt(keys),
+                                       tt(vals), tt(mask), nslots=nslots,
+                                       rec_w=rec_w, max_probes=8)
+    same(ok_t, ok_j, "ok")
+    same(pr_t, pr_j, "probes")
+    same(t_t, t_j, "table'")
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """kernels.ops on CPU tensors: the plain versions, no launch counted."""
+    from repro_torch.kernels import amo_apply as kamo
+    from repro_torch.kernels import hash_probe as khp
+    rng = np.random.default_rng(5)
+    local, ops, mask = amo_inputs(rng, 2, 16, 12, 4)
+    before = (kamo.amo_apply.launches, kamo.fused_apply.launches,
+              khp.hash_find.launches, khp.hash_insert.launches)
+    old, new = tops.amo_apply(tt(local), tt(ops), tt(mask))
+    ref_old, ref_new = tref.amo_apply(tt(local), tt(ops), tt(mask))
+    same(old, ref_old)
+    same(new, ref_new)
+    after = (kamo.amo_apply.launches, kamo.fused_apply.launches,
+             khp.hash_find.launches, khp.hash_insert.launches)
+    assert before == after
+
+
+def test_wrappers_refuse_cpu_tensors():
+    """The CUDA wrappers launch or raise: never a quiet CPU run."""
+    from repro_torch.kernels import amo_apply as kamo
+    local = torch.zeros((1, 4), dtype=torch.int32)
+    ops = torch.zeros((1, 2, 4), dtype=torch.int32)
+    mask = torch.ones((1, 2), dtype=torch.bool)
+    with pytest.raises(ValueError):
+        kamo.amo_apply(local, ops, mask)

@@ -1,0 +1,95 @@
+"""Shared helpers for the PyTorch port's tests (tests/test_torch_*.py).
+
+The same numpy inputs go to the JAX package and to its counterpart in
+`repro_torch`, on the CPU, and the outputs must match bit for bit (every
+value is int32 or bool). Nothing here changes global state: the JAX side
+runs on its default XLA lanes (`use_pallas=False` where a signature takes
+it), and torch's intra-op thread count is lowered to one for a module and
+restored after it, so the torch tests do not crowd the JAX tests that share
+the cores.
+"""
+import numpy as np
+import pytest
+import torch
+
+
+def tt(x, dtype=None):
+    """numpy (or JAX) array -> CPU tensor (int32 unless bool)."""
+    a = np.asarray(x)
+    if dtype is None:
+        dtype = torch.bool if a.dtype == np.bool_ else torch.int32
+    return torch.as_tensor(a.astype(np.bool_ if dtype == torch.bool
+                                    else np.int32))
+
+
+def npy(x):
+    """JAX array, torch tensor or numpy array -> numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def same(a, b, what=""):
+    """Assert two results are equal in shape and value (bools as ints)."""
+    a, b = npy(a), npy(b)
+    if a.dtype == np.bool_ or b.dtype == np.bool_:
+        a, b = a.astype(np.int64), b.astype(np.int64)
+    np.testing.assert_array_equal(a, b, err_msg=what)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, for tests that need one; skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card through "
+                    "chip_smoke.py and tests/test_torch_cuda.py)")
+    return torch.device("cuda")
+
+
+def jit(fn, *static):
+    """jax.jit with static keyword arguments (the JAX package's functions
+    are tracer-safe): one compile per shape instead of one per primitive."""
+    import jax
+    return jax.jit(fn, static_argnames=static)
+
+
+def amo_inputs(rng, P, L, m, span):
+    """Random AMO lists: offsets drawn from a few words (repeats, CAS
+    chains), some outside [0, L) both ways, every opcode 0-6 and a few
+    unknown codes, small operands so CAS compares hit."""
+    local = rng.integers(-4, 4, (P, L)).astype(np.int32)
+    ops = np.zeros((P, m, 4), np.int32)
+    ops[..., 0] = rng.integers(0, span, (P, m))
+    oob = rng.random((P, m)) < 0.15
+    ops[..., 0] = np.where(oob, rng.choice([-L - 3, -2, -1, L, L + 5],
+                                           (P, m)), ops[..., 0])
+    ops[..., 1] = rng.integers(0, 9, (P, m))
+    ops[..., 2] = rng.integers(-4, 4, (P, m))
+    ops[..., 3] = rng.integers(-4, 4, (P, m))
+    # int32 wraparound on FAA
+    big = rng.random((P, m)) < 0.1
+    ops[..., 2] = np.where(big, np.int32(2 ** 31 - 1), ops[..., 2])
+    mask = rng.random((P, m)) > 0.25
+    return local, ops, mask
+
+
+def probe_table(rng, P, nslots, vw, fill, key_span):
+    """A table with READY / RESERVED / EMPTY records, reader bits on some
+    flags; fill=1.0 leaves no EMPTY slot (probe exhaustion)."""
+    rec_w = 2 + vw
+    t = np.zeros((P, nslots, rec_w), np.int32)
+    state = np.where(rng.random((P, nslots)) < fill,
+                     np.where(rng.random((P, nslots)) < 0.85, 2, 1), 0)
+    t[..., 0] = state + 256 * rng.integers(0, 3, (P, nslots))
+    t[..., 0] = np.where(state == 0, 0, t[..., 0])
+    t[..., 1] = rng.integers(0, key_span, (P, nslots))
+    t[..., 2:] = rng.integers(-1000, 1000, (P, nslots, vw))
+    return t.reshape(P, nslots * rec_w)
