@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one card: builds the kernels,
-drives the port's main path at the slice's full size, and checks it.
+drives the port's two main paths at full size, and checks them.
 
     python3 chip_smoke.py [--seed S] [--insert-batches B]
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
-1. Edge cases, on the card: each kernel (amo_apply, fused_apply,
-   hash_find, hash_insert) and its plain version in kernels/ref.py must
-   agree bit for bit on small inputs with masked rows, offsets outside the
-   shard, every opcode and a full table.
-2. The slice at full size: a distributed hash table of 64 ranks x 2**18
-   slots (val_words 1; a 201 MB window) filled to load 0.25 with 4,194,304
-   keys in batches of 1024 keys per rank, then 16 find batches of the same
-   size (half present, half absent), on three arms (RDMA fused, RDMA
-   unfused, RPC), each on a fresh table; and a hosted queue (host 0,
+1. Edge cases, on the card: each kernel and its plain version in
+   kernels/ref.py must agree on small inputs. amo_apply, fused_apply,
+   hash_find and hash_insert bit for bit, with masked rows, offsets outside
+   the shard, every opcode and a full table; moe_dispatch bit for bit at
+   T = 1, at a T that is not a multiple of its block, with every token on
+   one expert, with ids outside [0, E), and at (T, E) = (48, 64) and
+   (6144, 64); flash_decode within the stated tolerance at length 1,
+   length = W and a length that is not a multiple of its tile, with 1 and
+   8 query heads per kv head, in float32 and bfloat16.
+2. The data structures at full size: a distributed hash table of 64 ranks
+   x 2**18 slots (val_words 1; a 201 MB window) filled to load 0.25 with
+   4,194,304 keys in batches of 1024 keys per rank, then 16 find batches
+   of the same size (half present, half absent), on three arms (RDMA fused,
+   RDMA unfused, RPC), each on a fresh table; and a hosted queue (host 0,
    capacity 2**20, 2 words a slot) pushed with 256 values per rank for 16
    batches and popped until empty, on the RDMA and RPC arms. Results are
    held against a host oracle. Kernel launch counters are zeroed just
@@ -22,23 +27,38 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    the first kernel call of each kernel in each marked batch: the first
    and the last insert batch (a fresh table and one at load 0.25), the
    first find batch and the first queue push and pop, on every arm.
-3. Kernel against plain version on those captured main-path inputs: each
-   kernel and its plain version must agree bit for bit. Times of both are
-   taken with CUDA events; the bound counts the bytes these inputs need.
+3. Kernel against plain version on those captured inputs: each kernel and
+   its plain version must agree bit for bit. Times of both are taken with
+   CUDA events, the kernel's on single calls after an L2 flush; the bound
+   counts the bytes these inputs need.
 4. CPU against GPU at a small size (8 ranks x 4096 slots): the same op
    streams through the port on both devices; every reply and the final
    windows must be equal.
+5. Serving deepseek-moe-16b at full width (28 layers, d_model 2048, 16
+   heads of 128, 64 routed experts top-6 and 2 shared, vocab 102,400,
+   bfloat16, 16.67 B seeded random weights) through
+   repro_torch.launch.serve: 8 requests of a 256-token prompt, 64 tokens
+   generated, 320 decode steps. Counters are zeroed just before and read
+   just after; flash_decode and moe_dispatch must each launch 28 times a
+   step. The inputs of each kernel's first call at the first and the last
+   step are kept and then held against the plain versions (moe_dispatch
+   bit for bit, flash_decode within the tolerance), timed as in phase 3. The
+   last PROFILE_STEPS steps are traced with torch.profiler for the device
+   time per step by kernel and the device's idle share.
+6. CPU against GPU for the model: reduced deepseek-moe-16b in float32,
+   the same seeded weights built once and moved, 8 teacher-forced decode
+   steps; logits within the stated tolerance, greedy tokens printed.
 
 Before the last line it prints the card's name and power limit, the
-median time per batch of each arm, and one JSON line with every kernel's
-launches, error, times and bound, after one JSON line with the per-arm
-report (medians, launches per arm, failed inserts). The last line is
-{"ok": true, "device": {...}}. It needs one card and exits non-zero where
-torch sees none.
+median time per batch of each data-structure arm and per decode step, one
+JSON line with the report, and one JSON line with every kernel's launches,
+error, times and bound. The last line is {"ok": true, "device": {...}}.
+It needs one card and exits non-zero where torch sees none.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import statistics
 import subprocess
@@ -57,6 +77,18 @@ FIND_BATCHES = 16
 Q_HOST, Q_CAP, Q_VW, Q_N, Q_BATCHES = 0, 2 ** 20, 2, 256, 16
 # phase 4
 SMALL = dict(P=8, NSLOTS=4096, N=128, BATCHES=3, Q_CAP=4096, Q_N=64)
+# phase 5: the serving path at full width, and phase 6 at the reduced size
+SERVE = dict(arch="deepseek-moe-16b", batch=8, prompt_len=256, gen_len=64)
+MODEL_STEPS = 8
+PROFILE_STEPS = 4       # the last decode steps of phase 5, traced
+# flash_decode against its plain version: f32 math over the same inputs in
+# another order and with an online softmax
+DECODE_TOL = dict(o_rtol=1e-4, o_atol=1e-5, m_atol=1e-5, l_rtol=1e-4)
+# phase 6: f32 logits of the reduced model, CPU against GPU (TF32 off)
+LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
+# written before each timed call: > the 50 MB L2, and about 0.3 ms of
+# work, so the host has launched the timed call before the card reaches it
+L2_FLUSH_BYTES = 2 ** 30
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory, NVIDIA data sheet
 ARMS = ("rdma_fused", "rdma_unfused", "rpc")
@@ -256,13 +288,30 @@ KERNELS = {
                   "src/repro/kernels/hash_probe.py:73"),
     "hash_insert": ("src/repro_torch/kernels/csrc/hash_probe.cu",
                     "src/repro/kernels/hash_probe.py:163"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode.py:81"),
+    "moe_dispatch": ("src/repro_torch/kernels/csrc/moe_dispatch.cu",
+                     "src/repro/kernels/moe_dispatch.py:66"),
 }
+# the kernels each main path runs (phase 2 and phase 5)
+DS_KERNELS = ("amo_apply", "fused_apply", "hash_find", "hash_insert")
+MODEL_KERNELS = ("flash_decode", "moe_dispatch")
 
 
 def wrappers():
-    from repro_torch.kernels import amo_apply as kamo, hash_probe as khp
+    from repro_torch.kernels import (amo_apply as kamo, flash_decode as kfd,
+                                     hash_probe as khp, moe_dispatch as kmd)
     return {"amo_apply": kamo.amo_apply, "fused_apply": kamo.fused_apply,
-            "hash_find": khp.hash_find, "hash_insert": khp.hash_insert}
+            "hash_find": khp.hash_find, "hash_insert": khp.hash_insert,
+            "flash_decode": kfd.flash_decode,
+            "moe_dispatch": kmd.moe_dispatch}
+
+
+def plain_versions():
+    from repro_torch.kernels import ref as kref
+    return {name: getattr(kref, name) for name in DS_KERNELS} | {
+        "flash_decode": kref.decode_attention,
+        "moe_dispatch": kref.moe_dispatch}
 
 
 def launch_counter():
@@ -278,11 +327,27 @@ def launch_counter():
     return since
 
 
+def zero_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_counts(names) -> dict:
+    """The launches since zero_counts(); raises if a kernel of the path
+    never launched."""
+    counts = {name: fn.launches for name, fn in wrappers().items()}
+    for name in names:
+        if counts[name] == 0:
+            raise AssertionError(f"{name} never launched on its main path")
+    return counts
+
+
 class Capture:
     """While entered, it sits over the kernels in kernels/ops.py and keeps
     the inputs of the first call of each kernel under each tag that
     `mark` names (tag None: keeps nothing). It launches nothing of its own:
-    every call goes on to the wrapper, which counts it."""
+    every call goes on to the wrapper, which counts it. flash_decode's
+    inputs keep their strides (the cache is read through a view)."""
 
     def __init__(self):
         self.tag = None
@@ -297,11 +362,13 @@ class Capture:
         self._saved = {name: getattr(kops, name) for name in KERNELS}
 
         def hook(name, fn):
+            fmt = (torch.preserve_format if name == "flash_decode"
+                   else torch.contiguous_format)
+
             def call(*args, **kw):
                 key = (name, self.tag)
                 if self.tag is not None and key not in self.calls:
-                    contiguous = torch.contiguous_format
-                    self.calls[key] = ([a.clone(memory_format=contiguous)
+                    self.calls[key] = ([a.clone(memory_format=fmt)
                                         for a in args], dict(kw))
                 return fn(*args, **kw)
             return call
@@ -318,6 +385,7 @@ class Capture:
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """Mean ms per call over `reps` back-to-back calls."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -329,6 +397,22 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_cold(fn, reps: int, flush) -> float:
+    """Median ms of one call with the L2 cache flushed before it (writing
+    `flush`, larger than L2, which also keeps the card busy while the
+    host launches the call)."""
+    import torch
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in evs:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in evs)
+
+
 def max_abs_err(a, b) -> int:
     import torch
     outs = []
@@ -338,6 +422,36 @@ def max_abs_err(a, b) -> int:
         d = (x.to(torch.int64) - y.to(torch.int64)).abs()
         outs.append(int(d.max()) if d.numel() else 0)
     return max(outs)
+
+
+def decode_err(got, want, what: str) -> float:
+    """flash_decode against its plain version: m, l and o / l within
+    DECODE_TOL (raises otherwise). Returns max |o/l - o'/l'|."""
+    import torch
+    (o, m, l), (o_r, m_r, l_r) = got, want
+    t = DECODE_TOL
+    try:
+        torch.testing.assert_close(m, m_r, rtol=0, atol=t["m_atol"])
+        torch.testing.assert_close(l, l_r, rtol=t["l_rtol"], atol=0)
+        out = o / l.clamp(min=1e-30)[..., None]
+        out_r = o_r / l_r.clamp(min=1e-30)[..., None]
+        torch.testing.assert_close(out, out_r, rtol=t["o_rtol"],
+                                   atol=t["o_atol"])
+    except AssertionError as e:
+        raise AssertionError(f"flash_decode at {what}: kernel != plain "
+                             f"version: {e}") from None
+    return float((out - out_r).abs().max()) if out.numel() else 0.0
+
+
+def kernel_err(name: str, got, want, what: str):
+    """Bit for bit for the integer kernels; DECODE_TOL for flash_decode."""
+    if name == "flash_decode":
+        return decode_err(got, want, what)
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"{name} at {what}: kernel != plain version "
+                             f"(max abs err {err})")
+    return err
 
 
 def find_probes(table, starts, keys, mask, nslots, rec_w, max_probes=8):
@@ -359,14 +473,24 @@ def find_probes(table, starts, keys, mask, nslots, rec_w, max_probes=8):
 
 
 def bound_bytes(name: str, args, kw, out) -> float:
-    """Bytes the function must move on these inputs, each once: the mask
-    and every output in full; of the request inputs (descriptors, starts,
-    keys, vals) only the live rows, since a masked row is decided by its
-    mask byte; the shard in full where the function returns a new one
-    (amo_apply, fused_apply, hash_insert), and for the find only the
-    records its live probes read."""
+    """Bytes the function must move on these inputs, each once: every
+    output in full. flash_decode reads q, the lengths, and K and V of each
+    row's valid prefix only; moe_dispatch reads the ids. Of the owner-lane
+    and handler kernels' inputs: the mask in full; of the request inputs
+    (descriptors, starts, keys, vals) only the live rows, since a masked
+    row is decided by its mask byte; the shard in full where the function
+    returns a new one (amo_apply, fused_apply, hash_insert), and for the
+    find only the records its live probes read."""
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts)
+    if name == "flash_decode":
+        q, k, v, length = args
+        B, Hkv, S, d = k.shape
+        valid = int(length.to("cpu").clamp(0, S).sum())
+        kv = 2 * valid * Hkv * d * k.element_size()
+        return kv + nbytes([q, length, *out])
+    if name == "moe_dispatch":
+        return nbytes([args[0], *out])
     mask = args[-1]
     n_live = int(mask.sum())
 
@@ -384,16 +508,36 @@ def bound_bytes(name: str, args, kw, out) -> float:
 
 def serial_chain(name: str, args):
     """Live ops at the busiest owner: the length of the serial walk of the
-    owner-serialized kernels (None for the find, whose requests are
-    independent)."""
-    if name == "hash_find":
+    owner-serialized kernels (None for the others)."""
+    if name not in ("amo_apply", "fused_apply", "hash_insert"):
         return None
     return int(args[-1].sum(1).max())
 
 
+def library_call(name: str, args):
+    """One PyTorch call computing the same function on the same inputs,
+    timed as a yardstick and used nowhere in the port (None where there is
+    none). flash_decode: scaled_dot_product_attention of the one query
+    over the masked cache, normalized output instead of the partials."""
+    if name != "flash_decode":
+        return None
+    import torch
+    import torch.nn.functional as F
+    q, k, v, length = args
+    S = k.shape[2]
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < length.to(torch.int64)[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        q4, k, v, attn_mask=mask, enable_gqa=True)
+
+
 def edge_cases(device) -> None:
     """Small inputs with masked rows, offsets outside [0, L) both ways,
-    every opcode, CAS chains, aux0 out of range, a full table."""
+    every opcode, CAS chains, aux0 out of range, a full table; expert ids
+    at T = 1, T not a multiple of the block, all on one expert, outside
+    [0, E), and the serving shapes; decode lengths 1, W and one that is
+    not a multiple of the tile, g = 1 and 8, float32 and bfloat16."""
     import torch
     from repro_torch.kernels import ops as kops, ref as kref
     rng = np.random.default_rng(3)
@@ -438,62 +582,104 @@ def edge_cases(device) -> None:
                       (tab, starts, keys, mk), kw))
         cases.append(("hash_insert", kops.hash_insert, kref.hash_insert,
                       (tab, starts, keys, vals, mk), kw))
+    for T, E, kind in ((1, 64, "one token"), (1000, 7, "ragged"),
+                       (700, 64, "one expert"), (500, 16, "outside"),
+                       (48, 64, "serve"), (6144, 64, "wide")):
+        ids = rng.integers(0, E, T)
+        if kind == "one expert":
+            ids[:] = 5
+        if kind == "outside":
+            ids = rng.integers(-2 * E - 2, 2 * E + 2, T)
+        cases.append(("moe_dispatch", kops.moe_dispatch, kref.moe_dispatch,
+                      (t(ids),), {"n_experts": E}))
+    B, W, Hkv, d = 3, 321, 2, 128
+    for g in (1, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = t(rng.normal(size=(B, Hkv * g, d)), torch.float32)
+            ck, cv = (t(rng.normal(size=(B, W, Hkv, d)), torch.float32)
+                      for _ in range(2))
+            args = (q.to(dtype), ck.to(dtype).transpose(1, 2),
+                    cv.to(dtype).transpose(1, 2), t([1, W, 200]))
+            cases.append(("flash_decode", kops.flash_decode,
+                          kref.decode_attention, args, {}))
     for name, kernel, plain, args, kw in cases:
-        err = max_abs_err(kernel(*args, **kw), plain(*args, **kw))
-        if err:
-            raise AssertionError(f"{name}: edge cases differ (err {err})")
+        kernel_err(name, kernel(*args, **kw), plain(*args, **kw),
+                   "edge cases")
 
 
 # The call whose numbers stand in a kernel's row of the kernels line: its
-# main arm at the highest load the run reaches (every call is listed too).
+# main arm at the highest load the run reaches, or the last decode step
+# (every call is listed too).
 HEADLINE = {"amo_apply": "ht rdma_unfused insert last",
             "fused_apply": "ht rdma_fused insert last",
             "hash_find": "ht rpc find",
-            "hash_insert": "ht rpc insert last"}
+            "hash_insert": "ht rpc insert last",
+            "flash_decode": "serve last step",
+            "moe_dispatch": "serve last step"}
 
 
-def phase_captured(calls: dict) -> dict:
-    """Each captured main-path call: kernel against plain version (bit for
-    bit), both timed, and the bound of these inputs. Returns the rows of
-    each kernel, one per captured call."""
+def phase_captured(calls: dict, names, phase: int) -> dict:
+    """Each captured main-path call: kernel against plain version, both
+    timed, and the bound of these inputs. A kernel's ms is the median of
+    single calls each after an L2 flush (the main paths find their shards,
+    caches and weights cold); warm_ms is the mean of calls back to back.
+    Returns the rows of each kernel, one per captured call."""
     import torch
-    from repro_torch.kernels import ref as kref
-    wrap = wrappers()
-    rows = {name: [] for name in KERNELS}
+    wrap, plain_fns = wrappers(), plain_versions()
+    rows = {name: [] for name in names}
+    flush = None
     for (name, tag), (args, kw) in calls.items():
-        kernel, plain = wrap[name], getattr(kref, name)
+        if name not in names:
+            continue
+        kernel, plain = wrap[name], plain_fns[name]
+        if flush is None:
+            flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                device=args[0].device)
         out_k = kernel(*args, **kw)
         torch.cuda.synchronize()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        out_p = plain(*args, **kw)
-        t1.record()
-        torch.cuda.synchronize()
-        plain_ms = t0.elapsed_time(t1)
-        err = max_abs_err(out_k, out_p)
-        if err:
-            raise AssertionError(f"{name} at {tag}: kernel != plain version "
-                                 f"(max abs err {err})")
-        reps = 50 if name == "hash_find" else 20
-        ms = cuda_ms(lambda: kernel(*args, **kw), reps)
+        if name in MODEL_KERNELS:
+            out_p = plain(*args, **kw)
+            plain_ms = cuda_ms_cold(lambda: plain(*args, **kw), 10, flush)
+        else:                       # the serial walks take seconds: once
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out_p = plain(*args, **kw)
+            t1.record()
+            torch.cuda.synchronize()
+            plain_ms = t0.elapsed_time(t1)
+        err = kernel_err(name, out_k, out_p, tag)
+        reps = 20 if serial_chain(name, args) is not None else 100
+        ms = cuda_ms_cold(lambda: kernel(*args, **kw), reps, flush)
+        warm_ms = cuda_ms(lambda: kernel(*args, **kw), reps)
+        lib = library_call(name, args)
+        library_ms = None
+        if lib is not None:
+            lib()
+            library_ms = cuda_ms_cold(lib, reps, flush)
         bound_ms = bound_bytes(name, args, kw, out_k) / HBM_BYTES_PER_S * 1e3
         shapes = [tuple(a.shape) for a in args]
-        live = int(args[-1].sum())
-        rows[name].append(dict(at=tag, ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, max_abs_err=err,
+        live = (int(args[-1].sum()) if name in DS_KERNELS
+                else int(args[3].sum()) if name == "flash_decode"
+                else int(args[0].shape[0]))    # valid cache rows; tokens
+        rows[name].append(dict(at=tag, ms=ms, warm_ms=warm_ms,
+                               plain_ms=plain_ms, bound_ms=bound_ms,
+                               library_ms=library_ms, max_abs_err=err,
                                live=live, shapes=shapes,
                                serial_chain=serial_chain(name, args)))
-        log(f"phase 3: {name} == plain at {tag} on {shapes} ({live} live): "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
-            f"bound {bound_ms:.4f} ms (bytes)")
+        lib_txt = ("" if library_ms is None
+                   else f", library {library_ms:.4f} ms")
+        log(f"phase {phase}: {name} == plain at {tag} on {shapes} "
+            f"({live} live): kernel {ms:.4f} ms (back to back "
+            f"{warm_ms:.4f}), plain {plain_ms:.1f} ms{lib_txt}, bound "
+            f"{bound_ms:.4f} ms (bytes), max err {err}")
         del out_k, out_p
-    for name, want in HEADLINE.items():
+    for name in names:
         if not rows[name]:
             raise AssertionError(f"the main path never called {name}")
-        if want not in [r["at"] for r in rows[name]]:
-            log(f"phase 3: {name} was not called at {want}; its row "
-                f"shows {rows[name][-1]['at']}")
+        if HEADLINE[name] not in [r["at"] for r in rows[name]]:
+            log(f"phase {phase}: {name} was not called at {HEADLINE[name]}; "
+                f"its row shows {rows[name][-1]['at']}")
     return rows
 
 
@@ -506,10 +692,11 @@ def kernel_row(name: str, calls: list, launches: int) -> dict:
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=max(r["max_abs_err"] for r in calls),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by="bytes", library_ms=None, at=head["at"],
+        bound_by="bytes", library_ms=head["library_ms"], at=head["at"],
         serial_chain=head["serial_chain"],
-        calls=[{k: r[k] for k in ("at", "live", "ms", "plain_ms", "bound_ms",
-                                  "max_abs_err", "serial_chain")}
+        calls=[{k: r[k] for k in ("at", "live", "ms", "warm_ms", "plain_ms",
+                                  "library_ms", "bound_ms", "max_abs_err",
+                                  "serial_chain")}
                for r in calls])
 
 
@@ -634,6 +821,161 @@ def phase_cpu_vs_gpu(seed: int, device) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Phases 5 and 6: the serving path
+# ---------------------------------------------------------------------------
+def phase_serve(seed: int, device, mark=no_mark) -> dict:
+    """deepseek-moe-16b at full width through repro_torch.launch.serve:
+    SERVE["batch"] requests, prompts fed token by token, then greedy
+    generation. `mark(tag)` names the first and the last decode step.
+    The caller zeroes the launch counts before and reads them after."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = registry.get(SERVE["arch"])
+    B, P_len, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
+    steps = P_len + G
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = lm.init_lm(cfg, seed, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    # params_count() leaves out the final norm and the padded vocab rows
+    want = (cfg.params_count() + cfg.d_model
+            + (cfg.vocab_padded - cfg.vocab) * cfg.d_model)
+    if n_params != want:
+        raise AssertionError(f"serve: {n_params} parameters on the card, "
+                             f"the config gives {want}")
+    log(f"phase 5: {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, {cfg.n_experts} "
+        f"experts top-{cfg.top_k} + {cfg.n_shared_experts} shared, vocab "
+        f"{cfg.vocab}, {cfg.dtype}: {n_params} parameters, {w_bytes} bytes "
+        f"on the card, built in {init_s:.2f} s")
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab,
+                                                    (B, P_len))
+
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+
+    def on_step(t):
+        mark("serve first step" if t == 1 else
+             "serve last step" if t == steps else None)
+        if t == steps - PROFILE_STEPS + 1:
+            prof.__enter__()
+
+    t0 = time.perf_counter()
+    gen, times, state = serve.generate(model, prompts, G, on_step=on_step,
+                                       sync=torch.cuda.synchronize)
+    total_s = time.perf_counter() - t0
+    prof.__exit__(None, None, None)
+    mark(None)
+    max_mem = torch.cuda.max_memory_allocated(device)
+    gen = gen.cpu()
+    if tuple(gen.shape) != (B, G + 1) or len(times) != steps:
+        raise AssertionError(f"serve: {tuple(gen.shape)} tokens in "
+                             f"{len(times)} steps")
+    if not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
+        raise AssertionError("serve: a generated token is outside the vocab")
+    # bound of one step: every weight read once, plus K and V of the valid
+    # prefix of every layer at the last step (length = steps)
+    kv_last = (cfg.n_layers * 2 * B * steps * cfg.n_kv_heads * cfg.hd
+               * cfg.compute_dtype.itemsize)
+    step_ms = statistics.median(times) * 1e3
+    return dict(model=model, state=state, gen=gen, report=dict(
+        arch=cfg.name, layers=cfg.n_layers, batch=B, prompt_len=P_len,
+        gen_len=G, steps=steps, params=n_params, weight_bytes=w_bytes,
+        init_s=init_s, max_memory_allocated=max_mem,
+        step_ms_median=step_ms, step_ms_min=min(times) * 1e3,
+        step_ms_max=max(times) * 1e3, total_s=total_s,
+        tok_per_s=B * steps / sum(times),
+        generated_tok_per_s=B * G / total_s,
+        step_bound_ms_weights=w_bytes / HBM_BYTES_PER_S * 1e3,
+        step_bound_ms=(w_bytes + kv_last) / HBM_BYTES_PER_S * 1e3,
+        backends={k: v.value for k, v in sorted(state["backends"].items())},
+        first_tokens=gen[:2, :8].tolist(),
+        profile=profile_summary(prof, times[-PROFILE_STEPS:], step_ms)))
+
+
+def profile_summary(prof, window_s, step_ms: float) -> dict:
+    """Device time per step by kernel over the traced steps, and the
+    device's idle share: against the traced steps' own wall time (the
+    tracer slows the host), and against the untraced median step."""
+    from torch.autograd import DeviceType
+    n = len(window_s)
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_ms = sum(t for _, t, _ in rows) / 1e3 / n
+    if not rows:
+        log("phase 5: the profiler recorded no device time")
+        return dict(steps=n, device_ms_per_step=None)
+    wall_ms = sum(window_s) * 1e3 / n
+    top = sorted(rows, key=lambda r: -r[1])[:12]
+    return dict(
+        steps=n, traced_wall_ms_per_step=wall_ms,
+        device_ms_per_step=busy_ms,
+        idle_share_traced=1 - busy_ms / wall_ms,
+        idle_share_vs_median=1 - busy_ms / step_ms,
+        top=[dict(name=k[:100], ms_per_step=t / 1e3 / n,
+                  calls_per_step=c / n) for k, t, c in top])
+
+
+def check_last_logits(served: dict) -> None:
+    """One more decode step past the run: logits of the full vocab for
+    every request, all finite."""
+    import torch
+    from repro_torch.models import lm
+    model, gen = served["model"], served["gen"]
+    logits, _ = lm.decode_step(model, served["state"],
+                               gen[:, -1].to(model.embed.device))
+    want = (gen.shape[0], model.cfg.vocab_padded)
+    if tuple(logits.shape) != want or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"serve: logits {tuple(logits.shape)} (want "
+                             f"{want}) or not finite")
+
+
+def phase_model_cpu_vs_gpu(seed: int, device) -> dict:
+    """Reduced deepseek-moe-16b in float32, weights built once on the CPU
+    and moved, MODEL_STEPS teacher-forced decode steps on both devices:
+    logits within LOGITS_TOL. Returns the greedy tokens of both and the
+    largest difference."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.get(SERVE["arch"]).reduced()
+    cpu = lm.init_lm(cfg, seed, "cpu")
+    gpu = copy.deepcopy(cpu).to(device)
+    B = 4
+    states = [lm.init_decode_state(cfg, B, MODEL_STEPS, device=d)
+              for d in ("cpu", device)]
+    rng = np.random.default_rng(seed + 6)
+    toks, worst, gap = {"cpu": [], "gpu": []}, 0.0, float("inf")
+    for step in range(MODEL_STEPS):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, B).astype(np.int32))
+        lc, states[0] = lm.decode_step(cpu, states[0], tok)
+        lg, states[1] = lm.decode_step(gpu, states[1], tok.to(device))
+        lg = lg.cpu()
+        try:
+            torch.testing.assert_close(lg, lc, **LOGITS_TOL)
+        except AssertionError as e:
+            raise AssertionError(f"phase 6: logits differ CPU vs GPU at "
+                                 f"step {step}: {e}") from None
+        worst = max(worst, float((lg - lc).abs().max()))
+        top2 = lc.topk(2, -1).values
+        gap = min(gap, float((top2[:, 0] - top2[:, 1]).min()))
+        toks["cpu"].append(lc.argmax(-1).tolist())
+        toks["gpu"].append(lg.argmax(-1).tolist())
+    return dict(max_abs_err=worst, smallest_top2_gap=gap, tokens=toks,
+                same_tokens=toks["cpu"] == toks["gpu"])
+
+
+# ---------------------------------------------------------------------------
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -675,27 +1017,49 @@ def main() -> int:
                 log(f"ptxas {name}: {line.strip()}")
 
     edge_cases(device)
-    log("phase 1: edge cases equal on all four kernels")
+    log(f"phase 1: edge cases equal on all {len(KERNELS)} kernels")
 
-    wrap = wrappers()
     with Capture() as capture:
-        for fn in wrap.values():
-            fn.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         report = phase_slice(args.seed, args.insert_batches, device,
                              capture.mark)
         slice_s = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in wrap.items()}
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"{name} never launched on the main path")
+        launches = read_counts(DS_KERNELS)
     log(f"phase 2: launches {launches} in {slice_s:.1f} s")
 
-    rows = phase_captured(capture.calls)
+    rows = phase_captured(capture.calls, DS_KERNELS, 3)
     del capture
 
     n_out = phase_cpu_vs_gpu(args.seed, device)
     log(f"phase 4: {n_out} outputs equal on CPU and GPU")
+
+    with Capture() as capture:
+        zero_counts()
+        served = phase_serve(args.seed, device, capture.mark)
+        serve_launches = read_counts(MODEL_KERNELS)
+    sv = served["report"]
+    want = sv["layers"] * sv["steps"]
+    for name in MODEL_KERNELS:
+        if serve_launches[name] != want:
+            raise AssertionError(f"phase 5: {name} launched "
+                                 f"{serve_launches[name]} times, want "
+                                 f"{sv['layers']} a step = {want}")
+        launches[name] = serve_launches[name]
+    check_last_logits(served)
+    del served
+    log(f"phase 5: launches {serve_launches} ({sv['layers']} a step for "
+        f"each model kernel over {sv['steps']} steps); backends "
+        f"{sv['backends']}; logits finite")
+    rows.update(phase_captured(capture.calls, MODEL_KERNELS, 5))
+    del capture
+
+    model_check = phase_model_cpu_vs_gpu(args.seed, device)
+    log(f"phase 6: reduced {SERVE['arch']} logits equal CPU vs GPU within "
+        f"{LOGITS_TOL} over {MODEL_STEPS} steps (max abs err "
+        f"{model_check['max_abs_err']:.3e}, smallest top-2 gap "
+        f"{model_check['smallest_top2_gap']:.3e}); greedy tokens CPU "
+        f"{model_check['tokens']['cpu']} GPU {model_check['tokens']['gpu']}")
 
     for arm in ARMS:
         r = report[arm]
@@ -705,6 +1069,23 @@ def main() -> int:
         r = report[f"queue_{arm}"]
         log(f"median ms per batch, queue {arm}: push {r['push_ms']:.3f}, "
             f"pop {r['pop_ms']:.3f} ({card})")
+    log(f"serve {sv['arch']}: median {sv['step_ms_median']:.3f} ms per "
+        f"decode step of {sv['batch']} tokens (bound "
+        f"{sv['step_bound_ms']:.3f} ms, weights alone "
+        f"{sv['step_bound_ms_weights']:.3f}), {sv['tok_per_s']:.1f} tok/s "
+        f"over {sv['steps']} steps, {sv['generated_tok_per_s']:.1f} "
+        f"generated tok/s; init {sv['init_s']:.2f} s; peak memory "
+        f"{sv['max_memory_allocated'] / 1e9:.2f} GB ({card})")
+    pr = sv["profile"]
+    if pr.get("device_ms_per_step") is not None:
+        log(f"serve profile over the last {pr['steps']} steps: device busy "
+            f"{pr['device_ms_per_step']:.3f} ms per step, idle "
+            f"{pr['idle_share_vs_median']:.3f} of the median step")
+        for r in pr["top"]:
+            log(f"  {r['ms_per_step']:8.3f} ms/step {r['calls_per_step']:7.1f}"
+                f" calls/step  {r['name']}")
+    report["serve"] = sv
+    report["model_cpu_vs_gpu"] = model_check
     kernels = [kernel_row(name, rows[name], launches[name])
                for name in KERNELS]
     shapes = {f"{name} at {r['at']}": r["shapes"]

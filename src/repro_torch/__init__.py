@@ -1,13 +1,15 @@
-"""PyTorch/CUDA port of the RDMA-vs-RPC distributed data structures.
+"""PyTorch/CUDA port of the RDMA-vs-RPC distributed data structures and
+of the serving path of the model zoo.
 
-Mirrors the JAX package `repro` module by module (`core/`, `kernels/`) and
-is held against it by the parity tests in `tests/test_torch_*.py`. It
-imports neither JAX nor `repro`. Entry points take an explicit `device`
-that defaults to ``"cuda"``; the tests ask for ``"cpu"`` by name. On a
-CUDA tensor the owner lanes and RPC handler bodies launch the hand-written
-kernels in `kernels/csrc/`; on a CPU tensor they run the plain PyTorch
-versions in `kernels/ref.py`.
+Mirrors the JAX package `repro` module by module (`core/`, `kernels/`,
+`configs/`, `models/`, `launch/`) and is held against it by the parity
+tests in `tests/test_torch_*.py`. It imports neither JAX nor `repro`.
+Entry points take an explicit `device` that defaults to ``"cuda"``; the
+tests ask for ``"cpu"`` by name. On a CUDA tensor the owner lanes, the RPC
+handler bodies, decode attention and expert dispatch launch the
+hand-written kernels in `kernels/csrc/`; on a CPU tensor they run the
+plain PyTorch versions in `kernels/ref.py`.
 """
-from . import convert, core, kernels
+from . import configs, convert, core, kernels, launch, models
 
-__all__ = ["convert", "core", "kernels"]
+__all__ = ["configs", "convert", "core", "kernels", "launch", "models"]

@@ -1,10 +1,11 @@
-"""Carry a structure's state between the JAX package and the port.
+"""Carry state between the JAX package and the port.
 
 A structure's state is its window: the (P, L) int32 words every rank owns.
 The tests build a structure in JAX, carry `np.asarray(win.data)` across
 with these functions, and continue the same op stream in both packages;
 `to_numpy` brings the port's state back for comparison (or for a JAX
-structure built from it).
+structure built from it). A model's state is its parameter tree:
+`lm_from_numpy` builds the port's model from the JAX package's.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from .core.hashtable import DHashTable
 from .core.queue import DQueue
 from .core.window import Window
+from .models import lm
 
 
 def window_from_numpy(data, device="cuda") -> Window:
@@ -52,3 +54,33 @@ def to_numpy(x) -> np.ndarray:
     if isinstance(x, Window):
         x = x.data
     return x.detach().cpu().numpy()
+
+
+def _param(a, device) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same type (bfloat16 leaves, held by
+    numpy as ml_dtypes' bfloat16, pass through float32 exactly)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def lm_from_numpy(cfg, params, device="cuda") -> lm.LM:
+    """The port's LM holding the JAX package's `init_params` tree with
+    numpy leaves: `embed`, `groups` (one tuple of block dicts per layer of
+    the pattern, every leaf stacked over n_groups) and `final_norm`. The
+    groups are unstacked: layer g * len(pattern) + i takes group g of
+    pattern layer i."""
+    groups = params["groups"]
+    pattern = cfg.layer_pattern()
+    layers = []
+    for g in range(cfg.n_groups):
+        for i, kinds in enumerate(pattern):
+            blocks = [lm.make_block(cfg, kind, {
+                name: _param(np.asarray(w)[g], device)
+                for name, w in groups[i][b].items()})
+                for b, kind in enumerate(kinds)]
+            layers.append(lm.Layer(kinds, blocks))
+    return lm.LM(cfg, _param(params["embed"], device), layers,
+                 _param(params["final_norm"], device))

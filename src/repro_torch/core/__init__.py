@@ -1,11 +1,13 @@
 # The paper's PGAS data structures with selectable RDMA / RPC backends,
 # ported from `repro.core` (same module names, same public functions).
-from . import am, faults, hashtable, queue, routing, types, window
+from . import (am, costmodel, faults, hashtable, queue, routing, types,
+               window)
 from .types import AmoKind, Backend, OpStats, Promise
 from .window import Window, make_window, rdma_cas, rdma_fao, rdma_get, rdma_put
 
 __all__ = [
-    "am", "faults", "hashtable", "queue", "routing", "types", "window",
+    "am", "costmodel", "faults", "hashtable", "queue", "routing", "types",
+    "window",
     "AmoKind", "Backend", "OpStats", "Promise",
     "Window", "make_window", "rdma_cas", "rdma_fao", "rdma_get", "rdma_put",
 ]

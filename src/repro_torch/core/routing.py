@@ -100,13 +100,22 @@ class Binned:
 
 def _scatter_slots(dst: Tensor, slot: Tensor, keep: Tensor, pay: Tensor,
                    nranks: int, cap: int) -> Tensor:
-    """buf[b, dst, slot] = pay for kept rows; the rest land in one spare
-    row that is cut off (the port of `.at[...].set(mode="drop")` with no
-    host sync). Kept (dst, slot) pairs are distinct per origin."""
-    B = dst.shape[0]
+    """buf[b, dst, slot] = pay for kept rows, as JAX's per-origin
+    `.at[dst, slot].set(mode="drop")`: a negative rank wraps once (-1 is
+    rank nranks-1) and is dropped if still negative, and where two kept rows
+    of one origin land on one slot (a wrapped rank meeting the rank it
+    wraps to) the later row wins. Dropped rows land in one spare row that
+    is cut off (no host sync)."""
+    B, n = dst.shape
     size = B * nranks * cap
-    flat = (_rows(dst) * nranks + dst.to(torch.int64)) * cap + slot
-    flat = torch.where(keep, flat, size).reshape(-1)
+    d = dst.to(torch.int64)
+    d = torch.where(d < 0, d + nranks, d)
+    flat = (_rows(dst) * nranks + d) * cap + slot
+    flat = torch.where(keep & (d >= 0), flat, size).reshape(-1)
+    order = torch.arange(B * n, dtype=torch.int32, device=dst.device)
+    last = torch.full((size + 1,), -1, dtype=torch.int32, device=dst.device)
+    last.scatter_reduce_(0, flat, order, "amax")
+    flat = torch.where(last[flat] == order, flat, size)
     W = pay.shape[2:]
     out = pay.new_zeros((size + 1,) + W)
     out[flat] = pay.reshape((-1,) + W)
@@ -117,7 +126,8 @@ def bin_by_dest(dst: Tensor, payload: Optional[Tensor], nranks: int,
                 cap: int, valid: Optional[Tensor] = None) -> Binned:
     """Bucket `n` ops per origin by destination rank.
 
-    dst:     (P, n) int32 destination rank per op, in [0, nranks)
+    dst:     (P, n) int32 destination rank per op; a negative rank is
+             sorted as itself and delivered to its wrapped rank, as in JAX
     payload: (P, n, W) payload words per op, or None for occupancy only
     cap:     per-destination slot capacity. cap >= n is always lossless.
     """
@@ -130,7 +140,7 @@ def bin_by_dest(dst: Tensor, payload: Optional[Tensor], nranks: int,
     dst_sorted = torch.gather(dst_eff, 1, order).contiguous()
     group_start = torch.searchsorted(dst_sorted, dst_sorted, side="left")
     pos_sorted = torch.arange(n, device=dst.device) - group_start
-    ok_sorted = (pos_sorted < cap) & (dst_sorted < nranks) & (dst_sorted >= 0)
+    ok_sorted = (pos_sorted < cap) & (dst_sorted < nranks)
     buf = None
     if payload is not None:
         buf = _scatter_slots(dst_sorted, pos_sorted, ok_sorted,

@@ -1,8 +1,10 @@
-# Hand-written Hopper kernels for the owner lanes and RPC handler bodies
+# Hand-written Hopper kernels of the data structures and the model
 # (csrc/*.cu, bound with ctypes), their plain PyTorch versions (ref.py) and
 # the device dispatch (ops.py):
 #   amo_apply / fused_apply — serialized AMO batch at the owner (the NIC lane)
 #   hash_find / hash_insert — open-addressing probe loops (AM handler bodies)
+#   flash_decode — one-token GQA decode attention over the serving KV cache
+#   moe_dispatch — expert histogram + stable positions (batched FAA ticket)
 from . import ops, ref
 
 __all__ = ["ops", "ref"]

@@ -1,7 +1,10 @@
-"""Device dispatch for the owner-lane and handler kernels.
+"""Device dispatch for the kernels: the owner lanes and handler bodies of
+the data structures, and decode attention and expert dispatch of the
+model.
 
 A CUDA tensor launches the hand-written kernel (inputs are made
-contiguous first); a CPU tensor takes the plain PyTorch version in
+contiguous first, except flash_decode's K and V, which the kernel reads
+through their strides); a CPU tensor takes the plain PyTorch version in
 kernels/ref.py. There is no fallback: a kernel that fails to build or to
 launch raises.
 """
@@ -12,7 +15,9 @@ from typing import Tuple
 import torch
 
 from . import amo_apply as _amo
+from . import flash_decode as _fd
 from . import hash_probe as _hp
+from . import moe_dispatch as _md
 from . import ref
 
 Tensor = torch.Tensor
@@ -60,3 +65,27 @@ def hash_insert(table, starts, keys, vals, mask, *, nslots, rec_w,
                                rec_w=rec_w, max_probes=max_probes)
     return ref.hash_insert(table, starts, keys, vals, mask, nslots=nslots,
                            rec_w=rec_w, max_probes=max_probes)
+
+
+def flash_decode(q: Tensor, k: Tensor, v: Tensor, length: Tensor
+                 ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One-token GQA decode over a KV cache: q (B, H, d); k/v (B, Hkv, S,
+    d), any strides (a CUDA view needs a unit stride on d); length (B,).
+    Returns the flash partials (o (B, H, d), m (B, H), l (B, H)), f32."""
+    if q.is_cuda:
+        return _fd.flash_decode(q.contiguous(), k, v,
+                                length.to(torch.int32).contiguous())
+    return ref.decode_attention(q, k, v, length)
+
+
+combine_decode_stats = ref.combine_decode_stats
+
+
+def moe_dispatch(expert_ids: Tensor, *, n_experts: int
+                 ) -> Tuple[Tensor, Tensor]:
+    """Expert histogram and stable positions: expert_ids (T,) -> (counts
+    (E,), position (T,)), int32."""
+    if expert_ids.is_cuda:
+        return _md.moe_dispatch(expert_ids.to(torch.int32).contiguous(),
+                                n_experts)
+    return ref.moe_dispatch(expert_ids, n_experts)

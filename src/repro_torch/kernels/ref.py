@@ -1,5 +1,7 @@
-"""Plain PyTorch versions of the four owner-lane kernels (ports of
-`repro.kernels.ref` amo_apply, fused_apply, hash_find, hash_insert).
+"""Plain PyTorch versions of the kernels (ports of `repro.kernels.ref`):
+the four owner-lane kernels amo_apply, fused_apply, hash_find and
+hash_insert, and the model kernels decode_attention (with
+combine_decode_stats) and moe_dispatch.
 
 They take all owners at once (the leading P axis JAX vmaps over) and keep
 the JAX oracles' semantics word for word, including what happens at an
@@ -210,3 +212,75 @@ def hash_insert(table: Tensor, starts: Tensor, keys: Tensor, vals: Tensor,
         ok_out[:, j] = can
         probes_out[:, j] = torch.where(ok, probes, 0)
     return ok_out, probes_out, out
+
+
+# ---------------------------------------------------------------------------
+# decode attention: single-token GQA decode with flash stats
+# ---------------------------------------------------------------------------
+def decode_attention(q: Tensor, k: Tensor, v: Tensor, length: Tensor
+                     ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Single-token decode with stats. q (B, H, d); k/v (B, Hkv, S, d) (any
+    strides); length (B,) valid cache length. Returns (o (B, H, d), the
+    *unnormalized* partial numerator, m (B, H), l (B, H)), all f32, so
+    shards combine associatively:
+        o = sum_j exp(s_j - m) v_j,  l = sum_j exp(s_j - m),  m = max_j s_j,
+    with s_j = (q . k_j) * d ** -0.5. Query head h reads kv head
+    h // (H / Hkv)."""
+    B, H, d = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qg = q.float().reshape(B, Hkv, g, d)
+    s = torch.einsum("bkgd,bksd->bkgs", qg, k.float()) * d ** -0.5
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < length.to(torch.int64)[:, None])[:, None, None, :]
+    s = s.masked_fill(~valid, float("-inf"))
+    m = s.amax(-1)
+    msafe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(valid, torch.exp(s - msafe[..., None]),
+                    torch.zeros_like(s))
+    l = p.sum(-1)
+    o = torch.einsum("bkgs,bksd->bkgd", p, v.float())
+    return o.reshape(B, H, d), m.reshape(B, H), l.reshape(B, H)
+
+
+def combine_decode_stats(o: Tensor, m: Tensor, l: Tensor) -> Tensor:
+    """Combine per-shard (o, m, l) partials along the leading axis ->
+    (B, H, d): the RPC-style distributed decode, each KV shard returning
+    its stats."""
+    mg = m.amax(0)
+    msafe = torch.where(torch.isfinite(mg), mg, torch.zeros_like(mg))
+    fin = torch.isfinite(m)
+    w = torch.exp(torch.where(fin, m - msafe[None],
+                              torch.full_like(m, float("-inf"))))
+    w = torch.where(fin, w, torch.zeros_like(w))
+    num = (o * w[..., None]).sum(0)
+    den = (l * w).sum(0)
+    return num / torch.clamp(den, min=1e-30)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# moe_dispatch: expert histogram + stable positions (batched FAA lane)
+# ---------------------------------------------------------------------------
+INT32_MIN = -(2 ** 31)
+
+
+def moe_dispatch(expert_ids: Tensor, n_experts: int
+                 ) -> Tuple[Tensor, Tensor]:
+    """expert_ids (T,) int32 -> (counts (E,), position (T,)) int32 where
+    position[i] = #{j < i : expert_j == expert_i} (stable rank within the
+    expert): T chained FAAs on per-expert counters.
+
+    Outside [0, E), as the `jnp` oracle's one-hot and fill-mode gather
+    give it: such an id counts for no expert; an id in [-E, 0) reads the
+    position column of id + E (the earlier tokens routed to that expert);
+    any other id gets INT32_MIN."""
+    ids = expert_ids.to(torch.int64)
+    E = n_experts
+    onehot = (ids[:, None] == torch.arange(E, device=ids.device)[None, :]
+              ).to(torch.int32)
+    counts = onehot.sum(0, dtype=torch.int32)
+    excl = torch.cumsum(onehot, 0, dtype=torch.int32) - onehot
+    col = torch.where(ids < 0, ids + E, ids)
+    inside = (col >= 0) & (col < E)
+    pos = torch.gather(excl, 1, col.clamp(0, max(E - 1, 0))[:, None])[:, 0]
+    return counts, torch.where(inside, pos, torch.full_like(pos, INT32_MIN))

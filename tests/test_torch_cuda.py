@@ -1,5 +1,6 @@
-"""On the card: the CUDA kernels against their plain versions, and the
-port's op streams on CUDA against the same streams on the CPU. Every test
+"""On the card: the CUDA kernels against their plain versions, the port's
+op streams on CUDA against the same streams on the CPU, and a reduced
+model's decode steps on CUDA against the CPU. Every test
 here takes the `cuda_device` fixture, which skips it where torch sees no
 card. The file imports no JAX, so it runs on a machine without it:
 
@@ -9,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import registry
 from repro_torch.core import am, hashtable as ht, queue as dq
+from repro_torch.models import lm
 from repro_torch.core.types import Promise
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -102,3 +105,62 @@ def _streams(dev):
 def test_streams_on_cuda_equal_cpu(cuda_device):
     for g, c in zip(_streams(cuda_device), _streams("cpu")):
         same(g, c)
+
+
+@pytest.mark.parametrize("T,E", [(1, 64), (48, 64), (300, 7), (6144, 64)])
+def test_moe_dispatch_kernel_matches_plain_version(cuda_device, T, E):
+    """Bit for bit, ids outside [0, E) included (they follow the plain
+    version: no count, the wrapped column for [-E, 0), else INT32_MIN)."""
+    rng = np.random.default_rng(T + E)
+    ids = rng.integers(0, E, T)
+    bad = rng.random(T) < 0.1
+    ids[bad] = rng.integers(-2 * E, 2 * E, int(bad.sum()))
+    (x,) = _on(cuda_device, ids.astype(np.int32))
+    for a, b in zip(kops.moe_dispatch(x, n_experts=E),
+                    kref.moe_dispatch(x, E)):
+        same(a, b)
+
+
+@pytest.mark.parametrize("g,dtype", [(1, torch.float32), (8, torch.float32),
+                                     (1, torch.bfloat16), (3, torch.bfloat16)])
+def test_flash_decode_kernel_matches_plain_version(cuda_device, g, dtype):
+    """On a (B, W, Hkv, d) cache read through a transposed view, lengths
+    0, 1, W and one not a multiple of the tile. o / l within 1e-4
+    relative (f32 math over bf16 or f32 inputs, another summation order
+    and an online softmax), m within 1e-5, l within 1e-4 relative."""
+    rng = np.random.default_rng(g)
+    B, Hkv, W, d = 4, 2, 200, 128
+    q, ck, cv = _on(cuda_device, rng.normal(size=(B, Hkv * g, d)),
+                    rng.normal(size=(B, W, Hkv, d)),
+                    rng.normal(size=(B, W, Hkv, d)))
+    q, ck, cv = q.to(dtype), ck.to(dtype), cv.to(dtype)
+    length = torch.tensor([0, 1, W, 131], dtype=torch.int32,
+                          device=cuda_device)
+    args = (q, ck.transpose(1, 2), cv.transpose(1, 2), length)
+    o, m, l = kops.flash_decode(*args)
+    o_r, m_r, l_r = kref.decode_attention(*args)
+    torch.testing.assert_close(m, m_r, rtol=0, atol=1e-5)
+    torch.testing.assert_close(l, l_r, rtol=1e-4, atol=0)
+    torch.testing.assert_close(o / l.clamp(min=1e-30)[..., None],
+                               o_r / l_r.clamp(min=1e-30)[..., None],
+                               rtol=1e-4, atol=1e-5)
+    assert bool((o[0] == 0).all()) and bool((l[0] == 0).all())
+
+
+def test_reduced_model_decode_on_cuda_equals_cpu(cuda_device):
+    """Reduced deepseek-moe-16b (f32), the same weights on both devices,
+    6 teacher-forced decode steps: logits within 1e-4 (f32 products in
+    another order; TF32 off) and the same greedy tokens."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.get("deepseek-moe-16b").reduced()
+    cpu = lm.init_lm(cfg, seed=5, device="cpu")
+    gpu = lm.init_lm(cfg, seed=5, device="cpu").to(cuda_device)
+    rng = np.random.default_rng(5)
+    states = [lm.init_decode_state(cfg, 4, 8, device=d)
+              for d in ("cpu", cuda_device)]
+    for _ in range(6):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, 4).astype(np.int32))
+        lc, states[0] = lm.decode_step(cpu, states[0], tok)
+        lg, states[1] = lm.decode_step(gpu, states[1], tok.to(cuda_device))
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+        same(lg.argmax(-1), lc.argmax(-1))

@@ -1,0 +1,157 @@
+"""Parity of the model kernels' plain versions with the JAX package.
+
+repro_torch.kernels.ref is what the CPU runs and what the CUDA kernels are
+held to on the card (tests/test_torch_cuda.py, chip_smoke.py). Here it is
+held against the JAX oracles in repro.kernels.ref and against the Pallas
+kernels in interpret mode, as tests/test_kernels.py runs them:
+
+- moe_dispatch (B7): bit for bit;
+- decode_attention and combine_decode_stats (B6): f32, over 1 and 4 kv
+  shards, with test_kernels.py's tolerances (the same math summed in
+  another order);
+- the port's one-device decode-attention body, which is what calls B6,
+  against repro.models.lm.chunked_flash(..., kv_len=pos + 1), the function
+  the JAX serving path runs there.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_decode import flash_decode as pallas_flash_decode
+from repro.kernels.moe_dispatch import moe_dispatch as pallas_moe_dispatch
+from repro.models import lm as jlm
+from repro_torch.core.types import Backend
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.models import lm as tlm
+from torch_parity import same, torch_one_thread  # noqa: F401
+
+
+@pytest.mark.parametrize("T,E,bt", [(1, 64, 256), (48, 64, 256),
+                                    (100, 4, 32), (1000, 7, 128),
+                                    (6144, 64, 2048)])
+def test_moe_dispatch_matches_jax_and_pallas(T, E, bt):
+    """Ids in [0, E), the kernel's contract: the port's plain version
+    equals the JAX oracle and the Pallas kernel (interpret mode, tile bt,
+    with its padding correction) bit for bit, and ops dispatches a CPU
+    tensor to it."""
+    rng = np.random.default_rng(T + E)
+    ids = rng.integers(0, E, T).astype(np.int32)
+    if T > 1:
+        ids[: T // 3] = E - 1          # a hot expert, and the padding alias
+    c_t, p_t = tops.moe_dispatch(torch.as_tensor(ids), n_experts=E)
+    c_j, p_j = jax.jit(jref.moe_dispatch, static_argnums=1)(
+        jnp.asarray(ids), E)
+    c_k, p_k = pallas_moe_dispatch(jnp.asarray(ids), n_experts=E,
+                                   block_t=bt)
+    for got, want in ((c_t, c_j), (p_t, p_j), (c_t, c_k), (p_t, p_k)):
+        same(got, want)
+    assert c_t.dtype == p_t.dtype == torch.int32
+
+
+def test_moe_dispatch_outside_range_matches_jax_ref():
+    """Ids outside [0, E): the plain version (and so the CUDA kernel)
+    follows the JAX oracle: no count, an id in [-E, 0) reads the position
+    column of id + E, any other id gets INT32_MIN. (The Pallas kernel
+    instead folds ids >= E onto expert E-1.)"""
+    E = 5
+    ids = np.array([0, -1, 4, 5, -5, 4, -6, 1, 99, 4, -1, 0], np.int32)
+    c_t, p_t = tref.moe_dispatch(torch.as_tensor(ids), E)
+    c_j, p_j = jref.moe_dispatch(jnp.asarray(ids), E)
+    same(c_t, c_j)
+    same(p_t, p_j)
+    assert int(p_t[3]) == tref.INT32_MIN
+    assert int(p_t[1]) == 0 and int(p_t[10]) == 3   # -1 reads expert 4
+
+
+def _qkv(rng, B, H, Hkv, S, d):
+    return (rng.normal(size=(B, H, d)).astype(np.float32),
+            rng.normal(size=(B, Hkv, S, d)).astype(np.float32),
+            rng.normal(size=(B, Hkv, S, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,d,bk", [(2, 8, 2, 128, 32, 32),
+                                            (3, 2, 1, 64, 16, 16),
+                                            (2, 16, 16, 192, 128, 64)])
+def test_decode_attention_matches_jax_and_pallas(B, H, Hkv, S, d, bk):
+    """f32, lengths 1..S: the plain version against the JAX oracle and the
+    Pallas flash_decode (interpret mode; S a multiple of its tile, as it
+    needs) within test_kernels.py's tolerances (o 2e-5, m 1e-6, l 1e-5
+    relative); at length 0 against the oracle (m = -inf, l = 0, o = 0)."""
+    rng = np.random.default_rng(B * S + d)
+    q, k, v = _qkv(rng, B, H, Hkv, S, d)
+    length = rng.integers(1, S + 1, (B,)).astype(np.int32)
+    length[0] = S
+    got = tref.decode_attention(*map(torch.as_tensor, (q, k, v, length)))
+    ref = jref.decode_attention(*map(jnp.asarray, (q, k, v, length)))
+    pal = pallas_flash_decode(*map(jnp.asarray, (q, k, v, length)),
+                              block_k=bk)
+    for want in (ref, pal):
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                   atol=2e-5)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                   atol=1e-6)
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
+                                   rtol=1e-5)
+    length[:] = 0
+    got = tref.decode_attention(*map(torch.as_tensor, (q, k, v, length)))
+    ref = jref.decode_attention(*map(jnp.asarray, (q, k, v, length)))
+    for x, y in zip(got, ref):
+        same(x, y)
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_sharded_partials_combine_like_jax(shards):
+    """Per-shard partials of the plain version, combined by the port's
+    combine_decode_stats, equal the JAX oracle's combine of the Pallas
+    kernel's partials and the unsharded o / l (atol 2e-6, as
+    test_kernels.py), including shards wholly past length."""
+    B, H, Hkv, S, d = 2, 4, 2, 128, 32
+    rng = np.random.default_rng(shards)
+    q, k, v = _qkv(rng, B, H, Hkv, S, d)
+    length = np.array([100, 20], np.int32)
+    parts_t, parts_j = [], []
+    for i in range(shards):
+        lo, hi = i * S // shards, (i + 1) * S // shards
+        ln = np.clip(length - lo, 0, hi - lo).astype(np.int32)
+        args = (q, k[:, :, lo:hi], v[:, :, lo:hi], ln)
+        parts_t.append(tref.decode_attention(*map(torch.as_tensor, args)))
+        parts_j.append(pallas_flash_decode(*map(jnp.asarray, args),
+                                           block_k=16))
+    comb_t = tops.combine_decode_stats(
+        *[torch.stack([p[i] for p in parts_t]) for i in range(3)])
+    comb_j = jref.combine_decode_stats(
+        *[jnp.stack([p[i] for p in parts_j]) for i in range(3)])
+    o, m, l = jref.decode_attention(*map(jnp.asarray, (q, k, v, length)))
+    full = np.asarray(o / jnp.maximum(l, 1e-30)[..., None])
+    np.testing.assert_allclose(comb_t.numpy(), np.asarray(comb_j), atol=2e-6)
+    np.testing.assert_allclose(comb_t.numpy(), full, atol=2e-6)
+
+
+@pytest.mark.parametrize("B,H,Hkv,W,hd", [(3, 4, 4, 40, 16),
+                                          (2, 4, 2, 1100, 16),
+                                          (4, 6, 2, 9, 32)])
+def test_decode_body_matches_chunked_flash(B, H, Hkv, W, hd):
+    """The port's one-device body of global-attention decode (flash
+    partials of the cache's valid prefix, then o / l; the caller of B6)
+    equals what the JAX decode path computes there:
+    chunked_flash(q, ck, cv, causal=False, kv_len=pos + 1), whose kv chunks
+    are 1024 wide (two chunks at W = 1100). f32, atol 1e-5, on either
+    backend choice."""
+    rng = np.random.default_rng(W + hd)
+    q = rng.normal(size=(B, 1, H, hd)).astype(np.float32)
+    ck = rng.normal(size=(B, W, Hkv, hd)).astype(np.float32)
+    cv = rng.normal(size=(B, W, Hkv, hd)).astype(np.float32)
+    pos = rng.integers(0, W, (B,)).astype(np.int32)
+    pos[0] = W - 1
+    want = jax.jit(lambda q, k, v, p: jlm.chunked_flash(
+        q, k, v, causal=False, kv_len=p + 1))(
+        *map(jnp.asarray, (q, ck, cv, pos)))
+    for backend in (Backend.RPC, Backend.RDMA):
+        got = tlm._decode_attn_distributed(
+            *map(torch.as_tensor, (q, ck, cv, pos)), backend)
+        assert got.shape == (B, 1, H, hd) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)

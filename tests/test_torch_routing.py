@@ -122,14 +122,21 @@ def test_exchange_is_a_transpose_and_hook_sees_each_phase():
     assert tr.exchange(x).is_contiguous()
 
 
-def test_negative_destination_is_dropped():
-    """A difference from the reference (ROADMAP C): a valid op with a
-    negative destination rank is undelivered in the port, where JAX's
-    scatter wraps it to rank P-1. Engine batches never produce one."""
-    dst = np.array([[0, -1, 1]], np.int32)
-    payload = np.arange(3, dtype=np.int32).reshape(1, 3, 1)
-    bt = tr.bin_by_dest(tt(dst), tt(payload), 2, 3)
-    same(bt.op_ok, [[True, False, True]])
-    same(bt.dropped, [1])
-    bj = jr.bin_by_dest(jnp.asarray(dst[0]), jnp.asarray(payload[0]), 2, 3)
-    assert bool(bj.op_ok[1])
+def test_negative_destination_matches_jax():
+    """A valid op with a negative destination rank is delivered where JAX's
+    scatter puts it: -1 wraps to rank P-1 (and meets that rank's own ops at
+    the same slot, where the later op in sorted order wins); below -P it is
+    dropped from the buffer though op_ok holds, exactly as in JAX."""
+    P, cap = 3, 3
+    dst = np.array([[0, -1, 1, -1, 2, -4, 3, -2, 2, 2, -3, -1],
+                    [-1, -1, -1, -1, 2, 2, 0, -5, 1, -2, 0, 2]], np.int32)
+    payload = (np.arange(24, dtype=np.int32).reshape(2, 12, 1) + 10)
+    valid = np.ones(dst.shape, bool)
+    valid[0, 3] = valid[1, 6] = False
+    bj = jax.jit(jax.vmap(lambda d, p, v: jr.bin_by_dest(d, p, P, cap, v)))(
+        jnp.asarray(dst), jnp.asarray(payload), jnp.asarray(valid))
+    bt = tr.bin_by_dest(tt(dst), tt(payload), P, cap, tt(valid))
+    for f in ("buf", "mask", "op_slot", "op_ok", "dropped"):
+        same(getattr(bt, f), getattr(bj, f), f)
+    # op 1 (-1) is delivered but loses slot 0 of rank 2 to op 4 (rank 2)
+    assert bool(bt.op_ok[0, 1]) and int(bt.buf[0, 2, 0, 0]) == 10 + 4
