@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one card: builds the kernels,
-drives the port's two main paths at full size, and checks them.
+drives the port's main paths at full size, and checks them.
 
     python3 chip_smoke.py [--seed S] [--insert-batches B]
 
@@ -14,7 +14,13 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    one expert, with ids outside [0, E), and at (T, E) = (48, 64) and
    (6144, 64); flash_decode within the stated tolerance at length 1,
    length = W and a length that is not a multiple of its tile, with 1 and
-   8 query heads per kv head, in float32 and bfloat16.
+   8 query heads per kv head, in float32 and bfloat16; rg_lru_scan bit for
+   bit at S = 1 with a given h0, S not a multiple of its unroll, D not a
+   multiple of 32 and h0 = None; flash_attention within kernels/ref.py's
+   mha_tol in float32 and bfloat16 with 1, 4 and 16 query heads per kv
+   head, head dims 16, 64, 128 and 256, S == Skv and end-aligned S < Skv,
+   windows 0 and > 0, non-causal, and S and Skv that are not multiples of
+   its tiles.
 2. The data structures at full size: a distributed hash table of 64 ranks
    x 2**18 slots (val_words 1; a 201 MB window) filled to load 0.25 with
    4,194,304 keys in batches of 1024 keys per rank, then 16 find batches
@@ -48,12 +54,44 @@ Phases, in order; any mismatch raises and the script exits non-zero:
 6. CPU against GPU for the model: reduced deepseek-moe-16b in float32,
    the same seeded weights built once and moved, 8 teacher-forced decode
    steps; logits within the stated tolerance, greedy tokens printed.
+7. Serving recurrentgemma-9b at full width (38 layers: 26 RG-LRU and 12
+   local-attention layers of window 2048, each with an MLP; d_model 4096,
+   16 heads of 256, 1 kv head, d_ff 12,288, RG-LRU width 4096, vocab
+   256,000, bfloat16, 8.96 B seeded random weights; deepseek-moe-16b is
+   freed first) through repro_torch.launch.serve as in phase 5:
+   rg_lru_scan must launch 26 times a step and flash_attention never; the
+   first and last step's rg_lru_scan inputs are kept and held bit for bit
+   against the plain version; the last PROFILE_STEPS steps are traced.
+8. The prefill step (repro_torch.launch.steps.make_prefill_step) of
+   recurrentgemma-9b at full width on 1 x 32,768 tokens: the prefill_32k
+   shape with its batch cut from 32 to 1 (printed). Three prefills: the
+   first keeps the inputs of the last call of each kernel (the last query
+   chunk of the last local-attention layer, the last RG-LRU layer), which
+   are then held against the plain versions (rg_lru_scan bit for bit,
+   flash_attention within mha_tol, whose limit must also reject the plain
+   version with the window one key short at that call) and timed as in
+   phase 3; the second is timed, with peak memory; the third is traced.
+   In each, flash_attention must launch 96 times (12 layers x 8 query
+   chunks) and rg_lru_scan 26 times, and the logits must be finite.
+   Printed, not gated: the last-position logits of a prefill of phase 7's
+   8 x 256 prompts against a decode of the same prompts.
+9. CPU against GPU for reduced recurrentgemma-9b in float32 (window 32),
+   weights built once and moved, TF32 off: logits of the train-mode
+   forward at every position of 48 tokens, and 48 teacher-forced decode
+   steps at max_len 48 (the rings wrap), each within LOGITS_TOL; and on
+   both devices, decode at each step equal to the forward at that position
+   within DECODE_VS_PREFILL_TOL. Then the forward's logits at every
+   position of SPLIT_LEN tokens, CPU against GPU within LOGITS_TOL: past
+   2 x 1024 tokens chunked_flash splits the queries into chunks that
+   read end-aligned S < Skv slices of the keys in place, as the full-width
+   prefill does, and flash_attention must launch once a chunk.
 
 Before the last line it prints the card's name and power limit, the
-median time per batch of each data-structure arm and per decode step, one
-JSON line with the report, and one JSON line with every kernel's launches,
-error, times and bound. The last line is {"ok": true, "device": {...}}.
-It needs one card and exits non-zero where torch sees none.
+median time per batch of each data-structure arm and per decode step, the
+prefill's time, one JSON line with the report, and one JSON line with
+every kernel's launches, error, times and bound. The last line is
+{"ok": true, "device": {...}}. It needs one card and exits non-zero where
+torch sees none.
 """
 from __future__ import annotations
 
@@ -86,11 +124,26 @@ PROFILE_STEPS = 4       # the last decode steps of phase 5, traced
 DECODE_TOL = dict(o_rtol=1e-4, o_atol=1e-5, m_atol=1e-5, l_rtol=1e-4)
 # phase 6: f32 logits of the reduced model, CPU against GPU (TF32 off)
 LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
+# phases 7-9: recurrentgemma-9b served as in phase 5, its prefill step at
+# the prefill_32k shape (configs/base.std_shapes) with the batch cut from
+# 32 to 1: eager PyTorch holds 3 MLP intermediates of 25.8 GB each at
+# batch 32 beside 17.9 GB of weights; and the reduced model at phase 9
+RGEMMA = "recurrentgemma-9b"
+RGEMMA_SERVE = dict(arch=RGEMMA, batch=8, prompt_len=256, gen_len=64)
+PREFILL = dict(arch=RGEMMA, batch=1, seq_len=32768, shape="prefill_32k",
+               shape_batch=32)
+RGEMMA_STEPS = 48
+SPLIT_LEN = 2304        # > 2 x 1024: chunked_flash's causal-skip split
+# phase 9: the port's decode against its own forward (f32, 38 layers)
+DECODE_VS_PREFILL_TOL = dict(rtol=1e-4, atol=1e-4)
 # written before each timed call: > the 50 MB L2, and about 0.3 ms of
 # work, so the host has launched the timed call before the card reaches it
 L2_FLUSH_BYTES = 2 ** 30
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory, NVIDIA data sheet
+# dense peaks of one H100 SXM at 700 W (data sheet): bf16 tensor cores,
+# f32 outside them
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 ARMS = ("rdma_fused", "rdma_unfused", "rpc")
 
 
@@ -292,26 +345,49 @@ KERNELS = {
                      "src/repro/kernels/flash_decode.py:81"),
     "moe_dispatch": ("src/repro_torch/kernels/csrc/moe_dispatch.cu",
                      "src/repro/kernels/moe_dispatch.py:66"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:94"),
+    "rg_lru_scan": ("src/repro_torch/kernels/csrc/rg_lru.cu",
+                    "src/repro/kernels/rg_lru.py:53"),
 }
-# the kernels each main path runs (phase 2 and phase 5)
+# the kernels each main path runs (phase 2, phase 5, phase 7, phase 8)
 DS_KERNELS = ("amo_apply", "fused_apply", "hash_find", "hash_insert")
 MODEL_KERNELS = ("flash_decode", "moe_dispatch")
+RGEMMA_DECODE_KERNELS = ("rg_lru_scan",)
+PREFILL_KERNELS = ("flash_attention", "rg_lru_scan")
+# the model kernels: their plain versions are timed as the kernels are
+# (cold, 10 calls); the data structures' serial walks once
+FLOAT_KERNELS = MODEL_KERNELS + PREFILL_KERNELS
+# why a kernel's row has no library time
+NO_LIBRARY = {
+    "amo_apply": "no single PyTorch call",
+    "fused_apply": "no single PyTorch call",
+    "hash_find": "no single PyTorch call",
+    "hash_insert": "no single PyTorch call",
+    "moe_dispatch": "bincount gives counts, not positions",
+    "rg_lru_scan": "PyTorch has no eager linear-recurrence scan",
+}
 
 
 def wrappers():
-    from repro_torch.kernels import (amo_apply as kamo, flash_decode as kfd,
-                                     hash_probe as khp, moe_dispatch as kmd)
+    from repro_torch.kernels import (amo_apply as kamo, flash_attention as kfa,
+                                     flash_decode as kfd, hash_probe as khp,
+                                     moe_dispatch as kmd, rg_lru as krg)
     return {"amo_apply": kamo.amo_apply, "fused_apply": kamo.fused_apply,
             "hash_find": khp.hash_find, "hash_insert": khp.hash_insert,
             "flash_decode": kfd.flash_decode,
-            "moe_dispatch": kmd.moe_dispatch}
+            "moe_dispatch": kmd.moe_dispatch,
+            "flash_attention": kfa.flash_attention,
+            "rg_lru_scan": krg.rg_lru_scan}
 
 
 def plain_versions():
     from repro_torch.kernels import ref as kref
     return {name: getattr(kref, name) for name in DS_KERNELS} | {
         "flash_decode": kref.decode_attention,
-        "moe_dispatch": kref.moe_dispatch}
+        "moe_dispatch": kref.moe_dispatch,
+        "flash_attention": kref.mha,
+        "rg_lru_scan": kref.rg_lru_scan}
 
 
 def launch_counter():
@@ -344,13 +420,15 @@ def read_counts(names) -> dict:
 
 class Capture:
     """While entered, it sits over the kernels in kernels/ops.py and keeps
-    the inputs of the first call of each kernel under each tag that
-    `mark` names (tag None: keeps nothing). It launches nothing of its own:
-    every call goes on to the wrapper, which counts it. flash_decode's
-    inputs keep their strides (the cache is read through a view)."""
+    the inputs of the first call (with last=True: the last call) of each
+    kernel under each tag that `mark` names (tag None: keeps nothing). It
+    launches nothing of its own: every call goes on to the wrapper, which
+    counts it. The inputs of flash_attention and flash_decode keep their
+    strides (the kernels read views)."""
 
-    def __init__(self):
+    def __init__(self, last: bool = False):
         self.tag = None
+        self.last = last
         self.calls = {}            # (kernel, tag) -> (args, kwargs)
 
     def mark(self, tag) -> None:
@@ -362,13 +440,17 @@ class Capture:
         self._saved = {name: getattr(kops, name) for name in KERNELS}
 
         def hook(name, fn):
-            fmt = (torch.preserve_format if name == "flash_decode"
+            fmt = (torch.preserve_format
+                   if name in ("flash_decode", "flash_attention")
                    else torch.contiguous_format)
 
             def call(*args, **kw):
                 key = (name, self.tag)
-                if self.tag is not None and key not in self.calls:
-                    self.calls[key] = ([a.clone(memory_format=fmt)
+                if self.tag is not None and (self.last
+                                             or key not in self.calls):
+                    self.calls.pop(key, None)
+                    self.calls[key] = ([None if a is None
+                                        else a.clone(memory_format=fmt)
                                         for a in args], dict(kw))
                 return fn(*args, **kw)
             return call
@@ -444,9 +526,29 @@ def decode_err(got, want, what: str) -> float:
 
 
 def kernel_err(name: str, got, want, what: str):
-    """Bit for bit for the integer kernels; DECODE_TOL for flash_decode."""
+    """Bit for bit for the integer kernels and rg_lru_scan; DECODE_TOL for
+    flash_decode, kernels/ref.py's mha_tol for flash_attention."""
+    import torch
+    from repro_torch.kernels import ref as kref
     if name == "flash_decode":
         return decode_err(got, want, what)
+    if name in ("flash_attention", "rg_lru_scan"):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name} at {what}: {got.dtype} "
+                                 f"{tuple(got.shape)} against {want.dtype} "
+                                 f"{tuple(want.shape)}")
+        err = float((got.float() - want.float()).abs().max()
+                    ) if got.numel() else 0.0
+        if name == "rg_lru_scan" and not torch.equal(got, want):
+            raise AssertionError(f"rg_lru_scan at {what}: kernel != plain "
+                                 f"version (max abs err {err})")
+        if name == "flash_attention":
+            try:
+                torch.testing.assert_close(got, want, **kref.mha_tol(want))
+            except AssertionError as e:
+                raise AssertionError(f"flash_attention at {what}: kernel != "
+                                     f"plain version: {e}") from None
+        return err
     err = max_abs_err(got, want)
     if err:
         raise AssertionError(f"{name} at {what}: kernel != plain version "
@@ -472,10 +574,48 @@ def find_probes(table, starts, keys, mask, nslots, rec_w, max_probes=8):
     return int(taken.sum())
 
 
+def live_pairs(args, kw) -> int:
+    """flash_attention: the (query row, key) pairs of one head that the
+    end-aligned causal / window mask keeps, times B x H."""
+    q, k = args[0], args[1]
+    B, H, S, _ = q.shape
+    Skv = k.shape[2]
+    pos = np.arange(S, dtype=np.int64) + (Skv - S)
+    hi = np.minimum(pos, Skv - 1) if kw.get("causal", True) else np.full(
+        S, Skv - 1)
+    window = kw.get("window", 0)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(S)
+    return int(np.clip(hi - lo + 1, 0, None).sum()) * B * H
+
+
+def bound_flops(name: str, args, kw) -> tuple:
+    """(operations the function must do on these inputs, the card's peak
+    rate for their type): 4 d per live (q, k) pair and head for
+    flash_attention (q . k and p v), 2 per element for rg_lru_scan; the
+    other kernels do next to no arithmetic (0)."""
+    if name == "flash_attention":
+        return (4 * args[0].shape[-1] * live_pairs(args, kw),
+                PEAK_FLOPS[str(args[0].dtype)])
+    if name == "rg_lru_scan":
+        return 2 * args[0].numel(), PEAK_FLOPS["torch.float32"]
+    return 0, PEAK_FLOPS["torch.float32"]
+
+
+def bound(name: str, args, kw, out) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the peak rate."""
+    byte_ms = bound_bytes(name, args, kw, out) / HBM_BYTES_PER_S * 1e3
+    ops, peak = bound_flops(name, args, kw)
+    op_ms = ops / peak * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
 def bound_bytes(name: str, args, kw, out) -> float:
     """Bytes the function must move on these inputs, each once: every
     output in full. flash_decode reads q, the lengths, and K and V of each
-    row's valid prefix only; moe_dispatch reads the ids. Of the owner-lane
+    row's valid prefix only; moe_dispatch reads the ids; flash_attention
+    q, K and V (already cut to the chunk's live keys by chunked_flash) and
+    rg_lru_scan a, b and h0, in full. Of the owner-lane
     and handler kernels' inputs: the mask in full; of the request inputs
     (descriptors, starts, keys, vals) only the live rows, since a masked
     row is decided by its mask byte; the shard in full where the function
@@ -491,6 +631,8 @@ def bound_bytes(name: str, args, kw, out) -> float:
         return kv + nbytes([q, length, *out])
     if name == "moe_dispatch":
         return nbytes([args[0], *out])
+    if name in ("flash_attention", "rg_lru_scan"):
+        return nbytes([a for a in args if a is not None] + [out])
     mask = args[-1]
     n_live = int(mask.sum())
 
@@ -514,15 +656,29 @@ def serial_chain(name: str, args):
     return int(args[-1].sum(1).max())
 
 
-def library_call(name: str, args):
+def library_call(name: str, args, kw):
     """One PyTorch call computing the same function on the same inputs,
     timed as a yardstick and used nowhere in the port (None where there is
-    none). flash_decode: scaled_dot_product_attention of the one query
-    over the masked cache, normalized output instead of the partials."""
-    if name != "flash_decode":
-        return None
+    none: NO_LIBRARY says why). flash_decode: scaled_dot_product_attention
+    of the one query over the masked cache, normalized output instead of
+    the partials; flash_attention: scaled_dot_product_attention with the
+    end-aligned causal / window mask."""
     import torch
     import torch.nn.functional as F
+    if name == "flash_attention":
+        q, k, v = args
+        S, Skv = q.shape[2], k.shape[2]
+        qpos = torch.arange(S, device=q.device)[:, None] + (Skv - S)
+        kpos = torch.arange(Skv, device=q.device)[None, :]
+        mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
+        if kw.get("causal", True):
+            mask &= kpos <= qpos
+        if kw.get("window", 0) > 0:
+            mask &= kpos > qpos - kw["window"]
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    if name != "flash_decode":
+        return None
     q, k, v, length = args
     S = k.shape[2]
     mask = (torch.arange(S, device=q.device)[None, :]
@@ -537,7 +693,9 @@ def edge_cases(device) -> None:
     every opcode, CAS chains, aux0 out of range, a full table; expert ids
     at T = 1, T not a multiple of the block, all on one expert, outside
     [0, E), and the serving shapes; decode lengths 1, W and one that is
-    not a multiple of the tile, g = 1 and 8, float32 and bfloat16."""
+    not a multiple of the tile, g = 1 and 8, float32 and bfloat16; the
+    RG-LRU scan at S = 1, S and D off its unroll and warp, h0 None; and
+    attention over the cases listed below, in float32 and bfloat16."""
     import torch
     from repro_torch.kernels import ops as kops, ref as kref
     rng = np.random.default_rng(3)
@@ -602,6 +760,30 @@ def edge_cases(device) -> None:
                     cv.to(dtype).transpose(1, 2), t([1, W, 200]))
             cases.append(("flash_decode", kops.flash_decode,
                           kref.decode_attention, args, {}))
+    for Bs, S, D, given_h0 in ((8, 1, 4096, True), (2, 37, 50, True),
+                               (3, 300, 96, False), (1, 1000, 33, True)):
+        a = t(rng.uniform(0.7, 1.0, (Bs, S, D)), torch.float32)
+        b = t(rng.normal(size=(Bs, S, D)), torch.float32)
+        h0 = t(rng.normal(size=(Bs, D)), torch.float32) if given_h0 else None
+        cases.append(("rg_lru_scan", kops.rg_lru_scan, kref.rg_lru_scan,
+                      (a, b, h0), {}))
+    # g, d, S, Skv, causal, window: S == Skv and end-aligned S < Skv,
+    # ragged tiles, non-causal, rows without a key (S > Skv); d 128 is
+    # deepseek-moe-16b's head
+    for g, d, S, Skv, causal, window in (
+            (1, 16, 64, 64, True, 0), (4, 64, 100, 130, True, 0),
+            (16, 256, 70, 150, True, 48), (16, 256, 128, 128, True, 0),
+            (4, 256, 200, 200, True, 64), (1, 64, 33, 33, False, 0),
+            (4, 16, 65, 97, False, 20), (1, 16, 12, 5, True, 0),
+            (1, 128, 130, 130, True, 0), (4, 128, 96, 160, True, 40)):
+        Bs, Hkv = 2, 1 if g == 16 else 2
+        q = t(rng.normal(size=(Bs, S, Hkv * g, d)), torch.float32)
+        k, v = (t(rng.normal(size=(Bs, Skv, Hkv, d)), torch.float32)
+                for _ in range(2))
+        for dtype in (torch.float32, torch.bfloat16):
+            args = tuple(x.to(dtype).transpose(1, 2) for x in (q, k, v))
+            cases.append(("flash_attention", kops.flash_attention, kref.mha,
+                          args, dict(causal=causal, window=window)))
     for name, kernel, plain, args, kw in cases:
         kernel_err(name, kernel(*args, **kw), plain(*args, **kw),
                    "edge cases")
@@ -615,7 +797,22 @@ HEADLINE = {"amo_apply": "ht rdma_unfused insert last",
             "hash_find": "ht rpc find",
             "hash_insert": "ht rpc insert last",
             "flash_decode": "serve last step",
-            "moe_dispatch": "serve last step"}
+            "moe_dispatch": "serve last step",
+            "flash_attention": "prefill",
+            "rg_lru_scan": "prefill"}
+
+
+def live_count(name: str, args, kw) -> int:
+    """What a call works on: live ops (data structures), valid cache rows
+    (flash_decode), tokens (moe_dispatch), live (q, k) pairs x heads
+    (flash_attention), (B, S, D) elements (rg_lru_scan)."""
+    if name in DS_KERNELS:
+        return int(args[-1].sum())
+    if name == "flash_decode":
+        return int(args[3].sum())
+    if name == "flash_attention":
+        return live_pairs(args, kw)
+    return int(args[0].numel())
 
 
 def phase_captured(calls: dict, names, phase: int) -> dict:
@@ -637,7 +834,7 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
                                 device=args[0].device)
         out_k = kernel(*args, **kw)
         torch.cuda.synchronize()
-        if name in MODEL_KERNELS:
+        if name in FLOAT_KERNELS:
             out_p = plain(*args, **kw)
             plain_ms = cuda_ms_cold(lambda: plain(*args, **kw), 10, flush)
         else:                       # the serial walks take seconds: once
@@ -652,50 +849,59 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
         reps = 20 if serial_chain(name, args) is not None else 100
         ms = cuda_ms_cold(lambda: kernel(*args, **kw), reps, flush)
         warm_ms = cuda_ms(lambda: kernel(*args, **kw), reps)
-        lib = library_call(name, args)
+        lib = library_call(name, args, kw)
         library_ms = None
         if lib is not None:
             lib()
             library_ms = cuda_ms_cold(lib, reps, flush)
-        bound_ms = bound_bytes(name, args, kw, out_k) / HBM_BYTES_PER_S * 1e3
-        shapes = [tuple(a.shape) for a in args]
-        live = (int(args[-1].sum()) if name in DS_KERNELS
-                else int(args[3].sum()) if name == "flash_decode"
-                else int(args[0].shape[0]))    # valid cache rows; tokens
+        bound_ms, bound_by = bound(name, args, kw, out_k)
+        shapes = [None if a is None else tuple(a.shape) for a in args]
+        live = live_count(name, args, kw)
+        out_rms = (float(out_p.float().square().mean().sqrt())
+                   if torch.is_tensor(out_p) and out_p.is_floating_point()
+                   and out_p.numel() else None)
         rows[name].append(dict(at=tag, ms=ms, warm_ms=warm_ms,
                                plain_ms=plain_ms, bound_ms=bound_ms,
-                               library_ms=library_ms, max_abs_err=err,
-                               live=live, shapes=shapes,
+                               bound_by=bound_by, library_ms=library_ms,
+                               max_abs_err=err, out_rms=out_rms, live=live,
+                               shapes=shapes,
                                serial_chain=serial_chain(name, args)))
         lib_txt = ("" if library_ms is None
                    else f", library {library_ms:.4f} ms")
-        log(f"phase {phase}: {name} == plain at {tag} on {shapes} "
+        log(f"phase {phase}: {name} == plain at {tag} on {shapes} {kw} "
             f"({live} live): kernel {ms:.4f} ms (back to back "
             f"{warm_ms:.4f}), plain {plain_ms:.1f} ms{lib_txt}, bound "
-            f"{bound_ms:.4f} ms (bytes), max err {err}")
+            f"{bound_ms:.4f} ms ({bound_by}), max err {err}"
+            + ("" if out_rms is None else f" (output RMS {out_rms:.6g})"))
         del out_k, out_p
     for name in names:
         if not rows[name]:
             raise AssertionError(f"the main path never called {name}")
-        if HEADLINE[name] not in [r["at"] for r in rows[name]]:
-            log(f"phase {phase}: {name} was not called at {HEADLINE[name]}; "
-                f"its row shows {rows[name][-1]['at']}")
     return rows
 
 
-def kernel_row(name: str, calls: list, launches: int) -> dict:
-    """One entry of the kernels line: the headline call's numbers, the
-    largest error of any call, and every call."""
+def kernel_row(name: str, calls: list, launches: dict) -> dict:
+    """One entry of the kernels line: the launches on the main paths (in
+    all, and by phase: one prefill for phase 8), the headline call's
+    numbers (with its output's RMS for the float kernels, the scale of
+    its error), the largest error of any call, and every call."""
     source, replaces = KERNELS[name]
     head = next((r for r in calls if r["at"] == HEADLINE[name]), calls[-1])
+    if head["at"] != HEADLINE[name]:
+        log(f"{name} was not called at {HEADLINE[name]}; its row shows "
+            f"{head['at']}")
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        launches=launches, max_abs_err=max(r["max_abs_err"] for r in calls),
-        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by="bytes", library_ms=head["library_ms"], at=head["at"],
+        launches=sum(launches.values()), launches_by_phase=launches,
+        max_abs_err=max(r["max_abs_err"] for r in calls),
+        out_rms=head["out_rms"], ms=head["ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        library_note=NO_LIBRARY.get(name), at=head["at"],
         serial_chain=head["serial_chain"],
         calls=[{k: r[k] for k in ("at", "live", "ms", "warm_ms", "plain_ms",
-                                  "library_ms", "bound_ms", "max_abs_err",
+                                  "library_ms", "bound_ms", "bound_by",
+                                  "max_abs_err", "out_rms",
                                   "serial_chain")}
                for r in calls])
 
@@ -821,39 +1027,75 @@ def phase_cpu_vs_gpu(seed: int, device) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Phases 5 and 6: the serving path
+# Phases 5 to 9: the serving and prefill paths
 # ---------------------------------------------------------------------------
-def phase_serve(seed: int, device, mark=no_mark) -> dict:
-    """deepseek-moe-16b at full width through repro_torch.launch.serve:
-    SERVE["batch"] requests, prompts fed token by token, then greedy
-    generation. `mark(tag)` names the first and the last decode step.
+def describe(cfg, model) -> tuple:
+    """(a line of the config's widths and the parameters and bytes on the
+    card, the bytes); raises unless the count is the config's
+    (params_count() leaves out the final norm, the padded vocab rows and
+    the RG-LRU blocks' a_param)."""
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    R = cfg.rnn_width or cfg.d_model
+    n_rglru = sum(kinds.count("rglru") for kinds in cfg.layer_pattern())
+    want = (cfg.params_count() + cfg.d_model
+            + (cfg.vocab_padded - cfg.vocab) * cfg.d_model
+            + cfg.n_groups * n_rglru * R)
+    if n_params != want:
+        raise AssertionError(f"{cfg.name}: {n_params} parameters on the "
+                             f"card, the config gives {want}")
+    kinds = sorted({k for ks in cfg.layer_pattern() for k in ks})
+    moe = (f", {cfg.n_experts} experts top-{cfg.top_k} + "
+           f"{cfg.n_shared_experts} shared" if cfg.n_experts else "")
+    rnn = (f", RG-LRU width {R}, window {cfg.local_window}"
+           if n_rglru else "")
+    return (f"{cfg.name}: {cfg.n_layers} layers of {kinds}, d_model "
+            f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd} ({cfg.n_kv_heads}"
+            f" kv), d_ff {cfg.d_ff}{moe}{rnn}, vocab {cfg.vocab}, "
+            f"{cfg.dtype}: {n_params} parameters ({cfg.params_count()} "
+            f"by params_count), {w_bytes} bytes on the card"), w_bytes
+
+
+def state_bytes(state, steps: int) -> int:
+    """Bytes a decode step must move besides the weights, at step `steps`:
+    K and V of the valid slots of every attention cache, each RG-LRU
+    state read and written."""
+    total = 0
+    for caches in state["caches"]:
+        for c in caches:
+            if isinstance(c, dict):
+                B, W = c["k"].shape[:2]
+                row = c["k"][0, 0].numel() * c["k"].element_size()
+                total += 2 * B * min(steps, W) * row
+            elif c is not None:
+                total += 2 * c.numel() * c.element_size()
+    return total
+
+
+def phase_serve(serve_cfg: dict, seed: int, device, phase: int,
+                mark=no_mark) -> dict:
+    """The config at full width through repro_torch.launch.serve:
+    serve_cfg["batch"] requests, prompts fed token by token, then greedy
+    generation. `mark(tag)` names the first and the last decode step
+    ("<arch> first step" / "<arch> last step"; "serve ..." for phase 5).
     The caller zeroes the launch counts before and reads them after."""
     import torch
     from repro_torch.configs import registry
     from repro_torch.launch import serve
     from repro_torch.models import lm
-    cfg = registry.get(SERVE["arch"])
-    B, P_len, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
+    cfg = registry.get(serve_cfg["arch"])
+    B, P_len = serve_cfg["batch"], serve_cfg["prompt_len"]
+    G = serve_cfg["gen_len"]
     steps = P_len + G
+    tag = "serve" if phase == 5 else cfg.name
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     model = lm.init_lm(cfg, seed, device)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    # params_count() leaves out the final norm and the padded vocab rows
-    want = (cfg.params_count() + cfg.d_model
-            + (cfg.vocab_padded - cfg.vocab) * cfg.d_model)
-    if n_params != want:
-        raise AssertionError(f"serve: {n_params} parameters on the card, "
-                             f"the config gives {want}")
-    log(f"phase 5: {cfg.name}: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, {cfg.n_experts} "
-        f"experts top-{cfg.top_k} + {cfg.n_shared_experts} shared, vocab "
-        f"{cfg.vocab}, {cfg.dtype}: {n_params} parameters, {w_bytes} bytes "
-        f"on the card, built in {init_s:.2f} s")
+    text, w_bytes = describe(cfg, model)
+    log(f"phase {phase}: {text}, built in {init_s:.2f} s")
     prompts = np.random.default_rng(seed).integers(0, cfg.vocab,
                                                     (B, P_len))
 
@@ -862,8 +1104,8 @@ def phase_serve(seed: int, device, mark=no_mark) -> dict:
         torch.profiler.ProfilerActivity.CUDA])
 
     def on_step(t):
-        mark("serve first step" if t == 1 else
-             "serve last step" if t == steps else None)
+        mark(f"{tag} first step" if t == 1 else
+             f"{tag} last step" if t == steps else None)
         if t == steps - PROFILE_STEPS + 1:
             prof.__enter__()
 
@@ -880,27 +1122,232 @@ def phase_serve(seed: int, device, mark=no_mark) -> dict:
                              f"{len(times)} steps")
     if not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
         raise AssertionError("serve: a generated token is outside the vocab")
-    # bound of one step: every weight read once, plus K and V of the valid
-    # prefix of every layer at the last step (length = steps)
-    kv_last = (cfg.n_layers * 2 * B * steps * cfg.n_kv_heads * cfg.hd
-               * cfg.compute_dtype.itemsize)
+    # bound of one step: every weight read once, plus the caches and
+    # states of the last step
+    extra = state_bytes(state, steps)
     step_ms = statistics.median(times) * 1e3
-    return dict(model=model, state=state, gen=gen, report=dict(
+    return dict(model=model, state=state, gen=gen, prompts=prompts,
+                report=dict(
         arch=cfg.name, layers=cfg.n_layers, batch=B, prompt_len=P_len,
-        gen_len=G, steps=steps, params=n_params, weight_bytes=w_bytes,
-        init_s=init_s, max_memory_allocated=max_mem,
+        gen_len=G, steps=steps,
+        params=sum(p.numel() for p in model.parameters()),
+        weight_bytes=w_bytes, init_s=init_s, max_memory_allocated=max_mem,
         step_ms_median=step_ms, step_ms_min=min(times) * 1e3,
         step_ms_max=max(times) * 1e3, total_s=total_s,
         tok_per_s=B * steps / sum(times),
         generated_tok_per_s=B * G / total_s,
         step_bound_ms_weights=w_bytes / HBM_BYTES_PER_S * 1e3,
-        step_bound_ms=(w_bytes + kv_last) / HBM_BYTES_PER_S * 1e3,
+        step_bound_ms=(w_bytes + extra) / HBM_BYTES_PER_S * 1e3,
         backends={k: v.value for k, v in sorted(state["backends"].items())},
         first_tokens=gen[:2, :8].tolist(),
-        profile=profile_summary(prof, times[-PROFILE_STEPS:], step_ms)))
+        profile=profile_summary(prof, times[-PROFILE_STEPS:], step_ms,
+                                phase)))
 
 
-def profile_summary(prof, window_s, step_ms: float) -> dict:
+def expected_prefill_launches(cfg, S: int) -> dict:
+    """flash_attention: one call per attention layer, or min(8, S // 1024)
+    query chunks each past 2 x 1024 tokens (chunked_flash's causal-skip
+    split); rg_lru_scan: one call per RG-LRU layer."""
+    kinds = [k for ks in cfg.layer_pattern() for k in ks] * cfg.n_groups
+    chunks = min(8, S // 1024) if S > 2 * 1024 else 1
+    return {"flash_attention": chunks * sum(k in ("attn", "lattn")
+                                            for k in kinds),
+            "rg_lru_scan": kinds.count("rglru")}
+
+
+def window_fault_rejected(args, kw) -> dict:
+    """The limit flash_attention is held to must reject a kernel whose
+    window edge is one key off: here the plain version with the window one
+    key short (each row loses its oldest key) against the plain version,
+    on the kept inputs. Returns that output's max abs error and the
+    limit."""
+    import torch
+    from repro_torch.kernels import ref as kref
+    want = kref.mha(*args, **kw)
+    short = kref.mha(*args, **{**kw, "window": kw["window"] - 1})
+    tol = kref.mha_tol(want)
+    try:
+        torch.testing.assert_close(short, want, **tol)
+    except AssertionError:
+        return dict(max_abs_err=float((short.float() - want.float()).abs()
+                                      .max()), **tol)
+    raise AssertionError(f"phase 8: the flash_attention limit {tol} "
+                         f"accepts the window one key short")
+
+
+def phase_prefill(model, seed: int, device, prompts: np.ndarray):
+    """make_prefill_step on PREFILL["batch"] x PREFILL["seq_len"] tokens,
+    three times: under a Capture keeping the last call of each kernel (held
+    against the plain versions and timed right after; the limit of
+    flash_attention must reject its window one key short there), timed
+    (with peak memory), traced. Each run zeroes the counts before and
+    reads them after: every kernel must launch as expected_prefill_launches
+    says. Then, not gated, the last-position logits of a prefill of phase
+    7's prompts against a decode of the same prompts over phase 7's cache
+    length. Returns (report, kernel rows)."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    cfg = model.cfg
+    B, S = PREFILL["batch"], PREFILL["seq_len"]
+    want = expected_prefill_launches(cfg, S)
+    step = steps.make_prefill_step(cfg)
+    tokens = torch.as_tensor(np.random.default_rng(seed + 8).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32), device=device)
+    sync = torch.cuda.synchronize
+
+    def run(what: str):
+        zero_counts()
+        sync()
+        t0 = time.perf_counter()
+        logits = step(model, {"tokens": tokens})
+        sync()
+        dt = time.perf_counter() - t0
+        counts = read_counts(PREFILL_KERNELS)
+        got = {name: counts[name] for name in want}
+        if got != want or any(counts[n] for n in counts if n not in want):
+            raise AssertionError(f"phase 8 ({what}): launches {counts}, "
+                                 f"want {want}")
+        if (tuple(logits.shape) != (B, cfg.vocab_padded)
+                or not bool(torch.isfinite(logits).all())):
+            raise AssertionError(f"phase 8 ({what}): logits "
+                                 f"{tuple(logits.shape)} or not finite")
+        return logits, dt, got
+
+    with Capture(last=True) as capture:
+        capture.mark("prefill")
+        logits, first_s, counts = run("captured")
+    rows = phase_captured(capture.calls, PREFILL_KERNELS, 8)
+    limit_check = window_fault_rejected(
+        *capture.calls[("flash_attention", "prefill")])
+    del capture
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    base_mem = torch.cuda.memory_allocated(device)
+    logits, prefill_s, _ = run("timed")
+    max_mem = torch.cuda.max_memory_allocated(device)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        _, traced_s, _ = run("traced")
+    profile = profile_summary(prof, [traced_s], prefill_s * 1e3, 8)
+    # bound: 2 flops per weight and token in the matrix products (the
+    # embedding read as rows; the logits of the last position only) and
+    # 4 d per live (q, k) pair and head in attention, at the bf16 peak
+    n_mat = (sum(p.numel() for name, p in model.named_parameters()
+                 if p.dim() == 2 and name != "embed"))
+    mat_flops = 2 * n_mat * B * S + 2 * cfg.d_model * cfg.vocab_padded * B
+    q_shape = (B, cfg.n_heads, S, cfg.hd)
+    pairs = live_pairs((torch.empty(q_shape, device="meta"),
+                        torch.empty((B, cfg.n_kv_heads, S, cfg.hd),
+                                    device="meta")),
+                       dict(causal=True, window=cfg.local_window))
+    n_attn = sum(k in ("attn", "lattn") for ks in cfg.layer_pattern()
+                 for k in ks) * cfg.n_groups
+    attn_flops = 4 * cfg.hd * pairs * n_attn
+    bound_s = (mat_flops + attn_flops) / PEAK_FLOPS["torch.bfloat16"]
+    # cross-check against a decode of phase 7's prompts (printed, not gated)
+    prompts = torch.as_tensor(prompts.astype(np.int32), device=device)
+    state = lm.init_decode_state(cfg, prompts.shape[0], prompts.shape[1]
+                                 + RGEMMA_SERVE["gen_len"] + 1, device=device)
+    for t in range(prompts.shape[1]):
+        ref, state = lm.decode_step(model, state, prompts[:, t])
+    del state
+    ref = ref.float()
+    cross = step(model, {"tokens": prompts}).float()
+    cross_err = float((cross - ref).abs().max())
+    argmax_same = float((cross.argmax(-1) == ref.argmax(-1)).float().mean())
+    return dict(batch=B, seq_len=S, cut=f"batch {PREFILL['shape_batch']} "
+                f"-> {B} of the {PREFILL['shape']} shape", launches=counts,
+                first_s=first_s, prefill_s=prefill_s, traced_s=traced_s,
+                tok_per_s=B * S / prefill_s, max_memory_allocated=max_mem,
+                memory_before=base_mem, matmul_flops=mat_flops,
+                attention_flops=attn_flops, bound_s=bound_s,
+                profile=profile, limit_check=limit_check, cross_check=dict(
+                    prompts=list(prompts.shape), max_abs_err=cross_err,
+                    argmax_agree=argmax_same,
+                    logits_scale=float(ref.abs().max()))), rows
+
+
+def phase_rgemma_cpu_vs_gpu(seed: int, device) -> dict:
+    """Reduced recurrentgemma-9b in float32, weights built once on the CPU
+    and moved, TF32 off: the train-mode forward's logits at every one of
+    RGEMMA_STEPS positions, and RGEMMA_STEPS teacher-forced decode steps at
+    max_len RGEMMA_STEPS (rings of local_window slots wrap), CPU against
+    GPU within LOGITS_TOL; on each device, decode at step t against the
+    forward at position t within DECODE_VS_PREFILL_TOL. Then the forward
+    over SPLIT_LEN tokens, CPU against GPU within LOGITS_TOL at every
+    position, where flash_attention must launch once for each query chunk
+    of chunked_flash's split in each local-attention layer."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.get(RGEMMA).reduced()
+    cpu = lm.init_lm(cfg, seed, "cpu")
+    gpu = copy.deepcopy(cpu).to(device)
+    B, L = 2, RGEMMA_STEPS
+    tok = torch.as_tensor(np.random.default_rng(seed + 9).integers(
+        0, cfg.vocab, (B, L)).astype(np.int32))
+    full = {}
+    for dev, m in (("cpu", cpu), ("gpu", gpu)):
+        full[dev] = lm.logits_fn(m, cfg, lm._forward(
+            m, cfg, tok.to(m.embed.device))).cpu()
+    try:
+        torch.testing.assert_close(full["gpu"], full["cpu"], **LOGITS_TOL)
+    except AssertionError as e:
+        raise AssertionError(f"phase 9: forward logits differ CPU vs GPU: "
+                             f"{e}") from None
+    worst = dict(cpu_vs_gpu=float((full["gpu"] - full["cpu"]).abs().max()),
+                 decode_vs_forward=0.0)
+    states = {"cpu": lm.init_decode_state(cfg, B, L, device="cpu"),
+              "gpu": lm.init_decode_state(cfg, B, L, device=device)}
+    for t in range(L):
+        out = {}
+        for dev, m in (("cpu", cpu), ("gpu", gpu)):
+            lg, states[dev] = lm.decode_step(m, states[dev],
+                                             tok[:, t].to(m.embed.device))
+            out[dev] = lg.cpu()
+            try:
+                torch.testing.assert_close(out[dev], full[dev][:, t],
+                                           **DECODE_VS_PREFILL_TOL)
+            except AssertionError as e:
+                raise AssertionError(f"phase 9: {dev} decode != forward at "
+                                     f"step {t}: {e}") from None
+            worst["decode_vs_forward"] = max(
+                worst["decode_vs_forward"],
+                float((out[dev] - full[dev][:, t]).abs().max()))
+        try:
+            torch.testing.assert_close(out["gpu"], out["cpu"], **LOGITS_TOL)
+        except AssertionError as e:
+            raise AssertionError(f"phase 9: decode logits differ CPU vs GPU "
+                                 f"at step {t}: {e}") from None
+        worst["cpu_vs_gpu"] = max(worst["cpu_vs_gpu"], float(
+            (out["gpu"] - out["cpu"]).abs().max()))
+    ring = min(cfg.local_window, L)
+    tok = torch.as_tensor(np.random.default_rng(seed + 10).integers(
+        0, cfg.vocab, (1, SPLIT_LEN)).astype(np.int32))
+    split = {"cpu": lm.logits_fn(cpu, cfg, lm._forward(cpu, cfg, tok))}
+    zero_counts()
+    split["gpu"] = lm.logits_fn(gpu, cfg, lm._forward(
+        gpu, cfg, tok.to(device))).cpu()
+    counts = read_counts(())
+    want = expected_prefill_launches(cfg, SPLIT_LEN)
+    if {name: counts[name] for name in want} != want:
+        raise AssertionError(f"phase 9: the forward over {SPLIT_LEN} tokens "
+                             f"launched {counts}, want {want}")
+    try:
+        torch.testing.assert_close(split["gpu"], split["cpu"], **LOGITS_TOL)
+    except AssertionError as e:
+        raise AssertionError(f"phase 9: forward logits over {SPLIT_LEN} "
+                             f"tokens differ CPU vs GPU: {e}") from None
+    return dict(steps=L, ring=ring, wraps=L > ring, split_len=SPLIT_LEN,
+                split_launches=want, split_cpu_vs_gpu=float(
+                    (split["gpu"] - split["cpu"]).abs().max()), **worst)
+
+
+def profile_summary(prof, window_s, step_ms: float, phase: int) -> dict:
     """Device time per step by kernel over the traced steps, and the
     device's idle share: against the traced steps' own wall time (the
     tracer slows the host), and against the untraced median step."""
@@ -912,7 +1359,7 @@ def profile_summary(prof, window_s, step_ms: float) -> dict:
             and e.self_device_time_total > 0]
     busy_ms = sum(t for _, t, _ in rows) / 1e3 / n
     if not rows:
-        log("phase 5: the profiler recorded no device time")
+        log(f"phase {phase}: the profiler recorded no device time")
         return dict(steps=n, device_ms_per_step=None)
     wall_ms = sum(window_s) * 1e3 / n
     top = sorted(rows, key=lambda r: -r[1])[:12]
@@ -976,6 +1423,17 @@ def phase_model_cpu_vs_gpu(seed: int, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+def log_profile(what: str, pr: dict, unit: str) -> None:
+    if pr.get("device_ms_per_step") is None:
+        return
+    log(f"{what} profile over {pr['steps']} {unit}(s): device busy "
+        f"{pr['device_ms_per_step']:.3f} ms per {unit}, idle "
+        f"{pr['idle_share_vs_median']:.3f} of the untraced {unit}")
+    for r in pr["top"]:
+        log(f"  {r['ms_per_step']:8.3f} ms/{unit} {r['calls_per_step']:7.1f}"
+            f" calls/{unit}  {r['name']}")
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -999,6 +1457,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
+    start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()
     log(card)
@@ -1018,6 +1477,11 @@ def main() -> int:
 
     edge_cases(device)
     log(f"phase 1: edge cases equal on all {len(KERNELS)} kernels")
+    launches = {name: {} for name in KERNELS}    # kernel -> phase -> count
+
+    def record(phase: str, counts: dict, names) -> None:
+        for name in names:
+            launches[name][phase] = counts[name]
 
     with Capture() as capture:
         zero_counts()
@@ -1025,10 +1489,17 @@ def main() -> int:
         report = phase_slice(args.seed, args.insert_batches, device,
                              capture.mark)
         slice_s = time.perf_counter() - t0
-        launches = read_counts(DS_KERNELS)
-    log(f"phase 2: launches {launches} in {slice_s:.1f} s")
+        counts = read_counts(DS_KERNELS)
+    record("phase 2", counts, DS_KERNELS)
+    log(f"phase 2: launches {counts} in {slice_s:.1f} s")
 
-    rows = phase_captured(capture.calls, DS_KERNELS, 3)
+    rows = {name: [] for name in KERNELS}
+
+    def add_rows(new: dict) -> None:
+        for name, calls in new.items():
+            rows[name].extend(calls)
+
+    add_rows(phase_captured(capture.calls, DS_KERNELS, 3))
     del capture
 
     n_out = phase_cpu_vs_gpu(args.seed, device)
@@ -1036,22 +1507,22 @@ def main() -> int:
 
     with Capture() as capture:
         zero_counts()
-        served = phase_serve(args.seed, device, capture.mark)
-        serve_launches = read_counts(MODEL_KERNELS)
+        served = phase_serve(SERVE, args.seed, device, 5, capture.mark)
+        counts = read_counts(MODEL_KERNELS)
     sv = served["report"]
     want = sv["layers"] * sv["steps"]
     for name in MODEL_KERNELS:
-        if serve_launches[name] != want:
+        if counts[name] != want:
             raise AssertionError(f"phase 5: {name} launched "
-                                 f"{serve_launches[name]} times, want "
+                                 f"{counts[name]} times, want "
                                  f"{sv['layers']} a step = {want}")
-        launches[name] = serve_launches[name]
+    record("phase 5", counts, MODEL_KERNELS)
     check_last_logits(served)
     del served
-    log(f"phase 5: launches {serve_launches} ({sv['layers']} a step for "
+    log(f"phase 5: launches {counts} ({sv['layers']} a step for "
         f"each model kernel over {sv['steps']} steps); backends "
         f"{sv['backends']}; logits finite")
-    rows.update(phase_captured(capture.calls, MODEL_KERNELS, 5))
+    add_rows(phase_captured(capture.calls, MODEL_KERNELS, 5))
     del capture
 
     model_check = phase_model_cpu_vs_gpu(args.seed, device)
@@ -1060,6 +1531,60 @@ def main() -> int:
         f"{model_check['max_abs_err']:.3e}, smallest top-2 gap "
         f"{model_check['smallest_top2_gap']:.3e}); greedy tokens CPU "
         f"{model_check['tokens']['cpu']} GPU {model_check['tokens']['gpu']}")
+    torch.cuda.empty_cache()
+
+    with Capture() as capture:
+        zero_counts()
+        rg = phase_serve(RGEMMA_SERVE, args.seed, device, 7, capture.mark)
+        counts = read_counts(RGEMMA_DECODE_KERNELS)
+    rv = rg["report"]
+    n_rglru = expected_prefill_launches(rg["model"].cfg, 1)["rg_lru_scan"]
+    want = {name: 0 for name in KERNELS} | {
+        "rg_lru_scan": n_rglru * rv["steps"]}
+    if counts != want:
+        raise AssertionError(f"phase 7: launches {counts}, want {want} "
+                             f"({n_rglru} rg_lru_scan a step)")
+    record("phase 7", counts, RGEMMA_DECODE_KERNELS + ("flash_attention",))
+    check_last_logits(rg)
+    log(f"phase 7: launches {counts} ({n_rglru} rg_lru_scan a step over "
+        f"{rv['steps']} steps, no flash_attention); backends "
+        f"{rv['backends']}; logits finite; LATTN ring of "
+        f"{min(rg['model'].cfg.local_window, rv['steps'] + 1)} slots does "
+        f"not wrap at {rv['steps']} steps")
+    add_rows(phase_captured(capture.calls, RGEMMA_DECODE_KERNELS, 7))
+    del capture
+
+    log(f"cut: phase 8 prefills {PREFILL['batch']} x {PREFILL['seq_len']} "
+        f"tokens, the {PREFILL['shape']} shape with its batch cut from "
+        f"{PREFILL['shape_batch']} to {PREFILL['batch']}")
+    pf, prefill_rows = phase_prefill(rg["model"], args.seed, device,
+                                     rg["prompts"])
+    add_rows(prefill_rows)
+    record("phase 8", pf["launches"], PREFILL_KERNELS)
+    cc, lc = pf["cross_check"], pf["limit_check"]
+    log(f"phase 8: the flash_attention limit (rtol {lc['rtol']:.6g}, atol "
+        f"{lc['atol']:.6g}) rejects the window one key short at the last "
+        f"call (max abs err {lc['max_abs_err']:.6g})")
+    log(f"phase 8: launches {pf['launches']} per prefill (3 runs); logits "
+        f"finite; cross-check (not gated): prefill of the {cc['prompts']} "
+        f"serve prompts against a decode of them (their step-"
+        f"{RGEMMA_SERVE['prompt_len']} logits): max abs err "
+        f"{cc['max_abs_err']:.4f} (logits up to "
+        f"{cc['logits_scale']:.2f}), argmax agrees on "
+        f"{cc['argmax_agree']:.3f} of the requests")
+    del rg
+    torch.cuda.empty_cache()
+
+    rg_check = phase_rgemma_cpu_vs_gpu(args.seed, device)
+    log(f"phase 9: reduced {RGEMMA} forward and {rg_check['steps']} decode "
+        f"steps (ring of {rg_check['ring']} slots wraps: "
+        f"{rg_check['wraps']}) equal CPU vs GPU within {LOGITS_TOL} (max "
+        f"abs err {rg_check['cpu_vs_gpu']:.3e}); decode == forward within "
+        f"{DECODE_VS_PREFILL_TOL} on both (max abs err "
+        f"{rg_check['decode_vs_forward']:.3e}); forward over "
+        f"{rg_check['split_len']} tokens (chunked_flash split, launches "
+        f"{rg_check['split_launches']}) equal CPU vs GPU (max abs err "
+        f"{rg_check['split_cpu_vs_gpu']:.3e})")
 
     for arm in ARMS:
         r = report[arm]
@@ -1069,29 +1594,35 @@ def main() -> int:
         r = report[f"queue_{arm}"]
         log(f"median ms per batch, queue {arm}: push {r['push_ms']:.3f}, "
             f"pop {r['pop_ms']:.3f} ({card})")
-    log(f"serve {sv['arch']}: median {sv['step_ms_median']:.3f} ms per "
-        f"decode step of {sv['batch']} tokens (bound "
-        f"{sv['step_bound_ms']:.3f} ms, weights alone "
-        f"{sv['step_bound_ms_weights']:.3f}), {sv['tok_per_s']:.1f} tok/s "
-        f"over {sv['steps']} steps, {sv['generated_tok_per_s']:.1f} "
-        f"generated tok/s; init {sv['init_s']:.2f} s; peak memory "
-        f"{sv['max_memory_allocated'] / 1e9:.2f} GB ({card})")
-    pr = sv["profile"]
-    if pr.get("device_ms_per_step") is not None:
-        log(f"serve profile over the last {pr['steps']} steps: device busy "
-            f"{pr['device_ms_per_step']:.3f} ms per step, idle "
-            f"{pr['idle_share_vs_median']:.3f} of the median step")
-        for r in pr["top"]:
-            log(f"  {r['ms_per_step']:8.3f} ms/step {r['calls_per_step']:7.1f}"
-                f" calls/step  {r['name']}")
+    for v in (sv, rv):
+        log(f"serve {v['arch']}: median {v['step_ms_median']:.3f} ms per "
+            f"decode step of {v['batch']} tokens (bound "
+            f"{v['step_bound_ms']:.3f} ms, weights alone "
+            f"{v['step_bound_ms_weights']:.3f}), {v['tok_per_s']:.1f} tok/s "
+            f"over {v['steps']} steps, {v['generated_tok_per_s']:.1f} "
+            f"generated tok/s; init {v['init_s']:.2f} s; peak memory "
+            f"{v['max_memory_allocated'] / 1e9:.2f} GB ({card})")
+        log_profile(f"serve {v['arch']}", v["profile"], "step")
+    log(f"prefill {RGEMMA}: {pf['batch']} x {pf['seq_len']} tokens in "
+        f"{pf['prefill_s']:.3f} s ({pf['tok_per_s']:.0f} tok/s; first run "
+        f"{pf['first_s']:.3f} s), bound {pf['bound_s']:.3f} s "
+        f"({pf['matmul_flops'] / 1e12:.1f} TFLOP of matrix products + "
+        f"{pf['attention_flops'] / 1e12:.1f} of attention at the bf16 peak); "
+        f"peak memory {pf['max_memory_allocated'] / 1e9:.2f} GB "
+        f"({pf['memory_before'] / 1e9:.2f} before) ({card})")
+    log_profile(f"prefill {RGEMMA}", pf["profile"], "prefill")
     report["serve"] = sv
     report["model_cpu_vs_gpu"] = model_check
+    report["serve_rgemma"] = rv
+    report["prefill"] = pf
+    report["rgemma_cpu_vs_gpu"] = rg_check
     kernels = [kernel_row(name, rows[name], launches[name])
                for name in KERNELS]
     shapes = {f"{name} at {r['at']}": r["shapes"]
               for name, calls in rows.items() for r in calls}
     log(json.dumps({"report": report, "card": card, "build_s": build_s,
                     "slice_s": slice_s, "seed": args.seed,
+                    "total_s": time.perf_counter() - start,
                     "shapes": shapes}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

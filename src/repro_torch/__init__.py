@@ -1,14 +1,14 @@
 """PyTorch/CUDA port of the RDMA-vs-RPC distributed data structures and
-of the serving path of the model zoo.
+of the serving and prefill paths of the model zoo.
 
 Mirrors the JAX package `repro` module by module (`core/`, `kernels/`,
 `configs/`, `models/`, `launch/`) and is held against it by the parity
 tests in `tests/test_torch_*.py`. It imports neither JAX nor `repro`.
 Entry points take an explicit `device` that defaults to ``"cuda"``; the
 tests ask for ``"cpu"`` by name. On a CUDA tensor the owner lanes, the RPC
-handler bodies, decode attention and expert dispatch launch the
-hand-written kernels in `kernels/csrc/`; on a CPU tensor they run the
-plain PyTorch versions in `kernels/ref.py`.
+handler bodies, attention, decode attention, expert dispatch and the
+RG-LRU scan launch the hand-written kernels in `kernels/csrc/`; on a CPU
+tensor they run the plain PyTorch versions in `kernels/ref.py`.
 """
 from . import configs, convert, core, kernels, launch, models
 

@@ -3,8 +3,10 @@
 # the device dispatch (ops.py):
 #   amo_apply / fused_apply — serialized AMO batch at the owner (the NIC lane)
 #   hash_find / hash_insert — open-addressing probe loops (AM handler bodies)
+#   flash_attention — causal / local-window GQA attention (prefill)
 #   flash_decode — one-token GQA decode attention over the serving KV cache
 #   moe_dispatch — expert histogram + stable positions (batched FAA ticket)
+#   rg_lru_scan — the RG-LRU block's gated linear recurrence
 from . import ops, ref
 
 __all__ = ["ops", "ref"]

@@ -1,23 +1,25 @@
 """Device dispatch for the kernels: the owner lanes and handler bodies of
-the data structures, and decode attention and expert dispatch of the
-model.
+the data structures, and attention, decode attention, expert dispatch and
+the RG-LRU scan of the model.
 
 A CUDA tensor launches the hand-written kernel (inputs are made
-contiguous first, except flash_decode's K and V, which the kernel reads
-through their strides); a CPU tensor takes the plain PyTorch version in
-kernels/ref.py. There is no fallback: a kernel that fails to build or to
-launch raises.
+contiguous first, except flash_attention's q, k and v and flash_decode's
+K and V, which the kernels read through their strides); a CPU tensor takes
+the plain PyTorch version in kernels/ref.py. There is no fallback: a
+kernel that fails to build or to launch raises.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import amo_apply as _amo
+from . import flash_attention as _fa
 from . import flash_decode as _fd
 from . import hash_probe as _hp
 from . import moe_dispatch as _md
+from . import rg_lru as _rg
 from . import ref
 
 Tensor = torch.Tensor
@@ -67,6 +69,16 @@ def hash_insert(table, starts, keys, vals, mask, *, nslots, rec_w,
                            rec_w=rec_w, max_probes=max_probes)
 
 
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: int = 0) -> Tensor:
+    """Forward GQA attention, queries aligned to the end of the kv
+    sequence: q (B, H, S, d); k/v (B, Hkv, Skv, d), any strides (a CUDA
+    view needs a unit stride on d). Returns (B, H, S, d) in q's dtype."""
+    if q.is_cuda:
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return ref.mha(q, k, v, causal=causal, window=window)
+
+
 def flash_decode(q: Tensor, k: Tensor, v: Tensor, length: Tensor
                  ) -> Tuple[Tensor, Tensor, Tensor]:
     """One-token GQA decode over a KV cache: q (B, H, d); k/v (B, Hkv, S,
@@ -89,3 +101,12 @@ def moe_dispatch(expert_ids: Tensor, *, n_experts: int
         return _md.moe_dispatch(expert_ids.to(torch.int32).contiguous(),
                                 n_experts)
     return ref.moe_dispatch(expert_ids, n_experts)
+
+
+def rg_lru_scan(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:
+    """h_t = a_t * h_{t-1} + b_t over a, b (B, S, D) float32 from h0
+    (B, D) (None: zeros). Returns h (B, S, D) float32."""
+    if a.is_cuda:
+        return _rg.rg_lru_scan(a.contiguous(), b.contiguous(),
+                               None if h0 is None else h0.contiguous())
+    return ref.rg_lru_scan(a, b, h0)

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels (ports of `repro.kernels.ref`):
 the four owner-lane kernels amo_apply, fused_apply, hash_find and
-hash_insert, and the model kernels decode_attention (with
-combine_decode_stats) and moe_dispatch.
+hash_insert, and the model kernels mha (flash attention's function),
+decode_attention (with combine_decode_stats), moe_dispatch and
+rg_lru_scan.
 
 They take all owners at once (the leading P axis JAX vmaps over) and keep
 the JAX oracles' semantics word for word, including what happens at an
@@ -284,3 +285,68 @@ def moe_dispatch(expert_ids: Tensor, n_experts: int
     inside = (col >= 0) & (col < E)
     pos = torch.gather(excl, 1, col.clamp(0, max(E - 1, 0))[:, None])[:, 0]
     return counts, torch.where(inside, pos, torch.full_like(pos, INT32_MIN))
+
+
+# ---------------------------------------------------------------------------
+# flash attention (fwd): causal / local-window GQA attention
+# ---------------------------------------------------------------------------
+def mha(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+        window: int = 0) -> Tensor:
+    """q (B, H, S, d); k/v (B, Hkv, Skv, d) (any strides) -> (B, H, S, d)
+    in q's dtype, f32 math. Query head h reads kv head h // (H / Hkv);
+    queries are aligned to the *end* of the kv sequence (query i sits at
+    position i + Skv - S); window > 0 keeps the last `window` positions
+    (inclusive). A row with no key left (causal, S > Skv) gives 0, as the
+    flash forward's l = 0 does, where the JAX oracle's softmax gives NaN."""
+    B, H, S, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * d ** -0.5
+    qpos = torch.arange(S, device=q.device)[:, None] + (Skv - S)
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    ok = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= kpos > qpos - window
+    logits = logits.masked_fill(~ok, float("-inf"))
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - torch.where(torch.isfinite(m), m,
+                                       torch.zeros_like(m)))
+    p = p / p.sum(-1, keepdim=True).clamp(min=1e-30)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def mha_tol(want: Tensor) -> dict:
+    """The limit (torch.testing.assert_close keywords) to which the
+    flash-attention kernel is held against `mha`'s output `want`. Both read
+    the same inputs and sum in f32 in another order: in f32 that gives
+    2e-5 at most over unit-scale inputs. In bf16 each side rounds its f32
+    result once, so they may differ by one step of the output: at most
+    2**-7 of the value. The term of 2**-8 of the output's RMS covers the
+    f32 sums of values near zero, where one step is smaller than their
+    difference."""
+    if want.dtype == torch.float32:
+        return dict(rtol=0.0, atol=2e-5)
+    rms = float(want.float().square().mean().sqrt()) if want.numel() else 0.0
+    return dict(rtol=2.0 ** -7, atol=2.0 ** -8 * rms)
+
+
+# ---------------------------------------------------------------------------
+# rg_lru_scan: the gated linear recurrence of the RG-LRU block
+# ---------------------------------------------------------------------------
+def rg_lru_scan(a: Tensor, b: Tensor, h0: Tensor | None = None) -> Tensor:
+    """a, b (B, S, D) f32; h0 (B, D) (None: zeros). Returns h (B, S, D)
+    with h_t = a_t * h_{t-1} + b_t, h_{-1} = h0. The product and the sum
+    are two torch ops, each rounded on its own (no fused multiply-add),
+    which the CUDA kernel repeats bit for bit."""
+    B, S, D = a.shape
+    h = torch.zeros((B, D), dtype=a.dtype, device=a.device) if h0 is None \
+        else h0
+    out = torch.empty_like(a)
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out

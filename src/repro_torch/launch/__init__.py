@@ -1,2 +1,2 @@
-# Entry points (port of `repro.launch`): the serving loop and its step
-# function.
+# Entry points (port of `repro.launch`): the serving loop and the serve
+# and prefill step functions.

@@ -5,7 +5,8 @@
       --reduced --batch 4 --prompt-len 12 --gen-len 20 --device cpu
 
 `--device` defaults to cuda; there the path runs the CUDA kernels
-flash_decode and moe_dispatch, on the CPU their plain versions.
+(flash_decode and moe_dispatch for attention and MoE models, rg_lru_scan
+for recurrentgemma-9b), on the CPU their plain versions.
 """
 from __future__ import annotations
 

@@ -1,5 +1,7 @@
-"""Serving path of the model zoo: the decode half of `repro.models.lm` for
-the ATTN, MLP and MOE blocks (dense GQA and fine-grained MoE decoders).
+"""The model zoo's serving and prefill paths: `repro.models.lm` for the
+ATTN, LATTN, RGLRU, MLP and MOE blocks of decoder-only models (dense GQA,
+fine-grained MoE and the RG-LRU hybrid recurrentgemma), in decode mode and
+in the forward of train mode (prefill).
 
 The paper's technique enters at two irregular-access points, each with a
 backend chosen by the cost model exactly as the JAX model chooses it
@@ -13,20 +15,25 @@ backend chosen by the cost model exactly as the JAX model chooses it
 On one device every sharding hint of the JAX model is an identity and is
 dropped, and both backends of each point compute the same thing; the
 choice is still made, returned in the decode state (`state["backends"]`)
-and logged by `launch/serve.py`. The path's two kernels are
-`kops.flash_decode` (the shard-local body of decode attention) and
-`kops.moe_dispatch` (the batched FAA ticket of expert dispatch).
+and logged by `launch/serve.py`. The path's kernels are
+`kops.flash_decode` (the shard-local body of global-attention decode),
+`kops.moe_dispatch` (the batched FAA ticket of expert dispatch),
+`kops.rg_lru_scan` (the RG-LRU recurrence, in both modes) and
+`kops.flash_attention` (full-sequence attention, on the card; the CPU runs
+the port of the JAX package's chunked flash forward, `_flash_fwd`).
 
 Weights live in `nn.Module`s under the JAX package's parameter names and
-layouts (`LM`: `embed`, `layers`, `final_norm`; `Attention`, `Mlp`, `Moe`
-blocks); the block math is plain functions on tensors, as in JAX. Layers
-are held one by one (JAX stacks each pattern position over n_groups). KV
-caches are per layer, (B, W, Hkv, hd), and are written in place at
-slot = pos, where JAX returns new caches: that keeps one cache in memory.
+layouts (`LM`: `embed`, `layers`, `final_norm`; `Attention`,
+`LocalAttention`, `Rglru`, `Mlp`, `Moe` blocks); the block math is plain
+functions on tensors, as in JAX. Layers are held one by one (JAX stacks
+each pattern position over n_groups). KV caches are per layer,
+(B, W, Hkv, hd), and are written in place at slot = pos (pos % W for the
+local-attention ring), where JAX returns new caches: that keeps one cache
+in memory. The RG-LRU state is (B, R) float32 per layer.
 
-Not ported yet (each raises NotImplementedError): the LATTN, RGLRU, MLSTM,
-SLSTM, CROSS and EATTN blocks, the encdec and vlm families, and the train
-and prefill modes.
+Not ported yet (each raises NotImplementedError): the MLSTM, SLSTM, CROSS
+and EATTN blocks, the encdec and vlm families, and the backward of train
+mode (loss and gradients).
 """
 from __future__ import annotations
 
@@ -37,7 +44,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..configs.base import ATTN, MLP, MOE, ArchConfig
+from ..configs.base import ATTN, LATTN, MLP, MOE, RGLRU, ArchConfig
 from ..core import costmodel
 from ..core.types import Backend
 from ..kernels import ops as kops
@@ -48,7 +55,7 @@ Tensor = torch.Tensor
 def _not_ported(what: str):
     raise NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP A13); the port "
-        f"serves decoder-only models of {tuple(BLOCKS)} blocks")
+        f"serves and prefills decoder-only models of {tuple(BLOCKS)} blocks")
 
 
 # ===========================================================================
@@ -92,6 +99,7 @@ def init_block(cfg: ArchConfig, kind: str, gen: torch.Generator,
     """Seeded weights of one block, shapes and names as JAX's init_block."""
     D, Fd, hd = cfg.d_model, cfg.d_ff, cfg.hd
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    R = cfg.rnn_width or D
     dt = cfg.compute_dtype
 
     def norm():
@@ -100,7 +108,7 @@ def init_block(cfg: ArchConfig, kind: str, gen: torch.Generator,
     def dense(shape, dtype=dt):
         return _dense(gen, shape, dtype, device)
 
-    if kind == ATTN:
+    if kind in (ATTN, LATTN):
         return {"norm": norm(), "wq": dense((D, H * hd)),
                 "wk": dense((D, Hkv * hd)), "wv": dense((D, Hkv * hd)),
                 "wo": dense((H * hd, D))}
@@ -120,6 +128,11 @@ def init_block(cfg: ArchConfig, kind: str, gen: torch.Generator,
             p.update(wd1=dense((D, Fd)), wd3=dense((D, Fd)),
                      wd2=dense((Fd, D)))
         return p
+    if kind == RGLRU:
+        return {"norm": norm(), "wx": dense((D, R)), "wg": dense((D, R)),
+                "wr": dense((D, R)), "wo": dense((R, D)),
+                "a_param": torch.full((R,), 2.0, dtype=torch.float32,
+                                      device=device)}
     _not_ported(f"block kind {kind!r}")
 
 
@@ -143,6 +156,19 @@ class Attention(Block):
         return attn_block_decode(self, x, self.cfg, self.kind, cache, pos)
 
 
+class LocalAttention(Attention):
+    """Sliding-window attention: ATTN's weights, a ring cache of
+    min(local_window, max_len) slots in decode."""
+    kind = LATTN
+
+
+class Rglru(Block):
+    kind = RGLRU
+
+    def forward(self, x: Tensor, state: Optional[Tensor]):
+        return rglru_block(self, x, self.cfg, state)
+
+
 class Mlp(Block):
     kind = MLP
 
@@ -157,7 +183,8 @@ class Moe(Block):
         return moe_block(self, x, self.cfg)
 
 
-BLOCKS = {ATTN: Attention, MLP: Mlp, MOE: Moe}
+BLOCKS = {ATTN: Attention, LATTN: LocalAttention, RGLRU: Rglru,
+          MLP: Mlp, MOE: Moe}
 
 
 def make_block(cfg: ArchConfig, kind: str, weights: Dict[str, Tensor]
@@ -190,7 +217,8 @@ class LM(nn.Module):
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError unless the port serves this config."""
+    """Raise NotImplementedError unless the port serves and prefills this
+    config."""
     if cfg.family in ("encdec", "vlm"):
         _not_ported(f"the {cfg.family} family ({cfg.name})")
     for kinds in cfg.layer_pattern():
@@ -225,7 +253,104 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device="cuda") -> LM:
 
 
 # ===========================================================================
-# Attention (decode)
+# Attention: chunked flash forward (train / prefill)
+# ===========================================================================
+def _chunk_kv(x: Tensor, bk: int, nk: int) -> Tensor:
+    """(B, Skv, Hkv, hd) -> (nk, B, bk, Hkv, hd) zero-padded."""
+    B, Skv, Hkv, hd = x.shape
+    xp = F.pad(x, (0, 0, 0, 0, 0, nk * bk - Skv))
+    return xp.reshape(B, nk, bk, Hkv, hd).transpose(0, 1)
+
+
+def _chunk_mask(j: int, bk: int, S: int, Skv: int, causal: bool,
+                window: int, kv_len: Optional[Tensor], device) -> Tensor:
+    """Validity mask (B-or-1, S, bk) for kv chunk j; queries end-aligned."""
+    kpos = j * bk + torch.arange(bk, device=device)
+    qpos = (torch.arange(S, device=device) + (Skv - S))[:, None]
+    ok = (kpos < Skv)[None, None, :].expand(1, S, bk)
+    if causal:
+        ok = ok & (kpos[None, None, :] <= qpos[None])
+    if window > 0:
+        ok = ok & (kpos[None, None, :] > qpos[None] - window)
+    if kv_len is not None:
+        ok = ok & (kpos[None, None, :] < kv_len[:, None, None])
+    return ok
+
+
+def _flash_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
+               kv_len: Optional[Tensor], block_k: int):
+    """Running-softmax loop over kv chunks of block_k keys (JAX's scan).
+    q (B, S, H, hd); k/v (B, Skv, Hkv, hd). Returns (out (B, S, H, hd) in
+    q's dtype, m (B, S, Hkv, g), l (B, S, Hkv, g))."""
+    B, S, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qg = q.reshape(B, S, Hkv, g, hd).float()
+    scale = hd ** -0.5
+    bk = min(block_k, Skv)
+    nk = -(-Skv // bk)
+    kc, vc = _chunk_kv(k, bk, nk), _chunk_kv(v, bk, nk)
+    acc = torch.zeros((B, S, Hkv, g, hd), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((B, S, Hkv, g), float("-inf"), device=q.device)
+    l = torch.zeros((B, S, Hkv, g), device=q.device)
+    for j in range(nk):
+        s = torch.einsum("bsked,bckd->bscke", qg, kc[j].float()) * scale
+        ok = _chunk_mask(j, bk, S, Skv, causal, window, kv_len, q.device)
+        s = torch.where(ok[..., None, None], s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(2))
+        msafe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(torch.isfinite(s), torch.exp(s - msafe[:, :, None]),
+                        0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - msafe), 0.0)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bscke,bckd->bsked", p, vc[j].float())
+        l = l * alpha + p.sum(2)
+        m = m_new
+    out = (acc / l.clamp(min=1e-30)[..., None]).reshape(B, S, H, hd)
+    return out.to(q.dtype), m, l
+
+
+def _flash(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
+           block_k: int) -> Tensor:
+    """The forward of JAX's flash_train: kops.flash_attention on the card,
+    reading the (B, S, H, hd) activations through (B, H, S, hd) views;
+    the port of _flash_fwd on the CPU. q (B, S, H, hd); k/v
+    (B, Skv, Hkv, hd) -> (B, S, H, hd)."""
+    if q.is_cuda:
+        return kops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window).transpose(1, 2)
+    return _flash_fwd(q, k, v, causal, window, None, block_k)[0]
+
+
+def chunked_flash(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                  window: int = 0, kv_len: Optional[Tensor] = None,
+                  block_k: int = 1024) -> Tensor:
+    """Attention front-end (JAX's, with its default causal-skip split):
+    with kv_len, the plain chunked forward; a causal self-attention longer
+    than 2 * block_k runs as min(8, S // block_k) query chunks, each over
+    keys from the window's lower bound (0 without a window) to its causal
+    frontier only (end-aligned S < Skv slices); anything else is one
+    flash call."""
+    if kv_len is not None:
+        return _flash_fwd(q, k, v, causal, window, kv_len, block_k)[0]
+    S, Skv = q.shape[1], k.shape[1]
+    if not causal or S != Skv or S <= 2 * block_k:
+        return _flash(q, k, v, causal, window, block_k)
+    n_chunks = min(8, S // block_k)
+    bq = -(-S // n_chunks)
+    outs = []
+    for i in range(n_chunks):
+        qlo, qhi = i * bq, min(S, (i + 1) * bq)
+        klo = 0 if window <= 0 else max(0, qlo - window + 1)
+        outs.append(_flash(q[:, qlo:qhi], k[:, klo:qhi], v[:, klo:qhi],
+                           causal, window, block_k))
+    return torch.cat(outs, dim=1)
+
+
+# ===========================================================================
+# Attention blocks
 # ===========================================================================
 def _attn_qkv(p: Block, x: Tensor, cfg: ArchConfig, positions: Tensor):
     B, S, D = x.shape
@@ -237,6 +362,20 @@ def _attn_qkv(p: Block, x: Tensor, cfg: ArchConfig, positions: Tensor):
     k = rope(k, positions, cfg.rope_theta)
     q = rope(q, positions, cfg.rope_theta)
     return q, k, v
+
+
+def attn_block_train(p: Block, x: Tensor, cfg: ArchConfig, kind: str
+                     ) -> Tensor:
+    """Full-sequence causal attention (train / prefill forward), over the
+    last local_window positions for LATTN; returns the residual delta."""
+    if kind not in (ATTN, LATTN):
+        _not_ported(f"{kind!r} attention")
+    B, S, D = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _attn_qkv(p, x, cfg, positions)
+    window = cfg.local_window if kind == LATTN else 0
+    out = chunked_flash(q, k, v, causal=True, window=window)
+    return out.reshape(B, S, -1) @ p.wo
 
 
 def _write_slot(cache: Tensor, slot: Tensor, new: Tensor) -> None:
@@ -252,18 +391,29 @@ def _write_slot(cache: Tensor, slot: Tensor, new: Tensor) -> None:
 def attn_block_decode(p: Block, x: Tensor, cfg: ArchConfig, kind: str,
                       cache: Dict[str, Tensor], pos: Tensor):
     """One-token decode. cache = {k, v: (B, W, Hkv, hd)}, written in place
-    at slot = pos; pos (B,) current length. Returns (residual delta,
-    cache, the decode backend chosen)."""
-    if kind != ATTN:
+    at slot = pos (ATTN) or pos % W (LATTN, a ring of the last W
+    positions); pos (B,) current length. Returns (residual delta, cache,
+    the decode backend chosen)."""
+    if kind not in (ATTN, LATTN):
         _not_ported(f"{kind!r} decode")
     B, S, D = x.shape
     assert S == 1
     W = cache["k"].shape[1]
     q, k, v = _attn_qkv(p, x, cfg, pos[:, None])
-    _write_slot(cache["k"], pos, k[:, 0])
-    _write_slot(cache["v"], pos, v[:, 0])
+    slot = pos % W if kind == LATTN else pos
+    _write_slot(cache["k"], slot, k[:, 0])
+    _write_slot(cache["v"], slot, v[:, 0])
     backend = _decode_backend(cfg, W, B)
-    out = _decode_attn_distributed(q, cache["k"], cache["v"], pos, backend)
+    if kind == LATTN:
+        # slot j holds absolute position p_j <= pos with p_j = j (mod W);
+        # valid if within the window
+        ar = torch.arange(W, device=pos.device)[None]
+        pj = pos[:, None] - ((pos[:, None] - ar) % W)
+        valid = (pj >= 0) & (pj > pos[:, None] - W) & (pj <= pos[:, None])
+        out = _decode_attn_masked(q, cache["k"], cache["v"], valid)
+    else:
+        out = _decode_attn_distributed(q, cache["k"], cache["v"], pos,
+                                       backend)
     y = out.reshape(B, 1, -1) @ p.wo
     return y, cache, backend
 
@@ -291,6 +441,40 @@ def _decode_attn_distributed(q: Tensor, ck: Tensor, cv: Tensor, pos: Tensor,
                                 cv.transpose(1, 2), pos + 1)
     out = o / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _decode_attn_masked(q: Tensor, k: Tensor, v: Tensor, valid: Tensor
+                        ) -> Tensor:
+    """Ring-buffer decode (plain torch, as in JAX: no kernel). q
+    (B, 1, H, hd); k/v (B, W, Hkv, hd); valid (B, W)."""
+    B, _, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, hd).float()
+    s = torch.einsum("bkgd,bwkd->bkgw", qg, k.float()) * hd ** -0.5
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    out = torch.einsum("bkgw,bwkd->bkgd", torch.softmax(s, dim=-1), v.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ===========================================================================
+# RG-LRU block
+# ===========================================================================
+def rglru_block(p: Block, x: Tensor, cfg: ArchConfig,
+                state: Optional[Tensor] = None):
+    """RecurrentGemma RG-LRU mixer. state (B, R) float32, or None (train
+    mode: h0 = 0). The gates stay in the compute dtype, the recurrence's
+    a and b are float32. Returns (residual delta, new state = h at the
+    last position)."""
+    h = rms_norm(x, p.norm, cfg.norm_eps)
+    xr = h @ p.wx
+    gate = torch.sigmoid(h @ p.wg)
+    r = torch.sigmoid(h @ p.wr).float()
+    log_a = 8.0 * r * F.logsigmoid(p.a_param)[None, None, :]
+    a = torch.exp(log_a)
+    b = (torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
+         * (xr * gate).float())
+    hs = kops.rg_lru_scan(a, b, state)
+    return hs.to(x.dtype) @ p.wo, hs[:, -1]
 
 
 # ===========================================================================
@@ -385,37 +569,64 @@ def embed_tokens(model: LM, cfg: ArchConfig, tokens: Tensor) -> Tensor:
     return model.embed[tokens.to(torch.int64)] * cfg.d_model ** 0.5
 
 
-def _apply_layer(layer: Layer, x: Tensor, cache_in, pos: Tensor,
+def _apply_layer(cfg: ArchConfig, layer: Layer, x: Tensor, mode: str,
+                 cache_in, pos: Optional[Tensor],
                  backends: Dict[str, Backend]):
-    """Apply one layer's blocks (decode) with residual connections. Returns
-    (x, cache_out); the backends chosen are recorded in `backends`."""
+    """Apply one layer's blocks with residual connections, in "decode" mode
+    (one token, caches and states carried) or "train" mode (the whole
+    sequence, no cache; forward only). Returns (x, cache_out); the
+    backends chosen are recorded in `backends`."""
+    decode = mode == "decode"
     cache_out = []
     for kind, block, cache in zip(layer.kinds, layer.blocks, cache_in):
-        if kind == ATTN:
-            delta, c, backends["decode"] = block(x, cache, pos)
-            cache_out.append(c)
+        c = None
+        if kind in (ATTN, LATTN):
+            if decode:
+                delta, c, backends["decode"] = block(x, cache, pos)
+            else:
+                delta = attn_block_train(block, x, cfg, kind)
+        elif kind == RGLRU:
+            delta, st = block(x, cache if decode else None)
+            c = st if decode else None
         elif kind == MOE:
             delta, backends["moe"] = block(x)
-            cache_out.append(None)
         elif kind == MLP:
             delta = block(x)
-            cache_out.append(None)
         else:
             _not_ported(f"block kind {kind!r}")
+        cache_out.append(c)
         x = x + delta
     return x, tuple(cache_out)
 
 
-def _run_stack(model: LM, x: Tensor, mode: str, caches, pos: Tensor):
-    """Every layer in order. Returns (x, caches, backends chosen)."""
-    if mode != "decode":
+def _run_stack(model: LM, x: Tensor, mode: str, caches=None,
+               pos: Optional[Tensor] = None):
+    """Every layer in order, in "decode" or "train" mode (caches None in
+    train mode). Returns (x, caches, backends chosen)."""
+    if mode not in ("decode", "train"):
         _not_ported(f"the {mode} mode")
+    if caches is None:
+        caches = [tuple(None for _ in layer.kinds) for layer in model.layers]
     backends: Dict[str, Backend] = {}
     new_caches = []
     for layer, cache in zip(model.layers, caches):
-        x, c = _apply_layer(layer, x, cache, pos, backends)
+        x, c = _apply_layer(model.cfg, layer, x, mode, cache, pos,
+                            backends)
         new_caches.append(c)
     return x, new_caches, backends
+
+
+@torch.no_grad()
+def _forward(model: LM, cfg: ArchConfig, tokens: Tensor,
+             extra: Optional[Dict[str, Tensor]] = None) -> Tensor:
+    """Tokens (B, S) -> final hidden states (B, S, D): the train-mode
+    forward of a decoder-only model (the prefill's body). `extra` feeds the
+    vlm and encdec front ends, which are not ported."""
+    if cfg.family in ("encdec", "vlm"):
+        _not_ported(f"the {cfg.family} family ({cfg.name})")
+    x = embed_tokens(model, cfg, tokens)
+    x, _, _ = _run_stack(model, x, "train")
+    return x
 
 
 def logits_fn(model: LM, cfg: ArchConfig, x: Tensor) -> Tensor:
@@ -429,17 +640,24 @@ def logits_fn(model: LM, cfg: ArchConfig, x: Tensor) -> Tensor:
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device="cuda") -> Dict:
-    """Zero KV caches, one {k, v: (batch, max_len, Hkv, hd)} per attention
-    block of each layer (None for FFN blocks), and pos (batch,) int32."""
+    """Zero decode state: per layer, one entry per block: {k, v: (batch,
+    W, Hkv, hd)} for attention (W = max_len; min(local_window, max_len)
+    for the LATTN ring), a (batch, R) float32 state for RGLRU, None for
+    FFN blocks; and pos (batch,) int32."""
     check_supported(cfg)
     dt = cfg.compute_dtype
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    R = cfg.rnn_width or cfg.d_model
 
     def block_cache(kind):
-        if kind != ATTN:
-            return None
-        return {"k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}
+        if kind in (ATTN, LATTN):
+            W = max_len if kind == ATTN else min(cfg.local_window, max_len)
+            shape = (batch, W, cfg.n_kv_heads, cfg.hd)
+            return {"k": torch.zeros(shape, dtype=dt, device=device),
+                    "v": torch.zeros(shape, dtype=dt, device=device)}
+        if kind == RGLRU:
+            return torch.zeros((batch, R), dtype=torch.float32,
+                               device=device)
+        return None
 
     caches = [tuple(block_cache(kind) for kind in kinds)
               for kinds in layer_kinds(cfg)]
@@ -455,7 +673,8 @@ def decode_step(model: LM, state: Dict, tokens: Tensor) -> Tuple[Tensor, Dict]:
     cfg = model.cfg
     x = embed_tokens(model, cfg, tokens[:, None])
     pos = state["pos"]
-    x, caches, backends = _run_stack(model, x, "decode", state["caches"], pos)
+    x, caches, backends = _run_stack(model, x, "decode", state["caches"],
+                                     pos)
     logits = logits_fn(model, cfg, x)[:, 0]
     new_state = dict(state, caches=caches, pos=pos + 1, backends=backends)
     return logits, new_state

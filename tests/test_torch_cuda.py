@@ -6,6 +6,9 @@ card. The file imports no JAX, so it runs on a machine without it:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
+import ctypes
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -162,5 +165,131 @@ def test_reduced_model_decode_on_cuda_equals_cpu(cuda_device):
         tok = torch.as_tensor(rng.integers(0, cfg.vocab, 4).astype(np.int32))
         lc, states[0] = lm.decode_step(cpu, states[0], tok)
         lg, states[1] = lm.decode_step(gpu, states[1], tok.to(cuda_device))
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+        same(lg.argmax(-1), lc.argmax(-1))
+
+
+@pytest.mark.parametrize("B,S,D,given_h0", [(8, 1, 4096, True),
+                                            (2, 37, 50, True),
+                                            (3, 300, 200, False)])
+def test_rg_lru_kernel_matches_plain_version(cuda_device, B, S, D,
+                                             given_h0):
+    """Bit for bit: S = 1 (decode), S not a multiple of the unroll, D not
+    a multiple of 32, h0 given or None."""
+    rng = np.random.default_rng(S + D)
+    a, b, h0 = _on(cuda_device, rng.uniform(0.7, 1.0, (B, S, D)),
+                   rng.normal(size=(B, S, D)), rng.normal(size=(B, D)))
+    a, b, h0 = a.float(), b.float(), h0.float() if given_h0 else None
+    same(kops.rg_lru_scan(a, b, h0), kref.rg_lru_scan(a, b, h0))
+
+
+FLASH_CASES = [  # B, H, Hkv, S, Skv, d, causal, window
+    (2, 4, 4, 64, 64, 16, True, 0),      # g 1, S == Skv
+    (1, 8, 2, 100, 130, 64, True, 0),    # g 4, end-aligned S < Skv
+    (1, 16, 1, 70, 150, 256, True, 48),  # g 16 (MQA), window, ragged
+    (2, 4, 1, 33, 33, 64, False, 0),     # non-causal
+    (1, 4, 1, 65, 97, 16, False, 20),    # non-causal window, S < Skv
+    (1, 2, 1, 12, 5, 32, True, 0),       # S > Skv: rows without a key
+    (1, 16, 16, 130, 130, 128, True, 0),  # d 128 (deepseek-moe-16b), g 1
+    (1, 8, 2, 96, 160, 128, True, 40),   # d 128, g 4, window, S < Skv
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,Skv,d,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain_version(
+        cuda_device, B, H, Hkv, S, Skv, d, causal, window, dtype):
+    """q, k and v read through (B, H, S, d) views of (B, S, H, d)
+    tensors, as the model passes them, within kernels/ref.py's mha_tol:
+    f32 within 2e-5 (scalar f32 sums in another order over up to 256
+    terms); bf16 within one rounding step of the output (2**-7 of it)
+    plus 2**-8 of its RMS."""
+    rng = np.random.default_rng(S * Skv + d)
+    q, k, v = _on(cuda_device, rng.normal(size=(B, S, H, d)),
+                  rng.normal(size=(B, Skv, Hkv, d)),
+                  rng.normal(size=(B, Skv, Hkv, d)))
+    q, k, v = (x.to(dtype).transpose(1, 2) for x in (q, k, v))
+    got = kops.flash_attention(q, k, v, causal=causal, window=window)
+    want = kref.mha(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == (B, H, S, d)
+    torch.testing.assert_close(got, want, **kref.mha_tol(want))
+
+
+# planted faults of csrc/flash_attention.cu: (its text, the faulty text)
+FLASH_FAULTS = {
+    "dropped kv tile": (
+        "    const int nt = min(kBK, k_end - k0);\n",
+        "    if (k0 == k_begin + kBK) continue;\n"
+        "    const int nt = min(kBK, k_end - k0);\n"),
+    "window edge one key off": (
+        "lo[i] = window > 0 ? pos - window + 1 : 0;",
+        "lo[i] = window > 0 ? pos - window + 2 : 0;"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(FLASH_FAULTS))
+def test_flash_limit_rejects_planted_faults(cuda_device, fault, tmp_path,
+                                            monkeypatch):
+    """mha_tol must tell the kernel from one with a planted fault at the
+    prefill's headline call (the last query chunk of recurrentgemma-9b's
+    last local-attention layer: q (1, 4096, 16, 256), k/v (1, 6143, 1,
+    256), bf16, window 2048) on unit-variance inputs. The faulty source
+    is built in tmp_path and stands in for the kernel's library during
+    this test only."""
+    from repro_torch.kernels import _build, _launch
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape, dtype=np.float32))
+               .to(cuda_device, torch.bfloat16).transpose(1, 2)
+               for shape in ((1, 4096, 16, 256), (1, 6143, 1, 256),
+                             (1, 6143, 1, 256)))
+    kw = dict(causal=True, window=2048)
+    want = kref.mha(q, k, v, **kw)
+    tol = kref.mha_tol(want)
+    torch.testing.assert_close(kops.flash_attention(q, k, v, **kw), want,
+                               **tol)
+    old, new = FLASH_FAULTS[fault]
+    source = (_build.CSRC / "flash_attention.cu").read_text()
+    assert source.count(old) == 1
+    faulty = tmp_path / "faulty.cu"
+    faulty.write_text(source.replace(old, new))
+    lib = tmp_path / "faulty.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(faulty)], check=True, capture_output=True)
+    monkeypatch.setitem(_build._LIBS, "flash_attention",
+                        ctypes.CDLL(str(lib)))
+    _launch.function.cache_clear()
+    try:
+        got = kops.flash_attention(q, k, v, **kw)
+    finally:
+        monkeypatch.undo()
+        _launch.function.cache_clear()
+    err = float((got.float() - want.float()).abs().max())
+    rms = float(want.float().square().mean().sqrt())
+    print(f"{fault}: max abs err {err:.6g}; limit rtol {tol['rtol']:.6g} "
+          f"atol {tol['atol']:.6g}; output RMS {rms:.6g}")
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(got, want, **tol)
+
+
+def test_reduced_recurrentgemma_on_cuda_equals_cpu(cuda_device):
+    """Reduced recurrentgemma-9b (f32, window 32), the same weights on both
+    devices, TF32 off: prefill logits at every position of 40 tokens, and
+    40 teacher-forced decode steps (the rings wrap), within 1e-4 with the
+    same greedy tokens."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.get("recurrentgemma-9b").reduced()
+    cpu = lm.init_lm(cfg, seed=6, device="cpu")
+    gpu = lm.init_lm(cfg, seed=6, device="cpu").to(cuda_device)
+    rng = np.random.default_rng(6)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 40)).astype(np.int32))
+    full = [lm.logits_fn(m, cfg, lm._forward(m, cfg, t)) for m, t in
+            ((cpu, tok), (gpu, tok.to(cuda_device)))]
+    torch.testing.assert_close(full[1].cpu(), full[0], rtol=1e-4, atol=1e-4)
+    states = [lm.init_decode_state(cfg, 2, 40, device=d)
+              for d in ("cpu", cuda_device)]
+    for t in range(40):
+        lc, states[0] = lm.decode_step(cpu, states[0], tok[:, t])
+        lg, states[1] = lm.decode_step(gpu, states[1],
+                                       tok[:, t].to(cuda_device))
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
         same(lg.argmax(-1), lc.argmax(-1))

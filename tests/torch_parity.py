@@ -93,3 +93,21 @@ def probe_table(rng, P, nslots, vw, fill, key_span):
     t[..., 1] = rng.integers(0, key_span, (P, nslots))
     t[..., 2:] = rng.integers(-1000, 1000, (P, nslots, vw))
     return t.reshape(P, nslots * rec_w)
+
+
+def jax_and_port_models(name, seed=0):
+    """(JAX cfg, JAX params, port cfg, port model on the CPU) of the reduced
+    config `name`: the JAX package's `init_params`, carried across with
+    `convert.lm_from_numpy`, so both packages compute with the same
+    weights."""
+    import jax
+    from repro.configs import registry as jreg
+    from repro.models import lm as jlm
+    from repro_torch import convert
+    from repro_torch.configs import registry as treg
+    jcfg = jreg.get(name).reduced()
+    params = jlm.init_params(jcfg, jax.random.PRNGKey(seed))
+    tcfg = treg.get(name).reduced()
+    model = convert.lm_from_numpy(tcfg, jax.tree.map(np.asarray, params),
+                                  "cpu")
+    return jcfg, params, tcfg, model
