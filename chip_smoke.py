@@ -12,9 +12,11 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    the shard, every opcode and a full table; moe_dispatch bit for bit at
    T = 1, at a T that is not a multiple of its block, with every token on
    one expert, with ids outside [0, E), and at (T, E) = (48, 64) and
-   (6144, 64); flash_decode within the stated tolerance at length 1,
-   length = W and a length that is not a multiple of its tile, with 1 and
-   8 query heads per kv head, in float32 and bfloat16; rg_lru_scan bit for
+   (6144, 64); flash_decode within the stated tolerance on a cache of W
+   = 321 keys (not a multiple of its key chunk c) at lengths 0, 1, c - 1,
+   c, c + 1 (a split boundary and either side), 200 and W, with 1 and 8
+   query heads per kv head at d 128 and 16 at d 256, in float32 and
+   bfloat16; rg_lru_scan bit for
    bit at S = 1 with a given h0, S not a multiple of its unroll, D not a
    multiple of 32 and h0 = None; flash_attention within kernels/ref.py's
    mha_tol in float32 and bfloat16 with 1, 4 and 16 query heads per kv
@@ -692,8 +694,9 @@ def edge_cases(device) -> None:
     """Small inputs with masked rows, offsets outside [0, L) both ways,
     every opcode, CAS chains, aux0 out of range, a full table; expert ids
     at T = 1, T not a multiple of the block, all on one expert, outside
-    [0, E), and the serving shapes; decode lengths 1, W and one that is
-    not a multiple of the tile, g = 1 and 8, float32 and bfloat16; the
+    [0, E), and the serving shapes; decode lengths 0, 1, either side of
+    and at a split boundary, and W, g = 1 and 8 (d 128) and 16 (d 256),
+    float32 and bfloat16; the
     RG-LRU scan at S = 1, S and D off its unroll and warp, h0 None; and
     attention over the cases listed below, in float32 and bfloat16."""
     import torch
@@ -750,14 +753,18 @@ def edge_cases(device) -> None:
             ids = rng.integers(-2 * E - 2, 2 * E + 2, T)
         cases.append(("moe_dispatch", kops.moe_dispatch, kref.moe_dispatch,
                       (t(ids),), {"n_experts": E}))
-    B, W, Hkv, d = 3, 321, 2, 128
-    for g in (1, 8):
+    # W is not a multiple of the key chunk c; the lengths sit at a split
+    # boundary and either side of it, at 0, 1, W and in between
+    from repro_torch.kernels.flash_decode import KEY_CHUNK as c
+    B, W, Hkv = 7, 321, 2
+    for g, d in ((1, 128), (8, 128), (16, 256)):
         for dtype in (torch.float32, torch.bfloat16):
             q = t(rng.normal(size=(B, Hkv * g, d)), torch.float32)
             ck, cv = (t(rng.normal(size=(B, W, Hkv, d)), torch.float32)
                       for _ in range(2))
             args = (q.to(dtype), ck.to(dtype).transpose(1, 2),
-                    cv.to(dtype).transpose(1, 2), t([1, W, 200]))
+                    cv.to(dtype).transpose(1, 2),
+                    t([0, 1, c - 1, c, c + 1, 200, W]))
             cases.append(("flash_decode", kops.flash_decode,
                           kref.decode_attention, args, {}))
     for Bs, S, D, given_h0 in ((8, 1, 4096, True), (2, 37, 50, True),
@@ -819,7 +826,9 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
     """Each captured main-path call: kernel against plain version, both
     timed, and the bound of these inputs. A kernel's ms is the median of
     single calls each after an L2 flush (the main paths find their shards,
-    caches and weights cold); warm_ms is the mean of calls back to back.
+    caches and weights cold); warm_ms is the mean of calls back to back;
+    read_ms is one torch reduction over as many bytes as the bound counts,
+    timed as ms is (the floor this timing shows for moving those bytes).
     Returns the rows of each kernel, one per captured call."""
     import torch
     wrap, plain_fns = wrappers(), plain_versions()
@@ -855,6 +864,13 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
             lib()
             library_ms = cuda_ms_cold(lib, reps, flush)
         bound_ms, bound_by = bound(name, args, kw, out_k)
+        # the same bytes read once by one torch reduction, timed the same
+        # way: what this timing method shows for the bound's bytes
+        nbytes = int(bound_bytes(name, args, kw, out_k))
+        buf = torch.empty(max(1, nbytes // 8), dtype=torch.int64,
+                          device=args[0].device)
+        read_ms = cuda_ms_cold(lambda: buf.sum(), reps, flush)
+        del buf
         shapes = [None if a is None else tuple(a.shape) for a in args]
         live = live_count(name, args, kw)
         out_rms = (float(out_p.float().square().mean().sqrt())
@@ -862,7 +878,8 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
                    and out_p.numel() else None)
         rows[name].append(dict(at=tag, ms=ms, warm_ms=warm_ms,
                                plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, library_ms=library_ms,
+                               bound_by=bound_by, read_ms=read_ms,
+                               library_ms=library_ms,
                                max_abs_err=err, out_rms=out_rms, live=live,
                                shapes=shapes,
                                serial_chain=serial_chain(name, args)))
@@ -871,7 +888,8 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
         log(f"phase {phase}: {name} == plain at {tag} on {shapes} {kw} "
             f"({live} live): kernel {ms:.4f} ms (back to back "
             f"{warm_ms:.4f}), plain {plain_ms:.1f} ms{lib_txt}, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), max err {err}"
+            f"{bound_ms:.4f} ms ({bound_by}), read of the bound's bytes "
+            f"{read_ms:.4f} ms, max err {err}"
             + ("" if out_rms is None else f" (output RMS {out_rms:.6g})"))
         del out_k, out_p
     for name in names:
@@ -895,12 +913,13 @@ def kernel_row(name: str, calls: list, launches: dict) -> dict:
         launches=sum(launches.values()), launches_by_phase=launches,
         max_abs_err=max(r["max_abs_err"] for r in calls),
         out_rms=head["out_rms"], ms=head["ms"], plain_ms=head["plain_ms"],
-        bound_ms=head["bound_ms"],
+        bound_ms=head["bound_ms"], read_ms=head["read_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
         library_note=NO_LIBRARY.get(name), at=head["at"],
         serial_chain=head["serial_chain"],
         calls=[{k: r[k] for k in ("at", "live", "ms", "warm_ms", "plain_ms",
                                   "library_ms", "bound_ms", "bound_by",
+                                  "read_ms",
                                   "max_abs_err", "out_rms",
                                   "serial_chain")}
                for r in calls])
@@ -1472,7 +1491,8 @@ def main() -> int:
     log(f"build: {', '.join(_build.SOURCES)} in {build_s:.1f} s")
     for name, text in _build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 log(f"ptxas {name}: {line.strip()}")
 
     edge_cases(device)

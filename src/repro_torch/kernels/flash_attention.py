@@ -7,8 +7,11 @@ q, k and v take the JAX package's (B, H, S, d) / (B, Hkv, Skv, d) layout
 as any strided views with a unit stride on d, so the model's (B, S, H, d)
 activations are passed as `x.transpose(1, 2)` and read in place; the
 result is written contiguous in (B, S, H, d) and returned as its
-(B, H, S, d) view. CUDA tensors only (kernels/ops.py routes CPU tensors to
-kernels/ref.py); launches are counted in `flash_attention.launches`.
+(B, H, S, d) view. bfloat16 runs on the tensor cores and copies q, k and
+v in 16-byte pieces, so it needs 16-byte aligned tensors whose strides are
+multiples of 8; float32 runs the scalar kernel. CUDA tensors only
+(kernels/ops.py routes CPU tensors to kernels/ref.py); launches are
+counted in `flash_attention.launches`.
 """
 from __future__ import annotations
 
@@ -49,6 +52,13 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         raise ValueError(f"flash_attention: needs H % Hkv == 0, d in "
                          f"{HEAD_DIMS}, window >= 0, B and H < 65536; got "
                          f"B={B} H={H} Hkv={Hkv} d={d} window={window}")
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
+                raise ValueError(f"flash_attention: bfloat16 {name} is "
+                                 f"copied in 16-byte pieces: needs a 16-byte "
+                                 f"aligned base and strides that are "
+                                 f"multiples of 8, got {x.stride()}")
     o = torch.empty((B, S, H, d), dtype=q.dtype, device=dev)
     fn = function("flash_attention", "repro_flash_attention",
                   (PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32, I32, I64,

@@ -19,8 +19,8 @@ and logged by `launch/serve.py`. The path's kernels are
 `kops.flash_decode` (the shard-local body of global-attention decode),
 `kops.moe_dispatch` (the batched FAA ticket of expert dispatch),
 `kops.rg_lru_scan` (the RG-LRU recurrence, in both modes) and
-`kops.flash_attention` (full-sequence attention, on the card; the CPU runs
-the port of the JAX package's chunked flash forward, `_flash_fwd`).
+`kops.flash_attention` (full-sequence attention; a CPU tensor takes its
+plain version, `kernels/ref.py` `mha`).
 
 Weights live in `nn.Module`s under the JAX package's parameter names and
 layouts (`LM`: `embed`, `layers`, `final_norm`; `Attention`,
@@ -311,17 +311,15 @@ def _flash_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
     return out.to(q.dtype), m, l
 
 
-def _flash(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
-           block_k: int) -> Tensor:
-    """The forward of JAX's flash_train: kops.flash_attention on the card,
-    reading the (B, S, H, hd) activations through (B, H, S, hd) views;
-    the port of _flash_fwd on the CPU. q (B, S, H, hd); k/v
+def _flash(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+           window: int) -> Tensor:
+    """The forward of JAX's flash_train: kops.flash_attention (the kernel
+    on the card, its plain version on the CPU), reading the (B, S, H, hd)
+    activations through (B, H, S, hd) views. q (B, S, H, hd); k/v
     (B, Skv, Hkv, hd) -> (B, S, H, hd)."""
-    if q.is_cuda:
-        return kops.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, window=window).transpose(1, 2)
-    return _flash_fwd(q, k, v, causal, window, None, block_k)[0]
+    return kops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window).transpose(1, 2)
 
 
 def chunked_flash(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
@@ -337,7 +335,7 @@ def chunked_flash(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
         return _flash_fwd(q, k, v, causal, window, kv_len, block_k)[0]
     S, Skv = q.shape[1], k.shape[1]
     if not causal or S != Skv or S <= 2 * block_k:
-        return _flash(q, k, v, causal, window, block_k)
+        return _flash(q, k, v, causal, window)
     n_chunks = min(8, S // block_k)
     bq = -(-S // n_chunks)
     outs = []
@@ -345,7 +343,7 @@ def chunked_flash(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
         qlo, qhi = i * bq, min(S, (i + 1) * bq)
         klo = 0 if window <= 0 else max(0, qlo - window + 1)
         outs.append(_flash(q[:, qlo:qhi], k[:, klo:qhi], v[:, klo:qhi],
-                           causal, window, block_k))
+                           causal, window))
     return torch.cat(outs, dim=1)
 
 

@@ -124,30 +124,65 @@ def test_moe_dispatch_kernel_matches_plain_version(cuda_device, T, E):
         same(a, b)
 
 
-@pytest.mark.parametrize("g,dtype", [(1, torch.float32), (8, torch.float32),
-                                     (1, torch.bfloat16), (3, torch.bfloat16)])
-def test_flash_decode_kernel_matches_plain_version(cuda_device, g, dtype):
-    """On a (B, W, Hkv, d) cache read through a transposed view, lengths
-    0, 1, W and one not a multiple of the tile. o / l within 1e-4
-    relative (f32 math over bf16 or f32 inputs, another summation order
-    and an online softmax), m within 1e-5, l within 1e-4 relative."""
-    rng = np.random.default_rng(g)
-    B, Hkv, W, d = 4, 2, 200, 128
-    q, ck, cv = _on(cuda_device, rng.normal(size=(B, Hkv * g, d)),
-                    rng.normal(size=(B, W, Hkv, d)),
-                    rng.normal(size=(B, W, Hkv, d)))
-    q, ck, cv = q.to(dtype), ck.to(dtype), cv.to(dtype)
-    length = torch.tensor([0, 1, W, 131], dtype=torch.int32,
-                          device=cuda_device)
-    args = (q, ck.transpose(1, 2), cv.transpose(1, 2), length)
-    o, m, l = kops.flash_decode(*args)
-    o_r, m_r, l_r = kref.decode_attention(*args)
+def _decode_close(got, want):
+    """chip_smoke.py's DECODE_TOL: o / l within 1e-4 relative plus 1e-5
+    (f32 math over bf16 or f32 inputs, another summation order, an online
+    softmax and a merge of split partials), m within 1e-5, l within 1e-4
+    relative."""
+    (o, m, l), (o_r, m_r, l_r) = got, want
     torch.testing.assert_close(m, m_r, rtol=0, atol=1e-5)
     torch.testing.assert_close(l, l_r, rtol=1e-4, atol=0)
     torch.testing.assert_close(o / l.clamp(min=1e-30)[..., None],
                                o_r / l_r.clamp(min=1e-30)[..., None],
                                rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("g,dtype", [(1, torch.float32), (8, torch.float32),
+                                     (1, torch.bfloat16), (3, torch.bfloat16),
+                                     (16, torch.bfloat16),
+                                     (16, torch.float32)])
+def test_flash_decode_kernel_matches_plain_version(cuda_device, g, dtype):
+    """On a (B, W, Hkv, d) cache read through a transposed view (W = 200,
+    not a multiple of the kernel's key chunk c), lengths 0, 1, c - 1, c,
+    c + 1 (a split boundary and either side of it), 131, W - 1 and W; d
+    128, and 256 at g = 16."""
+    from repro_torch.kernels.flash_decode import KEY_CHUNK as c
+    rng = np.random.default_rng(g)
+    B, Hkv, W, d = 8, 2, 200, 256 if g == 16 else 128
+    q, ck, cv = _on(cuda_device, rng.normal(size=(B, Hkv * g, d)),
+                    rng.normal(size=(B, W, Hkv, d)),
+                    rng.normal(size=(B, W, Hkv, d)))
+    q, ck, cv = q.to(dtype), ck.to(dtype), cv.to(dtype)
+    length = torch.tensor([0, 1, c - 1, c, c + 1, 131, W - 1, W],
+                          dtype=torch.int32, device=cuda_device)
+    args = (q, ck.transpose(1, 2), cv.transpose(1, 2), length)
+    o, m, l = kops.flash_decode(*args)
+    _decode_close((o, m, l), kref.decode_attention(*args))
     assert bool((o[0] == 0).all()) and bool((l[0] == 0).all())
+    assert bool((m[0] == float("-inf")).all())
+
+
+def _serving_decode_inputs(dev):
+    """The last decode step of chip_smoke.py's deepseek-moe-16b serving:
+    q (8, 16, 128) bf16 over a (8, 321, 16, 128) cache, lengths 257-321."""
+    rng = np.random.default_rng(15)
+    q, ck, cv = _on(dev, rng.normal(size=(8, 16, 128)),
+                    rng.normal(size=(8, 321, 16, 128)),
+                    rng.normal(size=(8, 321, 16, 128)))
+    length = torch.as_tensor(rng.integers(257, 322, 8).astype(np.int32),
+                             device=dev)
+    return (q.to(torch.bfloat16), ck.to(torch.bfloat16).transpose(1, 2),
+            cv.to(torch.bfloat16).transpose(1, 2), length)
+
+
+def test_flash_decode_kernel_at_serving_shape(cuda_device):
+    """The serving shape, 8 x 16 x 6 split blocks: within DECODE_TOL, and
+    the same bits on a second call (the merge runs in a fixed order)."""
+    args = _serving_decode_inputs(cuda_device)
+    got = kops.flash_decode(*args)
+    _decode_close(got, kref.decode_attention(*args))
+    for x, y in zip(got, kops.flash_decode(*args)):
+        same(x, y)
 
 
 def test_reduced_model_decode_on_cuda_equals_cpu(cuda_device):
@@ -215,15 +250,37 @@ def test_flash_attention_kernel_matches_plain_version(
     torch.testing.assert_close(got, want, **kref.mha_tol(want))
 
 
-# planted faults of csrc/flash_attention.cu: (its text, the faulty text)
+def _with_planted_fault(lib: str, old: str, new: str, tmp_path,
+                        monkeypatch, call):
+    """Build csrc/<lib>.cu with `old` replaced by `new` in tmp_path and run
+    `call()` with it standing in for the kernel's library."""
+    from repro_torch.kernels import _build, _launch
+    source = (_build.CSRC / f"{lib}.cu").read_text()
+    assert source.count(old) == 1
+    faulty = tmp_path / f"faulty_{lib}.cu"
+    faulty.write_text(source.replace(old, new))
+    so = tmp_path / f"faulty_{lib}.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(faulty)], check=True, capture_output=True)
+    monkeypatch.setitem(_build._LIBS, lib, ctypes.CDLL(str(so)))
+    _launch.function.cache_clear()
+    try:
+        return call()
+    finally:
+        monkeypatch.undo()
+        _launch.function.cache_clear()
+
+
+# planted faults of csrc/flash_attention.cu's bf16 kernel: (its text, the
+# faulty text)
 FLASH_FAULTS = {
     "dropped kv tile": (
-        "    const int nt = min(kBK, k_end - k0);\n",
-        "    if (k0 == k_begin + kBK) continue;\n"
-        "    const int nt = min(kBK, k_end - k0);\n"),
+        "    const bf16* ks = k_s + (t & 1) * kBK * kRow;\n",
+        "    if (t == 1) continue;\n"
+        "    const bf16* ks = k_s + (t & 1) * kBK * kRow;\n"),
     "window edge one key off": (
-        "lo[i] = window > 0 ? pos - window + 1 : 0;",
-        "lo[i] = window > 0 ? pos - window + 2 : 0;"),
+        "*first = window > 0 ? pos - window + 1 : 0;",
+        "*first = window > 0 ? pos - window + 2 : 0;"),
 }
 
 
@@ -236,7 +293,6 @@ def test_flash_limit_rejects_planted_faults(cuda_device, fault, tmp_path,
     256), bf16, window 2048) on unit-variance inputs. The faulty source
     is built in tmp_path and stands in for the kernel's library during
     this test only."""
-    from repro_torch.kernels import _build, _launch
     rng = np.random.default_rng(14)
     q, k, v = (torch.as_tensor(rng.standard_normal(shape, dtype=np.float32))
                .to(cuda_device, torch.bfloat16).transpose(1, 2)
@@ -247,28 +303,40 @@ def test_flash_limit_rejects_planted_faults(cuda_device, fault, tmp_path,
     tol = kref.mha_tol(want)
     torch.testing.assert_close(kops.flash_attention(q, k, v, **kw), want,
                                **tol)
-    old, new = FLASH_FAULTS[fault]
-    source = (_build.CSRC / "flash_attention.cu").read_text()
-    assert source.count(old) == 1
-    faulty = tmp_path / "faulty.cu"
-    faulty.write_text(source.replace(old, new))
-    lib = tmp_path / "faulty.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                    str(faulty)], check=True, capture_output=True)
-    monkeypatch.setitem(_build._LIBS, "flash_attention",
-                        ctypes.CDLL(str(lib)))
-    _launch.function.cache_clear()
-    try:
-        got = kops.flash_attention(q, k, v, **kw)
-    finally:
-        monkeypatch.undo()
-        _launch.function.cache_clear()
+    got = _with_planted_fault(
+        "flash_attention", *FLASH_FAULTS[fault], tmp_path, monkeypatch,
+        lambda: kops.flash_attention(q, k, v, **kw))
     err = float((got.float() - want.float()).abs().max())
     rms = float(want.float().square().mean().sqrt())
     print(f"{fault}: max abs err {err:.6g}; limit rtol {tol['rtol']:.6g} "
           f"atol {tol['atol']:.6g}; output RMS {rms:.6g}")
     with pytest.raises(AssertionError):
         torch.testing.assert_close(got, want, **tol)
+
+
+# a planted fault of csrc/flash_decode.cu: the merge takes the second
+# split's partial without rescaling it to the global max
+DECODE_FAULT = (
+    "      const float w = isfinite(mi) ? expf(mi - m_use) : 0.f;\n",
+    "      const float w = isfinite(mi) ? (i == 1 ? 1.f : expf(mi - m_use))"
+    " : 0.f;\n")
+
+
+def test_decode_limit_rejects_planted_fault(cuda_device, tmp_path,
+                                            monkeypatch):
+    """DECODE_TOL must tell the split kernel from one whose merge skips a
+    split's rescale, at the serving shape."""
+    args = _serving_decode_inputs(cuda_device)
+    want = kref.decode_attention(*args)
+    _decode_close(kops.flash_decode(*args), want)
+    got = _with_planted_fault("flash_decode", *DECODE_FAULT, tmp_path,
+                              monkeypatch, lambda: kops.flash_decode(*args))
+    out = got[0] / got[2].clamp(min=1e-30)[..., None]
+    out_r = want[0] / want[2].clamp(min=1e-30)[..., None]
+    print(f"merge without a rescale: max |o/l| err "
+          f"{float((out - out_r).abs().max()):.6g}")
+    with pytest.raises(AssertionError):
+        _decode_close(got, want)
 
 
 def test_reduced_recurrentgemma_on_cuda_equals_cpu(cuda_device):

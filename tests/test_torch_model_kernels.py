@@ -9,6 +9,8 @@ kernels in interpret mode, as tests/test_kernels.py runs them:
 - decode_attention and combine_decode_stats (B6): f32, over 1 and 4 kv
   shards, with test_kernels.py's tolerances (the same math summed in
   another order);
+- the split-and-merge arithmetic of the B6 kernel: per-range partials
+  merged in split order equal one pass, and JAX's combine of them;
 - the port's one-device decode-attention body, which is what calls B6,
   against repro.models.lm.chunked_flash(..., kv_len=pos + 1), the function
   the JAX serving path runs there.
@@ -129,6 +131,58 @@ def test_sharded_partials_combine_like_jax(shards):
     full = np.asarray(o / jnp.maximum(l, 1e-30)[..., None])
     np.testing.assert_allclose(comb_t.numpy(), np.asarray(comb_j), atol=2e-6)
     np.testing.assert_allclose(comb_t.numpy(), full, atol=2e-6)
+
+
+def _merge_in_split_order(o_p, m_p, l_p):
+    """The merge of the split decode kernel (csrc/flash_decode.cu,
+    merge_if_last) in plain torch: partials (n_split, ...) rescaled to the
+    largest m and summed in split order; o stays unnormalized."""
+    m_all = m_p.amax(0)
+    m_use = torch.where(torch.isfinite(m_all), m_all, torch.zeros_like(m_all))
+    o = torch.zeros_like(o_p[0])
+    l = torch.zeros_like(l_p[0])
+    for o_i, m_i, l_i in zip(o_p, m_p, l_p):
+        w = torch.where(torch.isfinite(m_i), torch.exp(m_i - m_use),
+                        torch.zeros_like(m_i))
+        o = o + w[..., None] * o_i
+        l = l + w * l_i
+    return o, m_all, l
+
+
+@pytest.mark.parametrize("chunk,lengths", [
+    (16, [0, 1, 15, 16, 17, 40, 63, 64]),
+    (64, [0, 1, 63, 64, 65, 100])])
+def test_split_decode_partials_merge_to_one_pass(chunk, lengths):
+    """The split kernel's arithmetic (B6): the cache (S = 64 or 100 keys,
+    so the last range may be short) cut into ranges of `chunk` keys, the
+    port's decode_attention over each range (ranges wholly past a row's
+    length give m = -inf, l = 0, o = 0), merged in split order: (o, m, l)
+    equal one decode_attention over the whole prefix (f32, 1e-6), length 0
+    included, and o / l equals JAX's combine_decode_stats of the same
+    per-range partials (atol 1e-6)."""
+    B, H, Hkv, S, d = len(lengths), 4, 2, max(lengths), 32
+    rng = np.random.default_rng(chunk)
+    q, k, v = map(torch.as_tensor, _qkv(rng, B, H, Hkv, S, d))
+    length = torch.tensor(lengths, dtype=torch.int32)
+    parts = []
+    for lo in range(0, S, chunk):
+        hi = min(S, lo + chunk)
+        part_len = (length - lo).clamp(0, hi - lo).to(torch.int32)
+        parts.append(tref.decode_attention(q, k[:, :, lo:hi], v[:, :, lo:hi],
+                                           part_len))
+    o_p, m_p, l_p = (torch.stack([p[i] for p in parts]) for i in range(3))
+    assert bool((m_p[-1, 0] == float("-inf")).all())   # past length 0
+    o, m, l = _merge_in_split_order(o_p, m_p, l_p)
+    o_w, m_w, l_w = tref.decode_attention(q, k, v, length)
+    tol = dict(rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(m, m_w, **tol)
+    torch.testing.assert_close(l, l_w, **tol)
+    torch.testing.assert_close(o, o_w, **tol)
+    assert bool((o[0] == 0).all()) and bool((l[0] == 0).all())
+    comb = jref.combine_decode_stats(*(jnp.asarray(x.numpy())
+                                       for x in (o_p, m_p, l_p)))
+    np.testing.assert_allclose((o / l.clamp(min=1e-30)[..., None]).numpy(),
+                               np.asarray(comb), atol=1e-6)
 
 
 @pytest.mark.parametrize("B,H,Hkv,W,hd", [(3, 4, 4, 40, 16),
