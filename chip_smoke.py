@@ -22,7 +22,13 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    mha_tol in float32 and bfloat16 with 1, 4 and 16 query heads per kv
    head, head dims 16, 64, 128 and 256, S == Skv and end-aligned S < Skv,
    windows 0 and > 0, non-causal, and S and Skv that are not multiples of
-   its tiles.
+   its tiles. Then the owner-lane cases of kernels/lane_cases.py, the
+   inputs tests/test_torch_cuda.py holds amo_apply and fused_apply to: every
+   op on one word (16,384 FAAs, mixed codes with offsets outside [0, L) in
+   the chain, a CAS chain), live counts below, at and past the kernels'
+   chunk, m = 65,536 with 1.6% live, all rows masked, and fused winners
+   with overlapping V = 3 puts and gathers of the words they wrote: the
+   kernel on the card against its plain version on the CPU, bit for bit.
 2. The data structures at full size: a distributed hash table of 64 ranks
    x 2**18 slots (val_words 1; a 201 MB window) filled to load 0.25 with
    4,194,304 keys in batches of 1024 keys per rank, then 16 find batches
@@ -34,7 +40,13 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    before this phase and read just after. The drive keeps the inputs of
    the first kernel call of each kernel in each marked batch: the first
    and the last insert batch (a fresh table and one at load 0.25), the
-   first find batch and the first queue push and pop, on every arm.
+   first find batch and the first queue push and pop, on every arm. Every
+   timed batch is in the medians. After each arm's drive, its last insert
+   and find, last push and first pop run once more, on a copy of the
+   state they started from, traced with torch.profiler: their device busy
+   time, idle share and the owner lanes' time (amo_apply's and
+   fused_apply's two kernels each) are printed. These re-runs are main
+   path batches too, and their launches count.
 3. Kernel against plain version on those captured inputs: each kernel and
    its plain version must agree bit for bit. Times of both are taken with
    CUDA events, the kernel's on single calls after an L2 flush; the bound
@@ -99,6 +111,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import ctypes
 import json
 import statistics
 import subprocess
@@ -196,12 +209,48 @@ def no_mark(tag) -> None:
     pass
 
 
+def warm_profiler(device) -> None:
+    """Start and stop torch.profiler once on a trivial op, so that the
+    tracer's start-up does not land in the first traced batch."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        torch.zeros(1, device=device).add_(1)
+        torch.cuda.synchronize()
+
+
+def traced(fn, sync):
+    """fn() once under torch.profiler, between two synchronizes. Returns
+    (profile, wall s). The tracer slows the host, so the drives time their
+    batches untraced and trace one more of each operation afterwards, on a
+    copy of the state the timed batch started from."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sync()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        sync()
+    return prof, time.perf_counter() - t0
+
+
+def state_copy(s):
+    """A hash table or queue with a copy of its window."""
+    import dataclasses
+    return dataclasses.replace(s, win=dataclasses.replace(
+        s.win, data=s.win.data.clone()))
+
+
 def ht_arm(arm: str, keys, vals, queries, nslots: int, device, sync,
-           mark=no_mark):
+           mark=no_mark, trace: bool = False):
     """Insert every batch, then run every find batch, on a fresh table.
     `mark(tag)` names the first and last insert batch and the first find
-    batch (None for the others). Returns replies (on the device), the
-    final window and batch times."""
+    batch (None for the others). With trace, the last insert and the last
+    find batch run once more, traced, on copies of the table they started
+    from. Returns replies (on the device), the final window, batch times
+    and the traces."""
     from repro_torch.core import am, hashtable as ht
     p = keys.shape[1]
     table = ht.make_hashtable(p, nslots, VW, device=device)
@@ -209,46 +258,61 @@ def ht_arm(arm: str, keys, vals, queries, nslots: int, device, sync,
     if arm == "rpc":
         engine = am.AMEngine(p)
         ht.build_am_handlers(table, engine)
+
+    def insert(t, b):
+        if arm == "rpc":
+            return ht.insert_rpc(t, engine, keys[b], vals[b])
+        return ht.insert_rdma(t, keys[b], vals[b], fused=arm == "rdma_fused")
+
+    def find(t, b):
+        if arm == "rpc":
+            return (t, *ht.find_rpc(t, engine, queries[b]))
+        return ht.find_rdma(t, queries[b], fused=arm == "rdma_fused")
+
     ok, probes, found, got, t_ins, t_find = [], [], [], [], [], []
-    last = keys.shape[0] - 1
+    last, last_find = keys.shape[0] - 1, queries.shape[0] - 1
     for b in range(keys.shape[0]):
         stage = "first" if b == 0 else "last" if b == last else None
         mark(stage and f"ht {arm} insert {stage}")
+        if trace and b == last:
+            before_last = state_copy(table)
         sync()
         t0 = time.perf_counter()
-        if arm == "rpc":
-            table, o, pr = ht.insert_rpc(table, engine, keys[b], vals[b])
-        else:
-            table, o, pr = ht.insert_rdma(table, keys[b], vals[b],
-                                          fused=arm == "rdma_fused")
+        table, o, pr = insert(table, b)
         sync()
         t_ins.append(time.perf_counter() - t0)
         ok.append(o)
         probes.append(pr)
     for b in range(queries.shape[0]):
         mark(f"ht {arm} find" if b == 0 else None)
+        if trace and b == last_find:
+            before_find = state_copy(table)
         sync()
         t0 = time.perf_counter()
-        if arm == "rpc":
-            f, v = ht.find_rpc(table, engine, queries[b])
-        else:
-            table, f, v = ht.find_rdma(table, queries[b],
-                                       fused=arm == "rdma_fused")
+        table, f, v = find(table, b)
         sync()
         t_find.append(time.perf_counter() - t0)
         found.append(f)
         got.append(v)
     mark(None)
+    traces = {}
+    if trace:
+        traces["insert"] = traced(lambda: insert(before_last, last), sync)
+        traces["find"] = traced(lambda: find(before_find, last_find), sync)
+        del before_last, before_find
     import torch
     return dict(ok=torch.stack(ok), probes=torch.stack(probes),
                 found=torch.stack(found), vals=torch.stack(got),
-                data=table.win.data, t_insert=t_ins, t_find=t_find)
+                data=table.win.data, t_insert=t_ins, t_find=t_find,
+                traces=traces)
 
 
 def q_arm(arm: str, items, host: int, cap: int, device, sync,
-          mark=no_mark):
+          mark=no_mark, trace: bool = False):
     """Push every batch (C_RW), then pop (C_R) until a pop gets nothing.
-    `mark(tag)` names the first push and the first pop batch."""
+    `mark(tag)` names the first push and the first pop batch. With trace,
+    the last push and the first pop run once more, traced, on copies of
+    the queue they started from."""
     from repro_torch.core import am, queue as dq
     from repro_torch.core.types import Promise
     p, n = items.shape[1], items.shape[2]
@@ -257,26 +321,36 @@ def q_arm(arm: str, items, host: int, cap: int, device, sync,
     if arm == "rpc":
         engine = am.AMEngine(p)
         dq.build_am_handlers(q, engine)
+
+    def push(q, b):
+        if arm == "rpc":
+            return dq.push_rpc(q, engine, items[b])
+        return dq.push_rdma(q, items[b], promise=Promise.CRW)
+
+    def pop(q):
+        if arm == "rpc":
+            return dq.pop_rpc(q, engine, n)
+        return dq.pop_rdma(q, n, promise=Promise.CR)
+
     pushed, got, popped, t_push, t_pop = [], [], [], [], []
+    last = items.shape[0] - 1
     for b in range(items.shape[0]):
         mark(f"queue {arm} push" if b == 0 else None)
+        if trace and b == last:
+            before_last = state_copy(q)
         sync()
         t0 = time.perf_counter()
-        if arm == "rpc":
-            q, ok = dq.push_rpc(q, engine, items[b])
-        else:
-            q, ok = dq.push_rdma(q, items[b], promise=Promise.CRW)
+        q, ok = push(q, b)
         sync()
         t_push.append(time.perf_counter() - t0)
         pushed.append(ok)
+    if trace:
+        full = state_copy(q)
     for b in range(items.shape[0] + 2):
         mark(f"queue {arm} pop" if b == 0 else None)
         sync()
         t0 = time.perf_counter()
-        if arm == "rpc":
-            q, g, v = dq.pop_rpc(q, engine, n)
-        else:
-            q, g, v = dq.pop_rdma(q, n, promise=Promise.CR)
+        q, g, v = pop(q)
         sync()
         t_pop.append(time.perf_counter() - t0)
         got.append(g)
@@ -284,10 +358,15 @@ def q_arm(arm: str, items, host: int, cap: int, device, sync,
         if not bool(g.any()):
             break
     mark(None)
+    traces = {}
+    if trace:
+        traces["push"] = traced(lambda: push(before_last, last), sync)
+        traces["pop"] = traced(lambda: pop(full), sync)
+        del before_last, full
     import torch
     return dict(pushed=torch.stack(pushed), got=torch.stack(got),
                 popped=torch.stack(popped), data=q.win.data,
-                t_push=t_push, t_pop=t_pop)
+                t_push=t_push, t_pop=t_pop, traces=traces)
 
 
 def queue_items(seed: int, batches: int, p: int, n: int) -> np.ndarray:
@@ -651,11 +730,28 @@ def bound_bytes(name: str, args, kw, out) -> float:
 
 
 def serial_chain(name: str, args):
-    """Live ops at the busiest owner: the length of the serial walk of the
-    owner-serialized kernels (None for the others)."""
+    """Live ops at the busiest owner, the length of its list (None for the
+    kernels without an owner list): hash_insert walks it serially."""
     if name not in ("amo_apply", "fused_apply", "hash_insert"):
         return None
     return int(args[-1].sum(1).max())
+
+
+def word_chain(name: str, args):
+    """Live ops on the busiest word of any owner (fused_apply: in its
+    atomic sub-phase), the longest chain the owner lanes keep in order
+    (None for the other kernels)."""
+    if name not in ("amo_apply", "fused_apply"):
+        return None
+    import torch
+    local, ops, mask = args
+    P, L = local.shape
+    if not bool(mask.any()):
+        return 0
+    w = ops[..., 0].to(torch.int64)
+    w = torch.where(w < 0, w + L, w).clamp(0, L - 1)
+    owner = torch.arange(P, device=w.device)[:, None] * L
+    return int(torch.unique((owner + w)[mask], return_counts=True)[1].max())
 
 
 def library_call(name: str, args, kw):
@@ -697,8 +793,9 @@ def edge_cases(device) -> None:
     [0, E), and the serving shapes; decode lengths 0, 1, either side of
     and at a split boundary, and W, g = 1 and 8 (d 128) and 16 (d 256),
     float32 and bfloat16; the
-    RG-LRU scan at S = 1, S and D off its unroll and warp, h0 None; and
-    attention over the cases listed below, in float32 and bfloat16."""
+    RG-LRU scan at S = 1, S and D off its unroll and warp, h0 None;
+    attention over the cases listed below, in float32 and bfloat16; and
+    the owner-lane cases of kernels/lane_cases.py."""
     import torch
     from repro_torch.kernels import ops as kops, ref as kref
     rng = np.random.default_rng(3)
@@ -794,6 +891,14 @@ def edge_cases(device) -> None:
     for name, kernel, plain, args, kw in cases:
         kernel_err(name, kernel(*args, **kw), plain(*args, **kw),
                    "edge cases")
+    # the owner lanes' cases of the card tests: the plain version on the
+    # CPU, where its op-by-op loop is quicker
+    from repro_torch.kernels import lane_cases
+    for label, name, args, kw in lane_cases.owner_lane_cases():
+        got = getattr(kops, name)(*(t(a, torch.from_numpy(a).dtype)
+                                    for a in args), **kw)
+        want = getattr(kref, name)(*map(torch.from_numpy, args), **kw)
+        kernel_err(name, [g.cpu() for g in got], want, label)
 
 
 # The call whose numbers stand in a kernel's row of the kernels line: its
@@ -882,7 +987,8 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
                                library_ms=library_ms,
                                max_abs_err=err, out_rms=out_rms, live=live,
                                shapes=shapes,
-                               serial_chain=serial_chain(name, args)))
+                               serial_chain=serial_chain(name, args),
+                               word_chain=word_chain(name, args)))
         lib_txt = ("" if library_ms is None
                    else f", library {library_ms:.4f} ms")
         log(f"phase {phase}: {name} == plain at {tag} on {shapes} {kw} "
@@ -890,6 +996,9 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
             f"{warm_ms:.4f}), plain {plain_ms:.1f} ms{lib_txt}, bound "
             f"{bound_ms:.4f} ms ({bound_by}), read of the bound's bytes "
             f"{read_ms:.4f} ms, max err {err}"
+            + ("" if rows[name][-1]["word_chain"] is None else
+               f", longest word chain {rows[name][-1]['word_chain']} of "
+               f"{rows[name][-1]['serial_chain']} live at the busiest owner")
             + ("" if out_rms is None else f" (output RMS {out_rms:.6g})"))
         del out_k, out_p
     for name in names:
@@ -916,36 +1025,52 @@ def kernel_row(name: str, calls: list, launches: dict) -> dict:
         bound_ms=head["bound_ms"], read_ms=head["read_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
         library_note=NO_LIBRARY.get(name), at=head["at"],
-        serial_chain=head["serial_chain"],
+        serial_chain=head["serial_chain"], word_chain=head["word_chain"],
         calls=[{k: r[k] for k in ("at", "live", "ms", "warm_ms", "plain_ms",
                                   "library_ms", "bound_ms", "bound_by",
                                   "read_ms",
                                   "max_abs_err", "out_rms",
-                                  "serial_chain")}
+                                  "serial_chain", "word_chain")}
                for r in calls])
 
 
 # ---------------------------------------------------------------------------
 # Phases 2 and 4
 # ---------------------------------------------------------------------------
-def phase_slice(seed: int, insert_batches: int, device,
-                mark=no_mark) -> dict:
+def slice_inputs(seed: int, insert_batches: int, device) -> dict:
+    """Phase 2's inputs, made from the seed: the keys inserted (`present`,
+    and on the device `keys` with their `vals`), the find batches
+    (`queries`: present[idx] where idx >= 0, else the absent key in
+    `pick`) and the queue's `items`, as host arrays and device tensors."""
     import torch
-    sync = torch.cuda.synchronize
     n_keys = insert_batches * P * N
     allkeys = make_keys(seed, n_keys + FIND_BATCHES * P * N // 2)
     present, absent = allkeys[:n_keys], allkeys[n_keys:]
     keys = present.reshape(insert_batches, P, N)
     idx, pick = find_queries(seed, n_keys, absent, FIND_BATCHES, P, N)
     qkeys = np.where(idx >= 0, present[np.maximum(idx, 0)], pick)
-    k = torch.as_tensor(keys, device=device)
-    v = torch.as_tensor(val_of(keys)[..., None], device=device)
-    qk = torch.as_tensor(qkeys, device=device)
+    items = queue_items(seed, Q_BATCHES, P, Q_N)
+    return dict(present=present, idx=idx, pick=pick, items=items,
+                keys=torch.as_tensor(keys, device=device),
+                vals=torch.as_tensor(val_of(keys)[..., None], device=device),
+                queries=torch.as_tensor(qkeys, device=device),
+                items_dev=torch.as_tensor(items, device=device))
+
+
+def phase_slice(seed: int, insert_batches: int, device,
+                mark=no_mark) -> dict:
+    import torch
+    sync = torch.cuda.synchronize
+    n_keys = insert_batches * P * N
+    x = slice_inputs(seed, insert_batches, device)
+    present, idx, pick = x["present"], x["idx"], x["pick"]
+    k, v, qk = x["keys"], x["vals"], x["queries"]
     report = {}
     res = {}
+    warm_profiler(device)
     counts = launch_counter()
     for arm in ARMS:
-        r = ht_arm(arm, k, v, qk, NSLOTS, device, sync, mark)
+        r = ht_arm(arm, k, v, qk, NSLOTS, device, sync, mark, trace=True)
         check_ht(r, arm, present, idx, pick)
         failed = int((~r["ok"]).sum())
         log(f"phase 2: hash table {arm}: {n_keys - failed} of {n_keys} "
@@ -955,6 +1080,9 @@ def phase_slice(seed: int, insert_batches: int, device,
                            find_ms=statistics.median(r["t_find"]) * 1e3,
                            insert_batches=insert_batches,
                            find_batches=FIND_BATCHES, launches=counts())
+        for op in ("insert", "find"):
+            report[arm][f"profile_{op}"] = batch_profile(
+                *r["traces"][op], report[arm][f"{op}_ms"])
         if arm == "rpc":
             r.pop("data")
         res[arm] = r
@@ -985,18 +1113,20 @@ def phase_slice(seed: int, insert_batches: int, device,
         f"({differ} keys in one arm's probe window only)")
     report["rdma_vs_rpc_insert_differ"] = differ
     del res, a, b
-    items = queue_items(seed, Q_BATCHES, P, Q_N)
-    it = torch.as_tensor(items, device=device)
+    items, it = x["items"], x["items_dev"]
     for arm in ("rdma", "rpc"):
-        r = q_arm(arm, it, Q_HOST, Q_CAP, device, sync, mark)
+        r = q_arm(arm, it, Q_HOST, Q_CAP, device, sync, mark, trace=True)
         check_queue(r, arm, items)
         log(f"phase 2: queue {arm}: {items.shape[0] * P * Q_N} pushed and "
             f"popped in ticket order")
-        report[f"queue_{arm}"] = dict(
+        rq = report[f"queue_{arm}"] = dict(
             push_ms=statistics.median(r["t_push"]) * 1e3,
             pop_ms=statistics.median(r["t_pop"][:-1]) * 1e3,
             push_batches=len(r["t_push"]), pop_batches=len(r["t_pop"]),
             launches=counts())
+        for op in ("push", "pop"):
+            rq[f"profile_{op}"] = batch_profile(*r["traces"][op],
+                                                rq[f"{op}_ms"])
     return report
 
 
@@ -1391,6 +1521,31 @@ def profile_summary(prof, window_s, step_ms: float, phase: int) -> dict:
                   calls_per_step=c / n) for k, t, c in top])
 
 
+def batch_profile(prof, wall_s: float, median_ms: float) -> dict:
+    """One traced data-structure batch: profile_summary's device busy time
+    and idle shares, and the device ms of each owner lane (its copy and
+    apply kernels) in the batch."""
+    from torch.autograd import DeviceType
+    pr = profile_summary(prof, [wall_s], median_ms, 2)
+    pr["lane_ms"] = {name: sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and name in e.key) / 1e3
+        for name in ("amo_apply", "fused_apply")}
+    return pr
+
+
+def log_batch_profile(what: str, pr: dict, card: str) -> None:
+    if pr.get("device_ms_per_step") is None:
+        return
+    lanes = ", ".join(f"{k} {v:.3f} ms" for k, v in pr["lane_ms"].items())
+    log(f"profile of one {what} batch: device busy "
+        f"{pr['device_ms_per_step']:.3f} ms of a traced "
+        f"{pr['traced_wall_ms_per_step']:.3f} ms (idle "
+        f"{pr['idle_share_traced']:.3f}), idle "
+        f"{pr['idle_share_vs_median']:.3f} of the untraced median; owner "
+        f"lanes {lanes} ({card})")
+
+
 def check_last_logits(served: dict) -> None:
     """One more decode step past the run: logits of the full vocab for
     every request, all finite."""
@@ -1494,6 +1649,10 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 log(f"ptxas {name}: {line.strip()}")
+    smem = _build.load("owner_lane").repro_owner_lane_smem_bytes
+    smem.restype = ctypes.c_longlong
+    log(f"owner_lane: {smem()} bytes of dynamic shared memory an apply "
+        f"block")
 
     edge_cases(device)
     log(f"phase 1: edge cases equal on all {len(KERNELS)} kernels")
@@ -1610,10 +1769,15 @@ def main() -> int:
         r = report[arm]
         log(f"median ms per batch, hash table {arm}: insert "
             f"{r['insert_ms']:.3f}, find {r['find_ms']:.3f} ({card})")
+        for op in ("insert", "find"):
+            log_batch_profile(f"hash table {arm} {op}", r[f"profile_{op}"],
+                              card)
     for arm in ("rdma", "rpc"):
         r = report[f"queue_{arm}"]
         log(f"median ms per batch, queue {arm}: push {r['push_ms']:.3f}, "
             f"pop {r['pop_ms']:.3f} ({card})")
+        for op in ("push", "pop"):
+            log_batch_profile(f"queue {arm} {op}", r[f"profile_{op}"], card)
     for v in (sv, rv):
         log(f"serve {v['arch']}: median {v['step_ms_median']:.3f} ms per "
             f"decode step of {v['batch']} tokens (bound "

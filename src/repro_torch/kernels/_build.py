@@ -41,37 +41,44 @@ def _nvcc() -> str:
     return cand
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+def _target(src: Path) -> Path:
+    digest = hashlib.sha1(src.read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{src.stem}-{digest[:12]}.so"
 
 
-def build_all(names=SOURCES) -> List[Path]:
+def _compile(srcs: List[Path]) -> List[Path]:
     """Compile every source whose library is missing, one nvcc each, all
     started together. Raises with nvcc's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [(n, _target(n)) for n in names if not _target(n).exists()]
+    todo = [(s, _target(s)) for s in srcs if not _target(s).exists()]
     procs = []
-    for name, target in todo:
+    for src, target in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs.append((name, target, tmp, subprocess.Popen(
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        procs.append((src, target, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     failed = []
-    for name, target, tmp, proc in procs:
+    for src, target, tmp, proc in procs:
         out, _ = proc.communicate()
-        build_log[name] = out
+        build_log[src.stem] = out
         if proc.returncode == 0:
             os.replace(tmp, target)
         else:
             os.unlink(tmp)
-            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{out}")
+            failed.append(f"nvcc {src.name} failed ({proc.returncode}):\n"
+                          f"{out}")
     if failed:
         raise RuntimeError("\n".join(failed))
-    return [_target(n) for n in names]
+    return [_target(s) for s in srcs]
+
+
+def build_all(names=SOURCES) -> List[Path]:
+    """Compile csrc/<name>.cu for every name whose library is missing, all
+    at once."""
+    return _compile([CSRC / f"{n}.cu" for n in names])
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -79,6 +86,14 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
+        lib = ctypes.CDLL(str(_target(CSRC / f"{name}.cu")))
         _LIBS[name] = lib
     return lib
+
+
+def load_file(src) -> ctypes.CDLL:
+    """Build and load another source with the C interface of one in csrc/
+    (an earlier version of it, or a copy with a planted fault); stand it
+    in for that library with `_launch.library`."""
+    (target,) = _compile([Path(src).resolve()])
+    return ctypes.CDLL(str(target))

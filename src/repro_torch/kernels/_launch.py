@@ -1,6 +1,7 @@
 """Shared checks and the launch call of the ctypes-bound kernels."""
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -20,6 +21,20 @@ def function(lib: str, name: str, argtypes: tuple):
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+@contextlib.contextmanager
+def library(lib: str, cdll: ctypes.CDLL):
+    """Within the block, launch the kernels of csrc/<lib>.cu from `cdll`
+    (from `_build.load_file`) instead."""
+    saved = _build.load(lib)
+    _build._LIBS[lib] = cdll
+    function.cache_clear()
+    try:
+        yield
+    finally:
+        _build._LIBS[lib] = saved
+        function.cache_clear()
 
 
 def check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,

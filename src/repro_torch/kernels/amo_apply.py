@@ -3,11 +3,14 @@ the Pallas kernels in repro/kernels/amo_apply.py:
 
 - `amo_apply` (B1): primitive single-word AMOs [off|opcode|a|b];
 - `fused_apply` (B2): fused component descriptors
-  [off|opcode|a|b|aux0|aux1|vals...] in four serialized sub-phases.
+  [off|opcode|a|b|aux0|aux1|vals...] in four sub-phases.
 
 Each takes CUDA tensors only (kernels/ops.py routes CPU tensors to the
 plain versions in kernels/ref.py), returns new tensors (out of place, as
-the JAX contract is), and counts its launches in `<wrapper>.launches`.
+the JAX contract is), and counts its calls in `<wrapper>.launches`: one a
+call, though each call launches two kernels (a copy of the shards and
+zeroing of the replies across the card, then the apply, one block per
+owner).
 """
 from __future__ import annotations
 
@@ -18,6 +21,16 @@ import torch
 from ._launch import I32, I64, PTR, check, function, launch
 
 Tensor = torch.Tensor
+
+# the kernels sort word indices and list positions as 32-bit values
+MAX_WORDS = 2 ** 31 - 1
+
+
+def _check_sizes(name: str, L: int, m: int) -> None:
+    if not 1 <= L <= MAX_WORDS or m > MAX_WORDS:
+        raise ValueError(f"{name}: needs 1 <= L <= {MAX_WORDS} words a "
+                         f"shard and m <= {MAX_WORDS} ops an owner, got "
+                         f"L={L}, m={m}")
 
 
 def amo_apply(local: Tensor, ops: Tensor, mask: Tensor
@@ -30,6 +43,7 @@ def amo_apply(local: Tensor, ops: Tensor, mask: Tensor
     check("local", local, torch.int32, (P, L), dev)
     check("ops", ops, torch.int32, (P, m, 4), dev)
     check("mask", mask, torch.bool, (P, m), dev)
+    _check_sizes("amo_apply", L, m)
     old = torch.empty((P, m), dtype=torch.int32, device=dev)
     out = torch.empty_like(local)
     fn = function("owner_lane", "repro_amo_apply",
@@ -56,6 +70,7 @@ def fused_apply(local: Tensor, ops: Tensor, mask: Tensor, *,
     check("local", local, torch.int32, (P, L), dev)
     check("ops", ops, torch.int32, (P, m, width), dev)
     check("mask", mask, torch.bool, (P, m), dev)
+    _check_sizes("fused_apply", L, m)
     reply = torch.empty((P, m, reply_width), dtype=torch.int32, device=dev)
     out = torch.empty_like(local)
     fn = function("owner_lane", "repro_fused_apply",
@@ -68,3 +83,4 @@ def fused_apply(local: Tensor, ops: Tensor, mask: Tensor, *,
 
 
 fused_apply.launches = 0
+

@@ -2,7 +2,9 @@
 the four owner-lane kernels amo_apply, fused_apply, hash_find and
 hash_insert, and the model kernels mha (flash attention's function),
 decode_attention (with combine_decode_stats), moe_dispatch and
-rg_lru_scan.
+rg_lru_scan. Beside amo_apply, the JAX package's duplicate-run pre-pass
+of the owner lane (combine_runs, reconstruct_runs) and the oracle built
+on it, amo_apply_combined.
 
 They take all owners at once (the leading P axis JAX vmaps over) and keep
 the JAX oracles' semantics word for word, including what happens at an
@@ -76,6 +78,106 @@ def amo_apply(local: Tensor, ops: Tensor, mask: Tensor
         cur = _word_rmw(out, off, ok, lambda c: _amo_new(c, code, a, b))
         old[:, j] = torch.where(ok, cur, 0)
     return old, out
+
+
+# ---------------------------------------------------------------------------
+# Duplicate-run combining, owner-lane side (repro.kernels.amo_apply
+# combine_runs / reconstruct_runs, batched over owners): merge maximal
+# CONSECUTIVE runs of combinable ops in each serialized list before the lane
+# walks it, and reconstruct per-op old values after. Nothing is reordered,
+# so the combined list makes exactly the state transitions of the original.
+#
+#   FAA             operands sum;     old_i = old_rep + prefix_sum
+#   FOR/FAND/FXOR   operands fold;    old_i = binop(old_rep, prefix_fold)
+#   GET             one probe;        old_i = old_rep
+#   PUT             last writer wins; old_i = prev member's stored value
+#   CAS             identical (a, b) rows only; losers see the chained
+#                   outcome (rep won -> b, else old_rep)
+# ---------------------------------------------------------------------------
+def _fao_identity(code: Tensor) -> Tensor:
+    return torch.where(code == OP_FAND, -1, 0).to(torch.int32)
+
+
+def _fao_merge(code: Tensor, x: Tensor, y: Tensor) -> Tensor:
+    """x (op) y for the fetch-and-op `code` of each element; y for any
+    other code."""
+    out = torch.where(code == OP_FAA, intops.add(x, y), y)
+    out = torch.where(code == OP_FOR, x | y, out)
+    out = torch.where(code == OP_FAND, x & y, out)
+    return torch.where(code == OP_FXOR, x ^ y, out)
+
+
+def combine_runs(ops: Tensor, mask: Tensor
+                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Merge duplicate runs of each owner's serialized op list.
+
+    ops (P, m, 4) int32 [off|code|a|b]; mask (P, m) bool. Returns
+    (ops', mask', run_start (P, m), prefix (P, m)): mask' keeps only run
+    representatives, ops' carries the folded operand (FAO) / last value
+    (PUT) at each representative row, run_start[p, i] is the list index of
+    op i's representative, prefix[p, i] the exclusive operand fold of its
+    earlier run members."""
+    m = mask.shape[1]
+    off, code, a, b = ops.unbind(-1)
+    same = (mask[:, 1:] & mask[:, :-1] & (off[:, 1:] == off[:, :-1])
+            & (code[:, 1:] == code[:, :-1]))
+    same = same & ((code[:, 1:] != OP_CAS)
+                   | ((a[:, 1:] == a[:, :-1]) & (b[:, 1:] == b[:, :-1])))
+    run_first = torch.cat([torch.ones_like(mask[:, :1]), ~same], 1)
+    idx = torch.arange(m, dtype=torch.int32, device=mask.device)
+    run_start = torch.cummax(torch.where(run_first, idx, -1), 1).values
+    # inclusive fold within each run; a run has one code, and a code that
+    # is not a fetch-and-op keeps its own operand
+    incl = a
+    for kind in (OP_FAA, OP_FOR, OP_FAND, OP_FXOR):
+        incl = torch.where(code == kind,
+                           intops.seg_scan(a, run_first, kind), incl)
+    excl = torch.where(run_first, _fao_identity(code),
+                       torch.roll(incl, 1, dims=1))
+    run_last = torch.cat([run_first[:, 1:], torch.ones_like(mask[:, :1])],
+                         1)
+    end = torch.cummin(torch.where(run_last, idx, m - 1).flip(1),
+                       1).values.flip(1).to(torch.int64)
+    is_fao = (code >= OP_FAA) & (code <= OP_FXOR)
+    a2 = torch.where(run_first & is_fao, torch.gather(incl, 1, end), a)
+    b2 = torch.where(run_first & (code == OP_PUT), torch.gather(b, 1, end),
+                     b)
+    ops2 = torch.stack([off, code, a2, b2], dim=-1)
+    return ops2, mask & run_first, run_start, excl
+
+
+def reconstruct_runs(ops: Tensor, mask: Tensor, run_start: Tensor,
+                     prefix: Tensor, old_rep: Tensor) -> Tensor:
+    """Per-op old values (P, m) from the representatives' fetched values.
+
+    old_rep (P, m) is the combined apply's reply (meaningful at
+    representative rows). Returns old as the uncombined serialized apply
+    would have fetched it."""
+    m = mask.shape[1]
+    code, a, b = ops[..., 1], ops[..., 2], ops[..., 3]
+    idx = torch.arange(m, dtype=torch.int32, device=mask.device)
+    first = (idx - run_start) == 0
+    old_l = torch.gather(old_rep, 1, run_start.to(torch.int64))
+    old = _fao_merge(code, old_l, prefix)
+    old = torch.where(code == OP_PUT,
+                      torch.where(first, old_l, torch.roll(b, 1, dims=1)),
+                      old)
+    old = torch.where(code == OP_CAS, torch.where(
+        first, old_l, torch.where(old_l == a, b, old_l)), old)
+    old = torch.where(code == OP_GET, old_l, old)
+    return torch.where(mask, old, 0)
+
+
+def amo_apply_combined(local: Tensor, ops: Tensor, mask: Tensor
+                       ) -> Tuple[Tensor, Tensor]:
+    """Duplicate-run-combined oracle: merge maximal consecutive runs of
+    combinable ops (combine_runs), apply the shortened lists with
+    `amo_apply`, then reconstruct every op's fetched value from its
+    representative's reply. Equal to `amo_apply` on the full lists for
+    codes 0-6."""
+    ops2, mask2, run_start, prefix = combine_runs(ops, mask)
+    old_rep, local2 = amo_apply(local, ops2, mask2)
+    return reconstruct_runs(ops, mask, run_start, prefix, old_rep), local2
 
 
 def fused_apply(local: Tensor, ops: Tensor, mask: Tensor, *,

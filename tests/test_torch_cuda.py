@@ -6,8 +6,6 @@ card. The file imports no JAX, so it runs on a machine without it:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
-import ctypes
-import subprocess
 
 import numpy as np
 import pytest
@@ -17,7 +15,7 @@ from repro_torch.configs import registry
 from repro_torch.core import am, hashtable as ht, queue as dq
 from repro_torch.models import lm
 from repro_torch.core.types import Promise
-from repro_torch.kernels import ops as kops
+from repro_torch.kernels import lane_cases, ops as kops
 from repro_torch.kernels import ref as kref
 from torch_parity import (amo_inputs, cuda_device, probe_table,  # noqa: F401
                           same)
@@ -250,25 +248,16 @@ def test_flash_attention_kernel_matches_plain_version(
     torch.testing.assert_close(got, want, **kref.mha_tol(want))
 
 
-def _with_planted_fault(lib: str, old: str, new: str, tmp_path,
-                        monkeypatch, call):
-    """Build csrc/<lib>.cu with `old` replaced by `new` in tmp_path and run
-    `call()` with it standing in for the kernel's library."""
+def _with_planted_fault(lib: str, old: str, new: str, tmp_path, call):
+    """Write csrc/<lib>.cu with `old` replaced by `new` to tmp_path, build
+    it and run `call()` with it standing in for the kernel's library."""
     from repro_torch.kernels import _build, _launch
     source = (_build.CSRC / f"{lib}.cu").read_text()
     assert source.count(old) == 1
     faulty = tmp_path / f"faulty_{lib}.cu"
     faulty.write_text(source.replace(old, new))
-    so = tmp_path / f"faulty_{lib}.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                    str(faulty)], check=True, capture_output=True)
-    monkeypatch.setitem(_build._LIBS, lib, ctypes.CDLL(str(so)))
-    _launch.function.cache_clear()
-    try:
+    with _launch.library(lib, _build.load_file(faulty)):
         return call()
-    finally:
-        monkeypatch.undo()
-        _launch.function.cache_clear()
 
 
 # planted faults of csrc/flash_attention.cu's bf16 kernel: (its text, the
@@ -285,13 +274,12 @@ FLASH_FAULTS = {
 
 
 @pytest.mark.parametrize("fault", sorted(FLASH_FAULTS))
-def test_flash_limit_rejects_planted_faults(cuda_device, fault, tmp_path,
-                                            monkeypatch):
+def test_flash_limit_rejects_planted_faults(cuda_device, fault, tmp_path):
     """mha_tol must tell the kernel from one with a planted fault at the
     prefill's headline call (the last query chunk of recurrentgemma-9b's
     last local-attention layer: q (1, 4096, 16, 256), k/v (1, 6143, 1,
     256), bf16, window 2048) on unit-variance inputs. The faulty source
-    is built in tmp_path and stands in for the kernel's library during
+    is written to tmp_path and stands in for the kernel's library during
     this test only."""
     rng = np.random.default_rng(14)
     q, k, v = (torch.as_tensor(rng.standard_normal(shape, dtype=np.float32))
@@ -304,7 +292,7 @@ def test_flash_limit_rejects_planted_faults(cuda_device, fault, tmp_path,
     torch.testing.assert_close(kops.flash_attention(q, k, v, **kw), want,
                                **tol)
     got = _with_planted_fault(
-        "flash_attention", *FLASH_FAULTS[fault], tmp_path, monkeypatch,
+        "flash_attention", *FLASH_FAULTS[fault], tmp_path,
         lambda: kops.flash_attention(q, k, v, **kw))
     err = float((got.float() - want.float()).abs().max())
     rms = float(want.float().square().mean().sqrt())
@@ -322,15 +310,14 @@ DECODE_FAULT = (
     " : 0.f;\n")
 
 
-def test_decode_limit_rejects_planted_fault(cuda_device, tmp_path,
-                                            monkeypatch):
+def test_decode_limit_rejects_planted_fault(cuda_device, tmp_path):
     """DECODE_TOL must tell the split kernel from one whose merge skips a
     split's rescale, at the serving shape."""
     args = _serving_decode_inputs(cuda_device)
     want = kref.decode_attention(*args)
     _decode_close(kops.flash_decode(*args), want)
     got = _with_planted_fault("flash_decode", *DECODE_FAULT, tmp_path,
-                              monkeypatch, lambda: kops.flash_decode(*args))
+                              lambda: kops.flash_decode(*args))
     out = got[0] / got[2].clamp(min=1e-30)[..., None]
     out_r = want[0] / want[2].clamp(min=1e-30)[..., None]
     print(f"merge without a rescale: max |o/l| err "
@@ -361,3 +348,78 @@ def test_reduced_recurrentgemma_on_cuda_equals_cpu(cuda_device):
                                        tok[:, t].to(cuda_device))
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
         same(lg.argmax(-1), lc.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# The owner lanes (csrc/owner_lane.cu) on kernels/lane_cases.py's edge
+# cases, bit for bit, and three faults planted in the kernel
+# ---------------------------------------------------------------------------
+LANE_CASES = lane_cases.owner_lane_cases()
+_LANE_WANT = {}
+
+
+def _lane_want(i):
+    """The plain version's output on case i, on the CPU (kept)."""
+    if i not in _LANE_WANT:
+        _, name, args, kw = LANE_CASES[i]
+        _LANE_WANT[i] = getattr(kref, name)(*_on("cpu", *args), **kw)
+    return _LANE_WANT[i]
+
+
+def _lane_got(i, dev):
+    _, name, args, kw = LANE_CASES[i]
+    return [x.cpu() for x in getattr(kops, name)(*_on(dev, *args), **kw)]
+
+
+@pytest.mark.parametrize("i", range(len(LANE_CASES)), ids=[
+    f"{name}: {label}" for label, name, _, _ in LANE_CASES])
+def test_owner_lane_kernel_on_edge_case(cuda_device, i):
+    for x, y in zip(_lane_got(i, cuda_device), _lane_want(i)):
+        same(x, y)
+
+
+def test_owner_lane_counts_one_launch_a_call(cuda_device):
+    """A wrapper call launches a copy and an apply and counts one."""
+    from repro_torch.kernels import amo_apply as kamo
+    _, _, args, _ = LANE_CASES[0]
+    before = kamo.amo_apply.launches
+    kops.amo_apply(*_on(cuda_device, *args))
+    assert kamo.amo_apply.launches == before + 1
+
+
+# planted faults of csrc/owner_lane.cu: (its text, the faulty text, the
+# edge case aimed at it)
+LANE_FAULTS = {
+    "within-word order reversed": (
+        "    const int src = q;   // list order: the stable sort keeps it "
+        "per word\n",
+        "    const int src = q < n ? n - 1 - q : q;\n",
+        "one word: CAS chain"),
+    "overlapping puts first-writer-wins": (
+        "      for (int k = 0; k < n; ++k) {   // list order: the last "
+        "writer wins\n",
+        "      for (int k = n - 1; k >= 0; --k) {\n",
+        "fused: overlapping puts, gathers of written words"),
+    "last chunk dropped": (
+        "  for (int c0 = 0; c0 < r.total; c0 += kChunk) {\n",
+        "  for (int c0 = 0; c0 + kChunk < r.total; c0 += kChunk) {\n",
+        "live counts at the chunk"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(LANE_FAULTS))
+def test_owner_lane_cases_reject_planted_faults(cuda_device, fault,
+                                                tmp_path):
+    """With the fault built in, the kernels must differ from their plain
+    versions on the edge case aimed at it (every case runs; the ones that
+    differ are printed)."""
+    old, new, label = LANE_FAULTS[fault]
+
+    def differing():
+        return [i for i in range(len(LANE_CASES))
+                if not all(torch.equal(x, y) for x, y in
+                           zip(_lane_got(i, cuda_device), _lane_want(i)))]
+    bad = _with_planted_fault("owner_lane", old, new, tmp_path, differing)
+    print(f"{fault}: differs on " + "; ".join(
+        f"{LANE_CASES[i][1]}: {LANE_CASES[i][0]}" for i in bad))
+    assert label in {LANE_CASES[i][0] for i in bad}

@@ -133,6 +133,85 @@ def test_hash_insert_matches_jax_ref(P, nslots, vw, m, fill):
     same(t_t, t_j, "table'")
 
 
+def _run_lists(rng, P, m, span, codes):
+    """Op lists with long runs: codes drawn in runs of 1-6, offsets from
+    `span` words held for a few ops, CAS operands from a tiny set (equal
+    and unequal (a, b) rows), INT32_MAX operands (wraparound), and masked
+    gaps."""
+    ops = np.zeros((P, m, 4), np.int32)
+    for p in range(P):
+        j = 0
+        while j < m:
+            k = int(rng.integers(1, 7))
+            ops[p, j:j + k, 0] = rng.integers(0, span)
+            ops[p, j:j + k, 1] = rng.choice(codes)
+            j += k
+    ops[..., 2] = rng.integers(-2, 3, (P, m))
+    ops[..., 3] = rng.integers(-2, 3, (P, m))
+    ops[..., 2] = np.where(rng.random((P, m)) < 0.1, 2 ** 31 - 1,
+                           ops[..., 2])
+    mask = rng.random((P, m)) > 0.15
+    return ops, mask
+
+
+@pytest.mark.parametrize("P,m,span,codes", [
+    (2, 40, 2, range(7)), (3, 64, 4, range(7)),
+    (1, 24, 1, (-1, 0, 1, 2, 3, 4, 5, 6, 7, 9))])
+def test_combine_runs_matches_jax(P, m, span, codes):
+    """combine_runs (ops', mask', run_start, prefix) and reconstruct_runs
+    against the JAX package's (plain jnp), bit for bit, on runs of every
+    code (unknown codes too), CAS rows with equal and unequal (a, b) and
+    masked gaps."""
+    from repro.kernels import amo_apply as jamo
+    rng = np.random.default_rng(40 + m)
+    ops, mask = _run_lists(rng, P, m, span, list(codes))
+    got = tref.combine_runs(tt(ops), tt(mask))
+    want = jax.jit(jax.vmap(jamo.combine_runs))(jnp.asarray(ops),
+                                                jnp.asarray(mask))
+    for name, x, y in zip(("ops'", "mask'", "run_start", "prefix"), got,
+                          want):
+        same(x, y, name)
+    old_rep = rng.integers(-9, 9, (P, m)).astype(np.int32)
+    same(tref.reconstruct_runs(tt(ops), tt(mask), got[2], got[3],
+                               tt(old_rep)),
+         jax.jit(jax.vmap(jamo.reconstruct_runs))(
+             jnp.asarray(ops), jnp.asarray(mask), want[2], want[3],
+             jnp.asarray(old_rep)), "old")
+
+
+@pytest.mark.parametrize("P,L,m,span", [(2, 32, 16, 2), (3, 64, 40, 4),
+                                        (1, 16, 8, 1)])
+def test_amo_apply_combined_matches_jax_ref(P, L, m, span):
+    """ref.amo_apply_combined against the JAX oracle, and, for codes 0-6,
+    equal to the plain serialized apply, bit for bit."""
+    rng = np.random.default_rng(50 + m)
+    local = rng.integers(0, 100, (P, L)).astype(np.int32)
+    ops, mask = _run_lists(rng, P, m, span, list(range(7)))
+    old_t, new_t = tref.amo_apply_combined(tt(local), tt(ops), tt(mask))
+    old_j, new_j = jv(jref.amo_apply_combined)(
+        jnp.asarray(local), jnp.asarray(ops), jnp.asarray(mask))
+    same(old_t, old_j, "old")
+    same(new_t, new_j, "local'")
+    old_s, new_s = tref.amo_apply(tt(local), tt(ops), tt(mask))
+    same(old_t, old_s, "old vs serial")
+    same(new_t, new_s, "local' vs serial")
+
+
+def test_combine_runs_shortens_a_hot_list():
+    """A one-word FAA hammer combines to ONE surviving op per owner with
+    the summed operand; prefixes are the exclusive sums."""
+    m = 24
+    ops = np.zeros((2, m, 4), np.int32)
+    ops[..., 1] = 3
+    ops[..., 2] = np.arange(1, m + 1)
+    mask = np.ones((2, m), bool)
+    ops2, mask2, run_start, prefix = tref.combine_runs(tt(ops), tt(mask))
+    assert mask2.sum(1).tolist() == [1, 1]
+    assert ops2[:, 0, 2].tolist() == [m * (m + 1) // 2] * 2
+    same(run_start, np.zeros((2, m)))
+    same(prefix, np.tile(np.arange(m) * (np.arange(m) + 1) // 2, (2, 1)))
+
+
 def test_cpu_tensors_take_the_plain_versions():
     """kernels.ops on CPU tensors: the plain versions, no launch counted."""
     from repro_torch.kernels import amo_apply as kamo
