@@ -17,8 +17,11 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    c, c + 1 (a split boundary and either side), 200 and W, with 1 and 8
    query heads per kv head at d 128 and 16 at d 256, in float32 and
    bfloat16; rg_lru_scan bit for
-   bit at S = 1 with a given h0, S not a multiple of its unroll, D not a
-   multiple of 32 and h0 = None; flash_attention within kernels/ref.py's
+   bit at S = 1 with a given h0 and at S = 5 (its column kernel), S
+   shorter than one ring stage of 32 steps, S not a multiple of a stage,
+   D not a multiple of 32 (and not of 4: 4-byte copies), more blocks of
+   32 columns than the card has SMs, and h0 = None; flash_attention
+   within kernels/ref.py's
    mha_tol in float32 and bfloat16 with 1, 4 and 16 query heads per kv
    head, head dims 16, 64, 128 and 256, S == Skv and end-aligned S < Skv,
    windows 0 and > 0, non-causal, and S and Skv that are not multiples of
@@ -27,7 +30,13 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    op on one word (16,384 FAAs, mixed codes with offsets outside [0, L) in
    the chain, a CAS chain), live counts below, at and past the kernels'
    chunk, m = 65,536 with 1.6% live, all rows masked, and fused winners
-   with overlapping V = 3 puts and gathers of the words they wrote: the
+   with overlapping V = 3 puts and gathers of the words they wrote; and
+   its hash_insert cases: every request on one start (one component of
+   600), windows wrapping past slot nslots - 1 into those at slot 0,
+   components W - 1 and W slots apart, duplicate keys in a component and
+   full windows, starts outside [0, nslots), max_probes past nslots,
+   shards longer and shorter (clamped) than their records, m = 65,536
+   with 1.6% live, live counts past the chunk, all rows masked: the
    kernel on the card against its plain version on the CPU, bit for bit.
 2. The data structures at full size: a distributed hash table of 64 ranks
    x 2**18 slots (val_words 1; a 201 MB window) filled to load 0.25 with
@@ -50,7 +59,9 @@ Phases, in order; any mismatch raises and the script exits non-zero:
 3. Kernel against plain version on those captured inputs: each kernel and
    its plain version must agree bit for bit. Times of both are taken with
    CUDA events, the kernel's on single calls after an L2 flush; the bound
-   counts the bytes these inputs need.
+   counts the bytes these inputs need. For hash_insert, the longest
+   component its grouping walks (kernels/lane_cases.py
+   insert_components) is printed beside the busiest owner's live count.
 4. CPU against GPU at a small size (8 ranks x 4096 slots): the same op
    streams through the port on both devices; every reply and the final
    windows must be equal.
@@ -737,6 +748,19 @@ def serial_chain(name: str, args):
     return int(args[-1].sum(1).max())
 
 
+def component_chain(name: str, args, kw):
+    """hash_insert: the most requests in one component its kernel walks
+    serially (kernels/lane_cases.py insert_components; None for the other
+    kernels)."""
+    if name != "hash_insert":
+        return None
+    from repro_torch.kernels import lane_cases
+    table, starts, _, _, mask = args
+    comps = lane_cases.insert_components(
+        starts.cpu().numpy(), mask.cpu().numpy(), L=table.shape[1], **kw)
+    return max(map(len, comps), default=0)
+
+
 def word_chain(name: str, args):
     """Live ops on the busiest word of any owner (fused_apply: in its
     atomic sub-phase), the longest chain the owner lanes keep in order
@@ -792,10 +816,11 @@ def edge_cases(device) -> None:
     at T = 1, T not a multiple of the block, all on one expert, outside
     [0, E), and the serving shapes; decode lengths 0, 1, either side of
     and at a split boundary, and W, g = 1 and 8 (d 128) and 16 (d 256),
-    float32 and bfloat16; the
-    RG-LRU scan at S = 1, S and D off its unroll and warp, h0 None;
-    attention over the cases listed below, in float32 and bfloat16; and
-    the owner-lane cases of kernels/lane_cases.py."""
+    float32 and bfloat16; the RG-LRU scan at S = 1 and 5, S short of and
+    off its ring stage, D off its warp and off 4, more column blocks than
+    SMs, h0 None; attention over the cases listed below, in float32 and
+    bfloat16; and the owner-lane and hash_insert cases of
+    kernels/lane_cases.py."""
     import torch
     from repro_torch.kernels import ops as kops, ref as kref
     rng = np.random.default_rng(3)
@@ -865,7 +890,9 @@ def edge_cases(device) -> None:
             cases.append(("flash_decode", kops.flash_decode,
                           kref.decode_attention, args, {}))
     for Bs, S, D, given_h0 in ((8, 1, 4096, True), (2, 37, 50, True),
-                               (3, 300, 96, False), (1, 1000, 33, True)):
+                               (3, 300, 96, False), (1, 1000, 33, True),
+                               (3, 5, 64, True), (1, 20, 4096, True),
+                               (5, 100, 1000, False)):
         a = t(rng.uniform(0.7, 1.0, (Bs, S, D)), torch.float32)
         b = t(rng.normal(size=(Bs, S, D)), torch.float32)
         h0 = t(rng.normal(size=(Bs, D)), torch.float32) if given_h0 else None
@@ -894,7 +921,8 @@ def edge_cases(device) -> None:
     # the owner lanes' cases of the card tests: the plain version on the
     # CPU, where its op-by-op loop is quicker
     from repro_torch.kernels import lane_cases
-    for label, name, args, kw in lane_cases.owner_lane_cases():
+    for label, name, args, kw in (lane_cases.owner_lane_cases()
+                                  + lane_cases.hash_insert_cases()):
         got = getattr(kops, name)(*(t(a, torch.from_numpy(a).dtype)
                                     for a in args), **kw)
         want = getattr(kref, name)(*map(torch.from_numpy, args), **kw)
@@ -988,7 +1016,9 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
                                max_abs_err=err, out_rms=out_rms, live=live,
                                shapes=shapes,
                                serial_chain=serial_chain(name, args),
-                               word_chain=word_chain(name, args)))
+                               word_chain=word_chain(name, args),
+                               component_chain=component_chain(name, args,
+                                                               kw)))
         lib_txt = ("" if library_ms is None
                    else f", library {library_ms:.4f} ms")
         log(f"phase {phase}: {name} == plain at {tag} on {shapes} {kw} "
@@ -999,6 +1029,10 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
             + ("" if rows[name][-1]["word_chain"] is None else
                f", longest word chain {rows[name][-1]['word_chain']} of "
                f"{rows[name][-1]['serial_chain']} live at the busiest owner")
+            + ("" if rows[name][-1]["component_chain"] is None else
+               f", longest component {rows[name][-1]['component_chain']} "
+               f"of {rows[name][-1]['serial_chain']} live at the busiest "
+               f"owner")
             + ("" if out_rms is None else f" (output RMS {out_rms:.6g})"))
         del out_k, out_p
     for name in names:
@@ -1026,11 +1060,13 @@ def kernel_row(name: str, calls: list, launches: dict) -> dict:
         bound_by=head["bound_by"], library_ms=head["library_ms"],
         library_note=NO_LIBRARY.get(name), at=head["at"],
         serial_chain=head["serial_chain"], word_chain=head["word_chain"],
+        component_chain=head["component_chain"],
         calls=[{k: r[k] for k in ("at", "live", "ms", "warm_ms", "plain_ms",
                                   "library_ms", "bound_ms", "bound_by",
                                   "read_ms",
                                   "max_abs_err", "out_rms",
-                                  "serial_chain", "word_chain")}
+                                  "serial_chain", "word_chain",
+                                  "component_chain")}
                for r in calls])
 
 
@@ -1649,10 +1685,13 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 log(f"ptxas {name}: {line.strip()}")
-    smem = _build.load("owner_lane").repro_owner_lane_smem_bytes
-    smem.restype = ctypes.c_longlong
-    log(f"owner_lane: {smem()} bytes of dynamic shared memory an apply "
-        f"block")
+    for lib, fn, what in (("owner_lane", "repro_owner_lane_smem_bytes",
+                           "an apply block"),
+                          ("hash_probe", "repro_hash_insert_smem_bytes",
+                           "a hash_insert block")):
+        smem = getattr(_build.load(lib), fn)
+        smem.restype = ctypes.c_longlong
+        log(f"{lib}: {smem()} bytes of dynamic shared memory {what}")
 
     edge_cases(device)
     log(f"phase 1: edge cases equal on all {len(KERNELS)} kernels")

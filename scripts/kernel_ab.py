@@ -1,0 +1,265 @@
+#!/usr/bin/env python3
+"""Time one of this checkout's CUDA sources against another version of it
+(for example the parent commit's), on one card, at the main path's own
+calls:
+
+    python3 scripts/kernel_ab.py owner_lane --other path/to/owner_lane.cu
+    python3 scripts/kernel_ab.py hash_insert --other path/to/hash_probe.cu
+    python3 scripts/kernel_ab.py rg_lru --other path/to/rg_lru.cu
+
+The other source must export the same C interface (for example the file
+from an earlier commit, unpacked with `git archive` into a directory that
+.gitignore lists); it stands in for this checkout's library through
+`_build.load_file` and `_launch.library`. Each mode drives chip_smoke.py's
+own path at full size and keeps the inputs of the kernel's calls there. On
+each kept call it checks that both versions give the same bits, then times
+each as chip_smoke.py's phase 3 does (median of single calls after an L2
+flush) in the order other, this, this, other. Then it drives the path whole
+with each version, alternating, and reports every drive, their median and
+how many of the paired drives each side won (the host's noise is wide):
+
+- owner_lane (B1 amo_apply, B2 fused_apply): the hash table's RDMA unfused
+  and fused arms to load 0.25 and the queue's RDMA arm; the calls are the
+  first amo_apply / fused_apply of the last insert batch and the first
+  queue push, each also with the mask cleared (what a call costs with no
+  live op: the copy, the zeroed replies and the walk over the mask); ten
+  drives of each side, median batch of each operation.
+- hash_insert (B4; the source also holds B3, which the RPC finds run): the
+  hash table's RPC arm to load 0.25; the call is the first insert of the
+  last batch, also with the mask cleared; ten drives of each side.
+- rg_lru (B8): recurrentgemma-9b at full width with seeded weights; the
+  calls are the prefill's last rg_lru_scan (1 x 32,768 x 4,096) and a
+  decode step's last one (8 x 1 x 4,096, h0 given); three prefills of each
+  side, timed on the host clock.
+
+It prints one line a measurement, the card's name and power limit, and a
+JSON line.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+LIBS = {"owner_lane": "owner_lane", "hash_insert": "hash_probe",
+        "rg_lru": "rg_lru"}
+REPS = 20
+ORDER = ("other", "this", "this", "other")
+ROUNDS = 5                                  # ten drives of each side
+PREFILL_ORDER = ("other", "this", "this", "other", "other", "this")
+
+
+def time_calls(cs, use, card: str, calls: dict, flush) -> dict:
+    """calls: label -> (tag, wrapper, args, kw, mask index or None). Both
+    versions must agree; each is timed in ORDER, also with the mask
+    cleared where there is one."""
+    import torch
+    out = {}
+    for label, (tag, fn, args, kw, mask_at) in calls.items():
+        got = {}
+        for which in ("other", "this"):
+            with use(which):
+                got[which] = fn(*args, **kw)
+        pairs = (zip(got["other"], got["this"]) if isinstance(got["this"],
+                                                              tuple)
+                 else [(got["other"], got["this"])])
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"{label}: the two versions differ")
+        runs = [("ms", args)]
+        row = dict(at=tag, shapes=[None if a is None else tuple(a.shape)
+                                   for a in args])
+        if mask_at is not None:
+            mask = args[mask_at]
+            row["live"] = int(mask.sum())
+            cleared = list(args)
+            cleared[mask_at] = torch.zeros_like(mask)
+            runs.append(("ms_no_live", cleared))
+        for what, a in runs:
+            times = {"other": [], "this": []}
+            for which in ORDER:
+                with use(which):
+                    times[which].append(cs.cuda_ms_cold(
+                        lambda: fn(*a, **kw), REPS, flush))
+            for which, ts in times.items():
+                row[f"{which}_{what}"] = statistics.median(ts)
+                row[f"{which}_{what}_runs"] = ts
+        out[label] = row
+        cleared_txt = ("" if mask_at is None else
+                       f"; with the mask cleared other "
+                       f"{row['other_ms_no_live']:.4f} ms, this "
+                       f"{row['this_ms_no_live']:.4f} ms")
+        print(f"{label} at {tag} {row['shapes']}: other "
+              f"{row['other_ms']:.4f} ms, this {row['this_ms']:.4f} ms"
+              f"{cleared_txt} ({card})", flush=True)
+    return out
+
+
+def paired(runs: dict, key: str, card: str, unit: str) -> dict:
+    """Median of each side's drives and the pairs this side won (the i-th
+    drive of each side; the drives alternate)."""
+    row = {which: statistics.median(r[key] for r in rs)
+           for which, rs in runs.items()}
+    row["runs"] = {which: [r[key] for r in rs] for which, rs in runs.items()}
+    row["this_wins"] = sum(t < o for t, o in zip(row["runs"]["this"],
+                                                 row["runs"]["other"]))
+    print(f"median {unit}, {key}: other {row['other']:.4f}, this "
+          f"{row['this']:.4f}; this won {row['this_wins']} of "
+          f"{len(row['runs']['this'])} pairs (runs {row['runs']}) ({card})",
+          flush=True)
+    return row
+
+
+def table_drive(cs, device, seed: int, arms, queue: bool):
+    """Drives of chip_smoke.py's phase-2 arms: returns drive(mark) -> median
+    ms per batch of each arm's operations."""
+    import torch
+    sync = torch.cuda.synchronize
+    x = cs.slice_inputs(seed, cs.TARGET_KEYS // (cs.P * cs.N), device)
+    k, v, qk, items = x["keys"], x["vals"], x["queries"], x["items_dev"]
+
+    def drive(mark=cs.no_mark) -> dict:
+        med = {}
+        for arm in arms:
+            r = cs.ht_arm(arm, k, v, qk, cs.NSLOTS, device, sync, mark)
+            med[f"{arm} insert"] = statistics.median(r["t_insert"]) * 1e3
+            med[f"{arm} find"] = statistics.median(r["t_find"]) * 1e3
+        if queue:
+            r = cs.q_arm("rdma", items, cs.Q_HOST, cs.Q_CAP, device, sync,
+                         mark)
+            med["queue rdma push"] = statistics.median(r["t_push"]) * 1e3
+            med["queue rdma pop"] = statistics.median(r["t_pop"][:-1]) * 1e3
+        return med
+    return drive
+
+
+def drives(drive, use, card: str) -> dict:
+    runs = {"other": [], "this": []}
+    for _ in range(ROUNDS):
+        for which in ORDER:
+            with use(which):
+                runs[which].append(drive())
+    return {key: paired(runs, key, card, "ms per batch")
+            for key in runs["this"][0]}
+
+
+def owner_lane_mode(cs, use, card, device, seed, flush) -> dict:
+    from repro_torch.kernels import amo_apply as kamo
+    drive = table_drive(cs, device, seed, ("rdma_unfused", "rdma_fused"),
+                        queue=True)
+    with cs.Capture() as capture:
+        drive(capture.mark)
+    calls = {}
+    for label, name, tag in (
+            ("amo_apply", "amo_apply", "ht rdma_unfused insert last"),
+            ("fused_apply", "fused_apply", "ht rdma_fused insert last"),
+            ("queue push amo_apply", "amo_apply", "queue rdma push")):
+        args, kw = capture.calls[(name, tag)]
+        calls[label] = (tag, getattr(kamo, name), args, kw, 2)
+    out = time_calls(cs, use, card, calls, flush)
+    for label, (_, fn, args, _, _) in calls.items():
+        out[label]["word_chain"] = cs.word_chain(fn.__name__, args)
+    return {"calls": out, "batches": drives(drive, use, card)}
+
+
+def hash_insert_mode(cs, use, card, device, seed, flush) -> dict:
+    from repro_torch.kernels import hash_probe as khp
+    drive = table_drive(cs, device, seed, ("rpc",), queue=False)
+    with cs.Capture() as capture:
+        drive(capture.mark)
+    tag = "ht rpc insert last"
+    args, kw = capture.calls[("hash_insert", tag)]
+    out = time_calls(cs, use, card, {
+        "hash_insert": (tag, khp.hash_insert, args, kw, 4)}, flush)
+    out["hash_insert"]["component_chain"] = cs.component_chain(
+        "hash_insert", args, kw)
+    out["hash_insert"]["serial_chain"] = cs.serial_chain("hash_insert", args)
+    return {"calls": out, "batches": drives(drive, use, card)}
+
+
+def rg_lru_mode(cs, use, card, device, seed, flush) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import rg_lru as krg
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    cfg = registry.get(cs.RGEMMA)
+    model = lm.init_lm(cfg, seed, device)
+    B, S = cs.PREFILL["batch"], cs.PREFILL["seq_len"]
+    tokens = torch.as_tensor(np.random.default_rng(seed + 8).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32), device=device)
+    step = steps.make_prefill_step(cfg)
+    with cs.Capture(last=True) as capture:
+        capture.mark("prefill")
+        step(model, {"tokens": tokens})
+        Bd = cs.RGEMMA_SERVE["batch"]
+        state = lm.init_decode_state(cfg, Bd, 16, device=device)
+        capture.mark("decode step")
+        lm.decode_step(model, state, torch.zeros(Bd, dtype=torch.int32,
+                                                 device=device))
+    del state
+    calls = {}
+    for tag in ("prefill", "decode step"):
+        args, kw = capture.calls[("rg_lru_scan", tag)]
+        calls[f"rg_lru_scan {tag}"] = (tag, krg.rg_lru_scan, args, kw, None)
+    del capture
+    out = time_calls(cs, use, card, calls, flush)
+    runs = {"other": [], "this": []}
+    for which in PREFILL_ORDER:
+        with use(which):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = step(model, {"tokens": tokens})
+            torch.cuda.synchronize()
+            runs[which].append({"prefill": time.perf_counter() - t0})
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill ({which}): logits not finite")
+    return {"calls": out, "batches": {
+        "prefill": paired(runs, "prefill", card,
+                          f"s per prefill of {B} x {S} tokens")}}
+
+
+MODES = {"owner_lane": owner_lane_mode, "hash_insert": hash_insert_mode,
+         "rg_lru": rg_lru_mode}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("mode", choices=sorted(MODES))
+    ap.add_argument("--other", required=True, type=Path,
+                    help="the other version of the mode's source")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    import chip_smoke as cs
+    from repro_torch.kernels import _build, _launch
+
+    card = cs.card_line()
+    print(card, flush=True)
+    lib = LIBS[args.mode]
+    other = _build.load_file(args.other)
+
+    def use(which: str):
+        """Run the block with this checkout's kernels or the other's."""
+        return (_launch.library(lib, other) if which == "other"
+                else contextlib.nullcontext())
+
+    device = torch.device("cuda", 0)
+    flush = torch.empty(cs.L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    res = MODES[args.mode](cs, use, card, device, args.seed, flush)
+    print(json.dumps({"card": card, "mode": args.mode,
+                      "other": str(args.other), **res}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,10 +2,11 @@
 
 Each `csrc/<name>.cu` exports plain C functions (no PyTorch headers), is
 compiled on first use into `build/repro_torch_kernels/<name>-<hash>.so`
-under the checkout, and is loaded with `ctypes`. The file name carries a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. `build_all()` starts one nvcc per source, all
-together, and waits for them.
+under the checkout, and is loaded with `ctypes`. Sources may include the
+headers of `csrc/` (`*.cuh`), also from a copy built elsewhere. The file
+name carries a hash of the source, the headers and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused. `build_all()`
+starts one nvcc per source, all together, and waits for them.
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{src.stem}-{digest[:12]}.so"
 
@@ -56,7 +58,7 @@ def _compile(srcs: List[Path]) -> List[Path]:
     for src, target in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(src)]
         procs.append((src, target, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

@@ -2,12 +2,13 @@
 ports of the Pallas kernels in repro/kernels/hash_probe.py:
 
 - `hash_find` (B3): independent open-addressing lookups;
-- `hash_insert` (B4): serialized insert-or-assign per owner.
+- `hash_insert` (B4): serialized insert-or-assign per owner (two launches
+  a call, a copy across the card and one block per owner; counted once).
 
 Table layout: (P, L) int32, nslots records of rec_w = 2 + vw words
 [flag | key | val...] per rank; flag low byte 0 = EMPTY, 2 = READY.
 CUDA tensors only (kernels/ops.py routes CPU tensors to kernels/ref.py);
-each wrapper counts its launches in `<wrapper>.launches`.
+each wrapper counts its calls in `<wrapper>.launches`.
 """
 from __future__ import annotations
 
@@ -62,6 +63,11 @@ def hash_insert(table: Tensor, starts: Tensor, keys: Tensor, vals: Tensor,
         check(name, x, torch.int32, (P, m), dev)
     check("vals", vals, torch.int32, (P, m, rec_w - 2), dev)
     check("mask", mask, torch.bool, (P, m), dev)
+    # the kernel sorts 32-bit window starts and ranks rows in int32
+    if not (1 <= nslots < 2 ** 31 and 2 <= rec_w <= L and m < 2 ** 31):
+        raise ValueError(f"hash_insert: needs 1 <= nslots < 2**31, 2 <= "
+                         f"rec_w <= L and m < 2**31, got nslots={nslots} "
+                         f"rec_w={rec_w} L={L} m={m}")
     ok = torch.empty((P, m), dtype=torch.bool, device=dev)
     probes = torch.empty((P, m), dtype=torch.int32, device=dev)
     out = torch.empty_like(table)

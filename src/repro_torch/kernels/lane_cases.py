@@ -1,5 +1,6 @@
-"""Edge cases of the owner-lane kernels B1 `amo_apply` and B2 `fused_apply`,
-made from a seed with numpy. The card tests (tests/test_torch_cuda.py) and
+"""Edge cases of the owner-list kernels B1 `amo_apply`, B2 `fused_apply`
+(`owner_lane_cases`) and B4 `hash_insert` (`hash_insert_cases`), made from
+a seed with numpy. The card tests (tests/test_torch_cuda.py) and
 chip_smoke.py's phase 1 hold each kernel to its plain version in
 kernels/ref.py on them, bit for bit.
 
@@ -12,6 +13,17 @@ ticket, mixed codes, a CAS chain), offsets outside [0, L) inside a hot
 word's chain, live counts below, at and past a chunk, a long list with few
 live rows, an all-masked list, fused winners whose put ranges overlap, and
 gathers of words that the puts and publish flips wrote.
+
+B4's design (csrc/hash_probe.cu) groups each chunk of live requests into
+components, chains of requests whose probe windows meet on the ring, and
+walks each component in list order (`insert_components` mirrors the
+grouping on the host). Its cases aim at that: every request on one start
+(one long component), windows that wrap past slot nslots - 1 into those
+at slot 0, components exactly W and W - 1 slots apart, duplicate keys
+inside a component, full windows, starts outside [0, nslots), max_probes
+past nslots, shards longer than the records and shorter (clamped slices
+share words: one component a chunk), a routed batch with 1.6% live, live
+counts past a chunk, and an all-masked list.
 """
 from __future__ import annotations
 
@@ -187,4 +199,206 @@ def owner_lane_cases(seed: int = 0) -> List[Case]:
                       rng.integers(1, 8, (P, m)),
                       rng.integers(100, 999, (P, m, 3))), mask),
                   {"reply_width": 4}))
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# B4 hash_insert
+# ---------------------------------------------------------------------------
+EMPTY, CLAIMED, READY = 0, 1, 2
+
+
+def insert_components(starts: np.ndarray, mask: np.ndarray, *, nslots: int,
+                      rec_w: int, L: int, max_probes: int,
+                      chunk: int = CHUNK) -> List[np.ndarray]:
+    """The components csrc/hash_probe.cu's insert walks, owner by owner and
+    chunk by chunk of the live list: each an array of rows in list order.
+    A request's window is [s0, s0 + W) on the ring, s0 = start mod nslots,
+    W = min(max_probes, nslots); sorted by s0, a component begins at a gap
+    >= W, and the last joins the first where their windows meet past slot
+    nslots - 1. Where records alias (nslots * rec_w > L) a chunk is one
+    component."""
+    W = max(0, min(max_probes, nslots))
+    comps: List[np.ndarray] = []
+    for p in range(mask.shape[0]):
+        live = np.flatnonzero(mask[p])
+        for c0 in range(0, len(live), chunk):
+            rows = live[c0:c0 + chunk]
+            if nslots * rec_w > L:
+                comps.append(rows)
+                continue
+            s0 = np.mod(starts[p, rows].astype(np.int64), nslots)
+            order = np.argsort(s0, kind="stable")
+            gap = np.diff(s0[order])
+            comp = np.empty(len(rows), np.int64)
+            comp[order] = np.cumsum(np.concatenate([[True], gap >= W])) - 1
+            last = comp.max()
+            if last > 0 and s0.min() + nslots - s0.max() < W:
+                comp[comp == last] = 0
+            comps += [rows[comp == c] for c in np.unique(comp)]
+    return comps
+
+
+def _table(rng, P: int, nslots: int, rec_w: int, L: int, fill: float,
+           key_span: int) -> np.ndarray:
+    """(P, L) int32: a share `fill` of the nslots records taken (READY
+    mostly, some CLAIMED; high flag bytes set on some), keys below
+    key_span, words past nslots * rec_w random."""
+    flat = rng.integers(-9, 99, (P, L)).astype(np.int64)
+    n = min(nslots, L // rec_w)
+    rec = np.zeros((P, n, rec_w), np.int64)
+    taken = rng.random((P, n)) < fill
+    state = np.where(taken, rng.choice([READY, READY, READY, CLAIMED],
+                                       (P, n)), EMPTY)
+    rec[..., 0] = state + 256 * rng.integers(0, 3, (P, n)) * taken
+    rec[..., 1] = rng.integers(0, key_span, (P, n))
+    rec[..., 2:] = rng.integers(-99, 99, (P, n, rec_w - 2))
+    flat[:, :n * rec_w] = rec.reshape(P, -1)
+    return flat.astype(np.int32)
+
+
+InsertCase = Tuple[str, str, Tuple[np.ndarray, ...], dict]
+
+
+def hash_insert_cases(seed: int = 0) -> List[InsertCase]:
+    """[(label, "hash_insert", (table, starts, keys, vals, mask), keyword
+    args)], numpy."""
+    rng = np.random.default_rng(seed + 1)
+    cases: List[InsertCase] = []
+
+    def add(label, table, starts, keys, vals, mask, nslots, rec_w,
+            max_probes=8):
+        cases.append((label, "hash_insert", (
+            table, np.asarray(starts).astype(np.int32),
+            np.asarray(keys).astype(np.int32),
+            np.asarray(vals).astype(np.int32), np.asarray(mask, bool)),
+            {"nslots": nslots, "rec_w": rec_w, "max_probes": max_probes}))
+
+    # every live request on one start: one component as long as the list,
+    # keys from a small set (assignments) and the window filling up
+    P, nslots, rec_w, m = 2, 64, 3, 600
+    table = _table(rng, P, nslots, rec_w, nslots * rec_w, 0.2, 40)
+    mask = _mask(rng, m, [m, 300])
+    add("one start: 600 requests", table, np.full((P, m), 10),
+        rng.integers(0, 40, (P, m)), rng.integers(0, 99, (P, m, 1)), mask,
+        nslots, rec_w)
+
+    # windows past slot nslots - 1: on each owner the last slots are taken,
+    # requests there wrap onto slots 0.. and come first in the list; later
+    # requests start at 0 and 1 and must see them (first and last
+    # components merge); the rest land elsewhere
+    P, nslots, rec_w, m = 8, 256, 3, 40
+    table = _table(rng, P, nslots, rec_w, nslots * rec_w, 0.0, 1)
+    rec = table.reshape(P, nslots, rec_w)
+    rec[:, nslots - 3:, 0] = READY
+    rec[:, nslots - 3:, 1] = 1000 + np.arange(3)
+    wrap = [nslots - 3, nslots - 2, 0, 1, nslots - 1, 0, nslots - 5, 2]
+    starts = np.concatenate([np.tile(wrap, (P, 1)),
+                             rng.integers(20, 200, (P, m - len(wrap)))], 1)
+    keys = np.stack([rng.permutation(500)[:m] for _ in range(P)])
+    add("ring wrap: last and first components merge", table, starts, keys,
+        rng.integers(0, 99, (P, m, 1)), np.ones((P, m), bool), nslots,
+        rec_w)
+
+    # components exactly W apart (windows touch, do not meet) and W - 1
+    # apart (they share one slot): slots z..z+6 taken, so the first request
+    # at z reaches z + 7 on its last probe, where a later request at z + 7
+    # starts
+    P, nslots, rec_w, m, z = 8, 512, 4, 24, 100
+    table = _table(rng, P, nslots, rec_w, nslots * rec_w, 0.0, 1)
+    rec = table.reshape(P, nslots, rec_w)
+    rec[:, z:z + 7, 0] = READY
+    rec[:, z:z + 7, 1] = 5000 + np.arange(7)
+    rec[:, 300:308, 0] = READY
+    rec[:, 300:308, 1] = 6000 + np.arange(8)
+    pattern = [z, z + 7, z, z + 7, 300, 308, 300, 308]
+    starts = np.concatenate([np.tile(pattern, (P, 1)),
+                             rng.integers(400, 500, (P, m - len(pattern)))],
+                            1)
+    keys = np.stack([rng.permutation(1000)[:m] for _ in range(P)])
+    add("components W - 1 and W apart", table, starts, keys,
+        rng.integers(0, 99, (P, m, 2)), np.ones((P, m), bool), nslots,
+        rec_w)
+
+    # duplicate keys inside one component (the last writer's value wins),
+    # keys already in the table (assigned), and full windows: a run of 12
+    # taken slots where requests probe max_probes slots and fail
+    P, nslots, rec_w, m = 3, 128, 3, 200
+    table = _table(rng, P, nslots, rec_w, nslots * rec_w, 0.3, 16)
+    rec = table.reshape(P, nslots, rec_w)
+    rec[:, 60:72, 0] = READY + 512
+    rec[:, 60:72, 1] = 900 + np.arange(12)
+    starts = np.where(rng.random((P, m)) < 0.5, rng.integers(60, 64, (P, m)),
+                      rng.integers(0, 12, (P, m)))
+    keys = np.where(rng.random((P, m)) < 0.3, rng.integers(900, 912, (P, m)),
+                    rng.integers(0, 16, (P, m)))
+    add("duplicate keys in a component, full windows", table, starts, keys,
+        rng.integers(0, 99, (P, m, 1)), _mask(rng, m, [m, m - 40, 150]),
+        nslots, rec_w)
+
+    # starts outside [0, nslots): negative, past the end, int32 extremes
+    P, nslots, rec_w, m = 4, 64, 3, 300
+    table = _table(rng, P, nslots, rec_w, nslots * rec_w, 0.3, 30)
+    starts = rng.choice([-1, -nslots, -nslots - 3, nslots, nslots + 1,
+                         3 * nslots + 5, -2 ** 31, 2 ** 31 - 1, 7, 30],
+                        (P, m)) + rng.integers(0, 3, (P, m))
+    starts = np.clip(starts, -2 ** 31, 2 ** 31 - 1)
+    add("starts outside [0, nslots)", table, starts,
+        rng.integers(0, 30, (P, m)), rng.integers(0, 99, (P, m, 1)),
+        _mask(rng, m, [m, 200, 100, 1]), nslots, rec_w)
+
+    # max_probes past nslots: every window is the whole ring (one
+    # component), and a full ring is probed round more than once
+    P, nslots, rec_w, m = 3, 8, 3, 40
+    table = _table(rng, P, nslots, rec_w, nslots * rec_w, 0.5, 12)
+    add("max_probes >= nslots", table, rng.integers(-20, 20, (P, m)),
+        rng.integers(0, 12, (P, m)), rng.integers(0, 99, (P, m, 1)),
+        _mask(rng, m, [m, 30, 5]), nslots, rec_w, max_probes=12)
+
+    # shard longer than its records: the words past nslots * rec_w stay
+    P, nslots, rec_w, m = 3, 96, 4, 256
+    L = nslots * rec_w + 37
+    add("L > nslots * rec_w", _table(rng, P, nslots, rec_w, L, 0.3, 20),
+        rng.integers(0, 2 * nslots, (P, m)), rng.integers(0, 20, (P, m)),
+        rng.integers(0, 99, (P, m, 2)), _mask(rng, m, [200] * 3), nslots,
+        rec_w)
+
+    # shard shorter than its records: slots past (L - rec_w) / rec_w read
+    # and write the clamped tail, so records share words
+    P, nslots, rec_w, m = 3, 96, 3, 256
+    L = 200
+    add("L < nslots * rec_w (clamped)",
+        _table(rng, P, nslots, rec_w, L, 0.3, 20),
+        rng.integers(40, nslots, (P, m)), rng.integers(0, 20, (P, m)),
+        rng.integers(0, 99, (P, m, 1)), _mask(rng, m, [200] * 3), nslots,
+        rec_w)
+
+    # a routed batch at slice shape with 1.6% live: 2**14 slots at load
+    # 0.25, val_words 1, half the keys already present
+    P, nslots, rec_w, m = 4, 2 ** 14, 3, 65536
+    table = _table(rng, P, nslots, rec_w, nslots * rec_w, 0.25, 2 ** 20)
+    mask = _mask(rng, m, [1049, 1100, 980, 1024])
+    present = table.reshape(P, nslots, rec_w)[..., 1]
+    keys = np.where(rng.random((P, m)) < 0.5,
+                    present[np.arange(P)[:, None],
+                            rng.integers(0, nslots, (P, m))],
+                    rng.integers(2 ** 20, 2 ** 30, (P, m)))
+    add("m = 65536, 1.6% live", table, rng.integers(0, nslots, (P, m)),
+        keys, rng.integers(0, 2 ** 31 - 1, (P, m, 1)), mask, nslots, rec_w)
+
+    # live counts below, at and past one chunk, and past two; keys repeat
+    # across chunks, so a later chunk assigns what an earlier one inserted
+    live = [CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 1]
+    P, nslots, rec_w, m = 4, 16384, 3, 9000
+    table = _table(rng, P, nslots, rec_w, nslots * rec_w, 0.1, 3000)
+    add("live counts at the chunk", table, rng.integers(0, nslots, (P, m)),
+        rng.integers(0, 3000, (P, m)), rng.integers(0, 99, (P, m, 1)),
+        _mask(rng, m, live), nslots, rec_w)
+
+    # nothing live
+    P, nslots, rec_w, m = 3, 64, 3, CHUNK
+    table = _table(rng, P, nslots, rec_w, nslots * rec_w, 0.4, 20)
+    add("all rows masked", table, rng.integers(0, nslots, (P, m)),
+        rng.integers(0, 20, (P, m)), rng.integers(0, 99, (P, m, 1)),
+        np.zeros((P, m), bool), nslots, rec_w)
     return cases

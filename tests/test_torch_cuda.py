@@ -202,13 +202,19 @@ def test_reduced_model_decode_on_cuda_equals_cpu(cuda_device):
         same(lg.argmax(-1), lc.argmax(-1))
 
 
-@pytest.mark.parametrize("B,S,D,given_h0", [(8, 1, 4096, True),
-                                            (2, 37, 50, True),
-                                            (3, 300, 200, False)])
+RG_LRU_CASES = [(8, 1, 4096, True), (2, 37, 50, True), (3, 300, 200, False),
+                (1, 20, 4096, True), (2, 1000, 96, False),
+                (5, 100, 1000, True), (1, 77, 33, False), (3, 5, 64, True)]
+
+
+@pytest.mark.parametrize("B,S,D,given_h0", RG_LRU_CASES)
 def test_rg_lru_kernel_matches_plain_version(cuda_device, B, S, D,
                                              given_h0):
-    """Bit for bit: S = 1 (decode), S not a multiple of the unroll, D not
-    a multiple of 32, h0 given or None."""
+    """Bit for bit: S = 1 (decode) and S = 5 (the column kernel); S
+    shorter than one ring stage of 32 steps (20), S not a multiple of it
+    (37, 77, 100, 300, 1000); D not a multiple of 32 (50, 33: also not of
+    4, so 4-byte copies; 200, 1000); B * D / 32 above 132 SMs (5 x 32
+    blocks); h0 given or None."""
     rng = np.random.default_rng(S + D)
     a, b, h0 = _on(cuda_device, rng.uniform(0.7, 1.0, (B, S, D)),
                    rng.normal(size=(B, S, D)), rng.normal(size=(B, D)))
@@ -423,3 +429,113 @@ def test_owner_lane_cases_reject_planted_faults(cuda_device, fault,
     print(f"{fault}: differs on " + "; ".join(
         f"{LANE_CASES[i][1]}: {LANE_CASES[i][0]}" for i in bad))
     assert label in {LANE_CASES[i][0] for i in bad}
+
+
+# planted fault of csrc/rg_lru.cu: each stage is walked from the ring slot
+# of the stage before it, a stage consumed one step late
+RG_LRU_FAULT = (
+    "  return static_cast<int>(st % kStages);\n",
+    "  return static_cast<int>((st + kStages - 1) % kStages);\n")
+
+
+def test_rg_lru_cases_reject_planted_fault(cuda_device, tmp_path):
+    """With the fault built in, the ring kernel must differ from the plain
+    version on the cases it takes (S >= 8)."""
+    def differing():
+        bad = []
+        for B, S, D, given_h0 in RG_LRU_CASES:
+            rng = np.random.default_rng(S + D)
+            a, b, h0 = _on(cuda_device, rng.uniform(0.7, 1.0, (B, S, D)),
+                           rng.normal(size=(B, S, D)),
+                           rng.normal(size=(B, D)))
+            a, b = a.float(), b.float()
+            h0 = h0.float() if given_h0 else None
+            if not torch.equal(kops.rg_lru_scan(a, b, h0),
+                               kref.rg_lru_scan(a, b, h0)):
+                bad.append((B, S, D, given_h0))
+        return bad
+    bad = _with_planted_fault("rg_lru", *RG_LRU_FAULT, tmp_path, differing)
+    print(f"stage consumed one step late: differs on {bad}")
+    assert set(bad) == {c for c in RG_LRU_CASES if c[1] >= 8}
+
+
+# ---------------------------------------------------------------------------
+# The RPC insert (csrc/hash_probe.cu) on kernels/lane_cases.py's B4 cases,
+# bit for bit, and three faults planted in its grouping
+# ---------------------------------------------------------------------------
+INSERT_CASES = lane_cases.hash_insert_cases()
+_INSERT_WANT = {}
+
+
+def _insert_want(i):
+    """The plain version's output on B4 case i, on the CPU (kept)."""
+    if i not in _INSERT_WANT:
+        _, _, args, kw = INSERT_CASES[i]
+        _INSERT_WANT[i] = kref.hash_insert(*_on("cpu", *args), **kw)
+    return _INSERT_WANT[i]
+
+
+def _insert_got(i, dev):
+    _, _, args, kw = INSERT_CASES[i]
+    return [x.cpu() for x in kops.hash_insert(*_on(dev, *args), **kw)]
+
+
+@pytest.mark.parametrize("i", range(len(INSERT_CASES)), ids=[
+    label for label, _, _, _ in INSERT_CASES])
+def test_hash_insert_kernel_on_edge_case(cuda_device, i):
+    for x, y in zip(_insert_got(i, cuda_device), _insert_want(i)):
+        same(x, y)
+
+
+def test_hash_insert_counts_one_launch_a_call(cuda_device):
+    """A wrapper call launches a copy and an insert and counts one."""
+    from repro_torch.kernels import hash_probe as khp
+    _, _, args, kw = INSERT_CASES[0]
+    before = khp.hash_insert.launches
+    kops.hash_insert(*_on(cuda_device, *args), **kw)
+    assert khp.hash_insert.launches == before + 1
+
+
+# planted faults of csrc/hash_probe.cu's insert: (its text, the faulty
+# text, the edge case aimed at it)
+INSERT_FAULTS = {
+    "component walked in reverse list order": (
+        "      for (int e = q; e < end; ++e) {   // list order within the "
+        "component\n",
+        "      for (int e = end - 1; e >= q; --e) {\n",
+        "one start: 600 requests"),
+    "ring-wrap merge dropped": (
+        "  const bool wrap = ncomp > 1 &&",
+        "  const bool wrap = false &&",
+        "ring wrap: last and first components merge"),
+    "component boundary at gap >= W - 1": (
+        "s.sorted[q - 1] >= W);",
+        "s.sorted[q - 1] >= W - 1);",
+        "components W - 1 and W apart"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(INSERT_FAULTS))
+def test_hash_insert_cases_reject_planted_faults(cuda_device, fault,
+                                                 tmp_path):
+    """With the fault built in, the kernel must differ from its plain
+    version on the edge case aimed at it (every case runs; the ones that
+    differ are printed). The last two faults split a component, so its
+    parts are walked at once by two threads and race: the aimed case runs
+    up to five times."""
+    old, new, label = INSERT_FAULTS[fault]
+    aimed = next(i for i, c in enumerate(INSERT_CASES) if c[0] == label)
+
+    def differs(i):
+        return not all(torch.equal(x, y) for x, y in
+                       zip(_insert_got(i, cuda_device), _insert_want(i)))
+
+    def differing():
+        bad = [i for i in range(len(INSERT_CASES)) if differs(i)]
+        if aimed not in bad and any(differs(aimed) for _ in range(4)):
+            bad.append(aimed)
+        return bad
+    bad = _with_planted_fault("hash_probe", old, new, tmp_path, differing)
+    print(f"{fault}: differs on " + "; ".join(INSERT_CASES[i][0]
+                                              for i in bad))
+    assert aimed in bad

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro_torch.kernels import lane_cases
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from torch_parity import (amo_inputs, probe_table, same,  # noqa: F401
@@ -131,6 +132,75 @@ def test_hash_insert_matches_jax_ref(P, nslots, vw, m, fill):
     same(ok_t, ok_j, "ok")
     same(pr_t, pr_j, "probes")
     same(t_t, t_j, "table'")
+
+
+INSERT_CASES = lane_cases.hash_insert_cases()
+
+
+@pytest.mark.parametrize("i", range(len(INSERT_CASES)), ids=[
+    label for label, _, _, _ in INSERT_CASES])
+def test_hash_insert_case_matches_jax_ref(i):
+    """The B4 edge cases of kernels/lane_cases.py (the inputs the card
+    tests and chip_smoke.py hold the CUDA kernel to): the port's plain
+    version against the JAX oracle, bit for bit."""
+    _, _, args, kw = INSERT_CASES[i]
+    want = jv(lambda t, s, k, v, mm: jref.hash_insert(
+        t, s, k, v, mm, kw["nslots"], kw["rec_w"], kw["max_probes"]))(
+            *map(jnp.asarray, args))
+    got = tref.hash_insert(*map(tt, args), **kw)
+    for name, x, y in zip(("ok", "probes", "table'"), got, want):
+        same(x, y, name)
+
+
+def _components(label):
+    """insert_components of the case `label`, with its starts mod nslots."""
+    _, _, (table, starts, _, _, mask), kw = next(
+        c for c in INSERT_CASES if c[0] == label)
+    comps = lane_cases.insert_components(starts, mask, L=table.shape[1],
+                                         **kw)
+    return comps, np.mod(starts.astype(np.int64), kw["nslots"]), kw
+
+
+def test_hash_insert_cases_reach_their_components():
+    """Each B4 case has the component structure it aims at (as
+    insert_components, the host mirror of the kernel's grouping, finds
+    it)."""
+    comps, _, _ = _components("one start: 600 requests")
+    assert max(map(len, comps)) == 600
+    comps, s0, kw = _components("ring wrap: last and first components "
+                                "merge")
+    W, n = kw["max_probes"], kw["nslots"]
+    # rows of one owner: the first eight rows wrap around slot n - 1
+    merged = [c for c in comps if len(c) >= 8 and set(c) >= set(range(8))]
+    assert len(merged) == 8
+    for c in merged:
+        assert (s0[0, c] >= n - W).any() and (s0[0, c] < W).any()
+    comps, _, _ = _components("components W - 1 and W apart")
+    for c in comps:
+        c = set(c.tolist())
+        assert ({0, 1} <= c) == (0 in c)      # W - 1 apart: one component
+        assert not ({4, 5} <= c)              # W apart: two
+    comps, _, _ = _components("L < nslots * rec_w (clamped)")
+    assert sorted(map(len, comps)) == [200, 200, 200]
+    comps, _, _ = _components("max_probes >= nslots")
+    assert sorted(map(len, comps)) == [5, 30, 40]
+    comps, _, _ = _components("live counts at the chunk")
+    assert sum(map(len, comps)) == 4095 + 4096 + 4097 + 8193
+    assert max(map(len, comps)) < lane_cases.CHUNK
+
+
+def test_insert_components_small():
+    """insert_components on a hand-made list: starts 14, 1, 9, 4, 15 on
+    16 slots with W = 3: {14, 15, 1} wrap into one, {4} (exactly W past
+    1), {9}; with a shard one word short, one component."""
+    starts = np.array([[14, 1, 9, 4, 15 + 16]])
+    mask = np.ones((1, 5), bool)
+    comps = lane_cases.insert_components(starts, mask, nslots=16, rec_w=3,
+                                         L=48, max_probes=3)
+    assert sorted(c.tolist() for c in comps) == [[0, 1, 4], [2], [3]]
+    comps = lane_cases.insert_components(starts, mask, nslots=16, rec_w=3,
+                                         L=47, max_probes=3)
+    assert [c.tolist() for c in comps] == [[0, 1, 2, 3, 4]]
 
 
 def _run_lists(rng, P, m, span, codes):
