@@ -38,6 +38,17 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    shards longer and shorter (clamped) than their records, m = 65,536
    with 1.6% live, live counts past the chunk, all rows masked: the
    kernel on the card against its plain version on the CPU, bit for bit.
+   Then, kernel and plain version both on the card, bit for bit, the
+   moe_dispatch cases of kernels/lane_cases.py (196,608 ids over 64
+   experts, every id on one expert across ten tiles, ids outside [0, E)
+   at warp and tile edges beside in-range ids of the column they wrap
+   onto, T = 0, 1, 48 and either side of its 2,048-id tile, E = 1, 128,
+   2,048 with tiles of two rounds, and E past its shared-memory cut-off)
+   and its hash_find cases (m not a multiple of 16 with vw 1, 2 and 3, no
+   live slot, every slot live, live slots only at index 15 of a 16-slot
+   group and at a row's last index, a full table without EMPTY, windows
+   wrapping past slot nslots - 1, starts outside [0, nslots), and a
+   routed batch at slice shape).
 2. The data structures at full size: a distributed hash table of 64 ranks
    x 2**18 slots (val_words 1; a 201 MB window) filled to load 0.25 with
    4,194,304 keys in batches of 1024 keys per rank, then 16 find batches
@@ -76,6 +87,19 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    bit for bit, flash_decode within the tolerance), timed as in phase 3. The
    last PROFILE_STEPS steps are traced with torch.profiler for the device
    time per step by kernel and the device's idle share.
+5b. The prefill step (repro_torch.launch.steps.make_prefill_step) of the
+   same deepseek-moe-16b (phase 5's caches freed first) on 1 x 32,768
+   tokens: the prefill_32k shape with its batch cut from 32 to 1
+   (printed). Three prefills as in phase 8: the first keeps the inputs of
+   the last call of each kernel (the last layer's moe_dispatch of 196,608
+   ids, and its last query chunk of 4,096 rows over 32,768 keys, full
+   causal attention with 16 heads of 128), held against the plain
+   versions (moe_dispatch bit for bit, flash_attention within mha_tol,
+   whose limit must also reject the plain version with the causal
+   frontier one key short at that call) and timed as in phase 3; the
+   second is timed, with peak memory; the third is traced. In each,
+   moe_dispatch must launch 28 times and flash_attention 224 (28 layers x
+   8 query chunks), nothing else, and the logits must be finite.
 6. CPU against GPU for the model: reduced deepseek-moe-16b in float32,
    the same seeded weights built once and moved, 8 teacher-forced decode
    steps; logits within the stated tolerance, greedy tokens printed.
@@ -99,7 +123,9 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    In each, flash_attention must launch 96 times (12 layers x 8 query
    chunks) and rg_lru_scan 26 times, and the logits must be finite.
    Printed, not gated: the last-position logits of a prefill of phase 7's
-   8 x 256 prompts against a decode of the same prompts.
+   8 x 256 prompts against a decode of the same prompts. The plain
+   attention evaluates slices of query heads whose f32 scores stay within
+   MHA_SCORE_BYTES (heads are independent).
 9. CPU against GPU for reduced recurrentgemma-9b in float32 (window 32),
    weights built once and moved, TF32 off: logits of the train-mode
    forward at every position of 48 tokens, and 48 teacher-forced decode
@@ -113,7 +139,7 @@ Phases, in order; any mismatch raises and the script exits non-zero:
 
 Before the last line it prints the card's name and power limit, the
 median time per batch of each data-structure arm and per decode step, the
-prefill's time, one JSON line with the report, and one JSON line with
+prefills' times, one JSON line with the report, and one JSON line with
 every kernel's launches, error, times and bound. The last line is
 {"ok": true, "device": {...}}. It needs one card and exits non-zero where
 torch sees none.
@@ -152,13 +178,15 @@ DECODE_TOL = dict(o_rtol=1e-4, o_atol=1e-5, m_atol=1e-5, l_rtol=1e-4)
 LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
 # phases 7-9: recurrentgemma-9b served as in phase 5, its prefill step at
 # the prefill_32k shape (configs/base.std_shapes) with the batch cut from
-# 32 to 1: eager PyTorch holds 3 MLP intermediates of 25.8 GB each at
-# batch 32 beside 17.9 GB of weights; and the reduced model at phase 9
+# 32 to 1 (as deepseek-moe-16b's in phase 5b): eager PyTorch holds 3 MLP
+# intermediates of 25.8 GB each at batch 32 beside 17.9 GB of weights; and
+# the reduced model at phase 9
 RGEMMA = "recurrentgemma-9b"
 RGEMMA_SERVE = dict(arch=RGEMMA, batch=8, prompt_len=256, gen_len=64)
-PREFILL = dict(arch=RGEMMA, batch=1, seq_len=32768, shape="prefill_32k",
-               shape_batch=32)
+PREFILL = dict(batch=1, seq_len=32768, shape="prefill_32k", shape_batch=32)
 RGEMMA_STEPS = 48
+# f32 scores the plain attention evaluates at once (a slice of heads)
+MHA_SCORE_BYTES = 2 ** 31
 SPLIT_LEN = 2304        # > 2 x 1024: chunked_flash's causal-skip split
 # phase 9: the port's decode against its own forward (f32, 38 layers)
 DECODE_VS_PREFILL_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -442,14 +470,14 @@ KERNELS = {
     "rg_lru_scan": ("src/repro_torch/kernels/csrc/rg_lru.cu",
                     "src/repro/kernels/rg_lru.py:53"),
 }
-# the kernels each main path runs (phase 2, phase 5, phase 7, phase 8)
+# the kernels each main path runs (phase 2, phase 5, phase 7; a prefill's
+# come from expected_prefill_launches)
 DS_KERNELS = ("amo_apply", "fused_apply", "hash_find", "hash_insert")
 MODEL_KERNELS = ("flash_decode", "moe_dispatch")
 RGEMMA_DECODE_KERNELS = ("rg_lru_scan",)
-PREFILL_KERNELS = ("flash_attention", "rg_lru_scan")
 # the model kernels: their plain versions are timed as the kernels are
 # (cold, 10 calls); the data structures' serial walks once
-FLOAT_KERNELS = MODEL_KERNELS + PREFILL_KERNELS
+FLOAT_KERNELS = MODEL_KERNELS + ("flash_attention", "rg_lru_scan")
 # why a kernel's row has no library time
 NO_LIBRARY = {
     "amo_apply": "no single PyTorch call",
@@ -478,8 +506,31 @@ def plain_versions():
     return {name: getattr(kref, name) for name in DS_KERNELS} | {
         "flash_decode": kref.decode_attention,
         "moe_dispatch": kref.moe_dispatch,
-        "flash_attention": kref.mha,
+        "flash_attention": plain_mha,
         "rg_lru_scan": kref.rg_lru_scan}
+
+
+def plain_mha(q, k, v, **kw):
+    """kernels/ref.py mha, over slices of query heads whose f32 scores
+    stay within MHA_SCORE_BYTES, concatenated (heads are independent; a
+    slice holds whole groups of query heads sharing a kv head, or a
+    divisor of one group)."""
+    import torch
+    from repro_torch.kernels import ref as kref
+    B, H, S, _ = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    per = max(1, MHA_SCORE_BYTES // (4 * B * S * max(Skv, 1)))
+    if per >= H:
+        return kref.mha(q, k, v, **kw)
+    per = (g * (per // g) if per >= g else
+           max(d for d in range(1, per + 1) if g % d == 0))
+    outs = []
+    for h0 in range(0, H, per):
+        kv0, kv1 = h0 // g, (h0 + per - 1) // g + 1
+        outs.append(kref.mha(q[:, h0:h0 + per], k[:, kv0:kv1],
+                             v[:, kv0:kv1], **kw))
+    return torch.cat(outs, 1)
 
 
 def launch_counter():
@@ -797,8 +848,9 @@ def library_call(name: str, args, kw):
             mask &= kpos <= qpos
         if kw.get("window", 0) > 0:
             mask &= kpos > qpos - kw["window"]
+        gqa = q.shape[1] != k.shape[1]      # else any backend may take it
         return lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True)
+            q, k, v, attn_mask=mask, enable_gqa=gqa)
     if name != "flash_decode":
         return None
     q, k, v, length = args
@@ -927,6 +979,12 @@ def edge_cases(device) -> None:
                                     for a in args), **kw)
         want = getattr(kref, name)(*map(torch.from_numpy, args), **kw)
         kernel_err(name, [g.cpu() for g in got], want, label)
+    # the expert dispatch's and the find's cases: both on the card
+    for label, name, args, kw in (lane_cases.moe_dispatch_cases()
+                                  + lane_cases.hash_find_cases()):
+        xs = [t(a, torch.from_numpy(a).dtype) for a in args]
+        kernel_err(name, getattr(kops, name)(*xs, **kw),
+                   getattr(kref, name)(*xs, **kw), label)
 
 
 # The call whose numbers stand in a kernel's row of the kernels line: its
@@ -1330,51 +1388,93 @@ def phase_serve(serve_cfg: dict, seed: int, device, phase: int,
 
 
 def expected_prefill_launches(cfg, S: int) -> dict:
-    """flash_attention: one call per attention layer, or min(8, S // 1024)
-    query chunks each past 2 x 1024 tokens (chunked_flash's causal-skip
-    split); rg_lru_scan: one call per RG-LRU layer."""
+    """The kernels a forward over S tokens launches, each at least once:
+    flash_attention once per attention layer, or min(8, S // 1024) query
+    chunks each past 2 x 1024 tokens (chunked_flash's causal-skip split);
+    rg_lru_scan once per RG-LRU layer; moe_dispatch once per MoE layer."""
     kinds = [k for ks in cfg.layer_pattern() for k in ks] * cfg.n_groups
     chunks = min(8, S // 1024) if S > 2 * 1024 else 1
-    return {"flash_attention": chunks * sum(k in ("attn", "lattn")
+    want = {"flash_attention": chunks * sum(k in ("attn", "lattn")
                                             for k in kinds),
-            "rg_lru_scan": kinds.count("rglru")}
+            "rg_lru_scan": kinds.count("rglru"),
+            "moe_dispatch": kinds.count("moe")}
+    return {name: n for name, n in want.items() if n}
 
 
-def window_fault_rejected(args, kw) -> dict:
+def edge_fault_rejected(args, kw, phase: str) -> dict:
     """The limit flash_attention is held to must reject a kernel whose
-    window edge is one key off: here the plain version with the window one
-    key short (each row loses its oldest key) against the plain version,
-    on the kept inputs. Returns that output's max abs error and the
-    limit."""
+    mask edge is one key off: here the plain version with the window one
+    key short (each row loses its oldest key) or, without a window, the
+    causal frontier one key short (each row loses its newest key: the
+    last key dropped, so the end alignment moves one back) against the
+    plain version, on the kept inputs. Returns that output's max abs
+    error, the limit and which edge moved."""
     import torch
     from repro_torch.kernels import ref as kref
-    want = kref.mha(*args, **kw)
-    short = kref.mha(*args, **{**kw, "window": kw["window"] - 1})
+    q, k, v = args
+    want = plain_mha(q, k, v, **kw)
+    if kw.get("window", 0) > 0:
+        edge = "window"
+        short = plain_mha(q, k, v, **{**kw, "window": kw["window"] - 1})
+    else:
+        edge = "causal frontier"
+        short = plain_mha(q, k[:, :, :-1], v[:, :, :-1], **kw)
     tol = kref.mha_tol(want)
     try:
         torch.testing.assert_close(short, want, **tol)
     except AssertionError:
         return dict(max_abs_err=float((short.float() - want.float()).abs()
-                                      .max()), **tol)
-    raise AssertionError(f"phase 8: the flash_attention limit {tol} "
-                         f"accepts the window one key short")
+                                      .max()), edge=edge, **tol)
+    raise AssertionError(f"phase {phase}: the flash_attention limit {tol} "
+                         f"accepts the {edge} one key short")
 
 
-def phase_prefill(model, seed: int, device, prompts: np.ndarray):
-    """make_prefill_step on PREFILL["batch"] x PREFILL["seq_len"] tokens,
-    three times: under a Capture keeping the last call of each kernel (held
-    against the plain versions and timed right after; the limit of
-    flash_attention must reject its window one key short there), timed
-    (with peak memory), traced. Each run zeroes the counts before and
-    reads them after: every kernel must launch as expected_prefill_launches
-    says. Then, not gated, the last-position logits of a prefill of phase
-    7's prompts against a decode of the same prompts over phase 7's cache
-    length. Returns (report, kernel rows)."""
+def prefill_flops(model, B: int, S: int) -> tuple:
+    """(matrix-product flops, attention flops) a prefill must do: 2 per
+    weight and token in the products (each token through its top_k
+    experts; the embedding read as rows; the logits of the last position
+    only) and 4 d per live (q, k) pair and head in each attention layer
+    (full causal, or over its window for local attention)."""
+    import torch
+    cfg = model.cfg
+    n_mat = sum(p.numel() for name, p in model.named_parameters()
+                if p.dim() == 2 and name != "embed")
+    n_expert = sum(p[0].numel() for p in model.parameters() if p.dim() == 3)
+    mat = (2 * (n_mat + cfg.top_k * n_expert) * B * S
+           + 2 * cfg.d_model * cfg.vocab_padded * B)
+    q = torch.empty((B, cfg.n_heads, S, cfg.hd), device="meta")
+    k = torch.empty((B, cfg.n_kv_heads, S, cfg.hd), device="meta")
+    attn = 0
+    kinds = [kd for ks in cfg.layer_pattern() for kd in ks] * cfg.n_groups
+    for kind in kinds:
+        if kind in ("attn", "lattn"):
+            window = cfg.local_window if kind == "lattn" else 0
+            attn += 4 * cfg.hd * live_pairs((q, k), dict(causal=True,
+                                                          window=window))
+    return mat, attn
+
+
+def phase_prefill(model, seed: int, device, phase: str, tag: str,
+                  prompts=None, gen_len: int = 0):
+    """make_prefill_step on PREFILL["batch"] x PREFILL["seq_len"] tokens
+    (the cut printed), three times: under a Capture keeping the last call
+    of each kernel (marked `tag`; held against the plain versions and
+    timed right after; the limit of flash_attention must reject its mask
+    edge one key short there), timed (with peak memory), traced. Each run
+    zeroes the counts before and reads them after: every kernel must
+    launch as expected_prefill_launches says, and no other. Then, not
+    gated and only given `prompts`, the last-position logits of a prefill
+    of the prompts against a decode of them over a cache of their length
+    + gen_len + 1. Returns (report, kernel rows)."""
     import torch
     from repro_torch.launch import steps
     from repro_torch.models import lm
     cfg = model.cfg
     B, S = PREFILL["batch"], PREFILL["seq_len"]
+    cut = (f"batch {PREFILL['shape_batch']} -> {B} of the "
+           f"{PREFILL['shape']} shape")
+    log(f"cut: phase {phase} prefills {B} x {S} tokens of {cfg.name}, "
+        f"{cut}")
     want = expected_prefill_launches(cfg, S)
     step = steps.make_prefill_step(cfg)
     tokens = torch.as_tensor(np.random.default_rng(seed + 8).integers(
@@ -1388,23 +1488,27 @@ def phase_prefill(model, seed: int, device, prompts: np.ndarray):
         logits = step(model, {"tokens": tokens})
         sync()
         dt = time.perf_counter() - t0
-        counts = read_counts(PREFILL_KERNELS)
+        counts = read_counts(tuple(want))
         got = {name: counts[name] for name in want}
         if got != want or any(counts[n] for n in counts if n not in want):
-            raise AssertionError(f"phase 8 ({what}): launches {counts}, "
-                                 f"want {want}")
+            raise AssertionError(f"phase {phase} ({what}): launches "
+                                 f"{counts}, want {want}")
         if (tuple(logits.shape) != (B, cfg.vocab_padded)
                 or not bool(torch.isfinite(logits).all())):
-            raise AssertionError(f"phase 8 ({what}): logits "
+            raise AssertionError(f"phase {phase} ({what}): logits "
                                  f"{tuple(logits.shape)} or not finite")
         return logits, dt, got
 
     with Capture(last=True) as capture:
-        capture.mark("prefill")
+        capture.mark(tag)
         logits, first_s, counts = run("captured")
-    rows = phase_captured(capture.calls, PREFILL_KERNELS, 8)
-    limit_check = window_fault_rejected(
-        *capture.calls[("flash_attention", "prefill")])
+    rows = phase_captured(capture.calls, tuple(want), phase)
+    limit_check = edge_fault_rejected(
+        *capture.calls[("flash_attention", tag)], phase)
+    lc = limit_check
+    log(f"phase {phase}: the flash_attention limit (rtol {lc['rtol']:.6g}, "
+        f"atol {lc['atol']:.6g}) rejects the {lc['edge']} one key short at "
+        f"the last call (max abs err {lc['max_abs_err']:.6g})")
     del capture
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
@@ -1416,43 +1520,35 @@ def phase_prefill(model, seed: int, device, prompts: np.ndarray):
         torch.profiler.ProfilerActivity.CUDA])
     with prof:
         _, traced_s, _ = run("traced")
-    profile = profile_summary(prof, [traced_s], prefill_s * 1e3, 8)
-    # bound: 2 flops per weight and token in the matrix products (the
-    # embedding read as rows; the logits of the last position only) and
-    # 4 d per live (q, k) pair and head in attention, at the bf16 peak
-    n_mat = (sum(p.numel() for name, p in model.named_parameters()
-                 if p.dim() == 2 and name != "embed"))
-    mat_flops = 2 * n_mat * B * S + 2 * cfg.d_model * cfg.vocab_padded * B
-    q_shape = (B, cfg.n_heads, S, cfg.hd)
-    pairs = live_pairs((torch.empty(q_shape, device="meta"),
-                        torch.empty((B, cfg.n_kv_heads, S, cfg.hd),
-                                    device="meta")),
-                       dict(causal=True, window=cfg.local_window))
-    n_attn = sum(k in ("attn", "lattn") for ks in cfg.layer_pattern()
-                 for k in ks) * cfg.n_groups
-    attn_flops = 4 * cfg.hd * pairs * n_attn
+    profile = profile_summary(prof, [traced_s], prefill_s * 1e3, phase)
+    del logits
+    mat_flops, attn_flops = prefill_flops(model, B, S)
     bound_s = (mat_flops + attn_flops) / PEAK_FLOPS["torch.bfloat16"]
-    # cross-check against a decode of phase 7's prompts (printed, not gated)
+    report = dict(arch=cfg.name, batch=B, seq_len=S, cut=cut,
+                  launches=counts,
+                  first_s=first_s, prefill_s=prefill_s, traced_s=traced_s,
+                  tok_per_s=B * S / prefill_s, max_memory_allocated=max_mem,
+                  memory_before=base_mem, matmul_flops=mat_flops,
+                  attention_flops=attn_flops, bound_s=bound_s,
+                  profile=profile, limit_check=limit_check)
+    if prompts is None:
+        return report, rows
+    # cross-check against a decode of the prompts (printed, not gated)
     prompts = torch.as_tensor(prompts.astype(np.int32), device=device)
     state = lm.init_decode_state(cfg, prompts.shape[0], prompts.shape[1]
-                                 + RGEMMA_SERVE["gen_len"] + 1, device=device)
+                                 + gen_len + 1, device=device)
     for t in range(prompts.shape[1]):
         ref, state = lm.decode_step(model, state, prompts[:, t])
     del state
     ref = ref.float()
     cross = step(model, {"tokens": prompts}).float()
-    cross_err = float((cross - ref).abs().max())
-    argmax_same = float((cross.argmax(-1) == ref.argmax(-1)).float().mean())
-    return dict(batch=B, seq_len=S, cut=f"batch {PREFILL['shape_batch']} "
-                f"-> {B} of the {PREFILL['shape']} shape", launches=counts,
-                first_s=first_s, prefill_s=prefill_s, traced_s=traced_s,
-                tok_per_s=B * S / prefill_s, max_memory_allocated=max_mem,
-                memory_before=base_mem, matmul_flops=mat_flops,
-                attention_flops=attn_flops, bound_s=bound_s,
-                profile=profile, limit_check=limit_check, cross_check=dict(
-                    prompts=list(prompts.shape), max_abs_err=cross_err,
-                    argmax_agree=argmax_same,
-                    logits_scale=float(ref.abs().max()))), rows
+    report["cross_check"] = dict(
+        prompts=list(prompts.shape),
+        max_abs_err=float((cross - ref).abs().max()),
+        argmax_agree=float((cross.argmax(-1) == ref.argmax(-1)).float()
+                           .mean()),
+        logits_scale=float(ref.abs().max()))
+    return report, rows
 
 
 def phase_rgemma_cpu_vs_gpu(seed: int, device) -> dict:
@@ -1736,12 +1832,23 @@ def main() -> int:
                                  f"{sv['layers']} a step = {want}")
     record("phase 5", counts, MODEL_KERNELS)
     check_last_logits(served)
-    del served
+    ds_model = served["model"]
+    del served                          # the caches
     log(f"phase 5: launches {counts} ({sv['layers']} a step for "
         f"each model kernel over {sv['steps']} steps); backends "
         f"{sv['backends']}; logits finite")
     add_rows(phase_captured(capture.calls, MODEL_KERNELS, 5))
     del capture
+    torch.cuda.empty_cache()
+
+    dpf, ds_rows = phase_prefill(ds_model, args.seed, device, "5b",
+                                 "ds prefill")
+    del ds_model
+    add_rows(ds_rows)
+    record("phase 5b", dpf["launches"], tuple(dpf["launches"]))
+    log(f"phase 5b: launches {dpf['launches']} per prefill (3 runs); logits "
+        f"finite")
+    torch.cuda.empty_cache()
 
     model_check = phase_model_cpu_vs_gpu(args.seed, device)
     log(f"phase 6: reduced {SERVE['arch']} logits equal CPU vs GPU within "
@@ -1772,17 +1879,12 @@ def main() -> int:
     add_rows(phase_captured(capture.calls, RGEMMA_DECODE_KERNELS, 7))
     del capture
 
-    log(f"cut: phase 8 prefills {PREFILL['batch']} x {PREFILL['seq_len']} "
-        f"tokens, the {PREFILL['shape']} shape with its batch cut from "
-        f"{PREFILL['shape_batch']} to {PREFILL['batch']}")
-    pf, prefill_rows = phase_prefill(rg["model"], args.seed, device,
-                                     rg["prompts"])
+    pf, prefill_rows = phase_prefill(rg["model"], args.seed, device, "8",
+                                     "prefill", rg["prompts"],
+                                     RGEMMA_SERVE["gen_len"])
     add_rows(prefill_rows)
-    record("phase 8", pf["launches"], PREFILL_KERNELS)
-    cc, lc = pf["cross_check"], pf["limit_check"]
-    log(f"phase 8: the flash_attention limit (rtol {lc['rtol']:.6g}, atol "
-        f"{lc['atol']:.6g}) rejects the window one key short at the last "
-        f"call (max abs err {lc['max_abs_err']:.6g})")
+    record("phase 8", pf["launches"], tuple(pf["launches"]))
+    cc = pf["cross_check"]
     log(f"phase 8: launches {pf['launches']} per prefill (3 runs); logits "
         f"finite; cross-check (not gated): prefill of the {cc['prompts']} "
         f"serve prompts against a decode of them (their step-"
@@ -1826,15 +1928,17 @@ def main() -> int:
             f"generated tok/s; init {v['init_s']:.2f} s; peak memory "
             f"{v['max_memory_allocated'] / 1e9:.2f} GB ({card})")
         log_profile(f"serve {v['arch']}", v["profile"], "step")
-    log(f"prefill {RGEMMA}: {pf['batch']} x {pf['seq_len']} tokens in "
-        f"{pf['prefill_s']:.3f} s ({pf['tok_per_s']:.0f} tok/s; first run "
-        f"{pf['first_s']:.3f} s), bound {pf['bound_s']:.3f} s "
-        f"({pf['matmul_flops'] / 1e12:.1f} TFLOP of matrix products + "
-        f"{pf['attention_flops'] / 1e12:.1f} of attention at the bf16 peak); "
-        f"peak memory {pf['max_memory_allocated'] / 1e9:.2f} GB "
-        f"({pf['memory_before'] / 1e9:.2f} before) ({card})")
-    log_profile(f"prefill {RGEMMA}", pf["profile"], "prefill")
+    for v in (dpf, pf):
+        log(f"prefill {v['arch']}: {v['batch']} x {v['seq_len']} tokens in "
+            f"{v['prefill_s']:.3f} s ({v['tok_per_s']:.0f} tok/s; first run "
+            f"{v['first_s']:.3f} s), bound {v['bound_s']:.3f} s "
+            f"({v['matmul_flops'] / 1e12:.1f} TFLOP of matrix products + "
+            f"{v['attention_flops'] / 1e12:.1f} of attention at the bf16 "
+            f"peak); peak memory {v['max_memory_allocated'] / 1e9:.2f} GB "
+            f"({v['memory_before'] / 1e9:.2f} before) ({card})")
+        log_profile(f"prefill {v['arch']}", v["profile"], "prefill")
     report["serve"] = sv
+    report["prefill_ds"] = dpf
     report["model_cpu_vs_gpu"] = model_check
     report["serve_rgemma"] = rv
     report["prefill"] = pf

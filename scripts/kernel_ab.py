@@ -6,6 +6,10 @@ calls:
     python3 scripts/kernel_ab.py owner_lane --other path/to/owner_lane.cu
     python3 scripts/kernel_ab.py hash_insert --other path/to/hash_probe.cu
     python3 scripts/kernel_ab.py rg_lru --other path/to/rg_lru.cu
+    python3 scripts/kernel_ab.py moe_dispatch --other path/to/moe_dispatch.cu
+    python3 scripts/kernel_ab.py moe_dispatch --other path/to/moe_dispatch.cu \
+        --sweep 48,1024,4096
+    python3 scripts/kernel_ab.py hash_find --other path/to/hash_probe.cu
 
 The other source must export the same C interface (for example the file
 from an earlier commit, unpacked with `git archive` into a directory that
@@ -31,6 +35,15 @@ how many of the paired drives each side won (the host's noise is wide):
   calls are the prefill's last rg_lru_scan (1 x 32,768 x 4,096) and a
   decode step's last one (8 x 1 x 4,096, h0 given); three prefills of each
   side, timed on the host clock.
+- moe_dispatch (B7): deepseek-moe-16b at full width with seeded weights;
+  the calls are its prefill's last moe_dispatch (196,608 ids over 64
+  experts, 1 x 32,768 tokens) and a decode step's last one (8 tokens x
+  top-6 = 48 ids); three prefills of each side, timed on the host clock.
+  With --sweep T1,T2,... it times only calls of T seeded ids uniform over
+  64 experts at each T given, and drives no model.
+- hash_find (B3; the source also holds B4, which the RPC inserts run):
+  the hash table's RPC arm to load 0.25; the call is the first find
+  batch's, also with the mask cleared; ten drives of each side.
 
 It prints one line a measurement, the card's name and power limit, and a
 JSON line.
@@ -39,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import statistics
 import sys
@@ -47,7 +61,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 LIBS = {"owner_lane": "owner_lane", "hash_insert": "hash_probe",
-        "rg_lru": "rg_lru"}
+        "rg_lru": "rg_lru", "moe_dispatch": "moe_dispatch",
+        "hash_find": "hash_probe"}
 REPS = 20
 ORDER = ("other", "this", "this", "other")
 ROUNDS = 5                                  # ten drives of each side
@@ -166,47 +181,52 @@ def owner_lane_mode(cs, use, card, device, seed, flush) -> dict:
     return {"calls": out, "batches": drives(drive, use, card)}
 
 
-def hash_insert_mode(cs, use, card, device, seed, flush) -> dict:
+def rpc_mode(cs, use, card, device, seed, flush, name: str, tag: str,
+             mask_at: int) -> dict:
+    """A handler kernel of csrc/hash_probe.cu at its call `tag` of the RPC
+    arm, also with the mask cleared; ten drives of each side."""
     from repro_torch.kernels import hash_probe as khp
     drive = table_drive(cs, device, seed, ("rpc",), queue=False)
     with cs.Capture() as capture:
         drive(capture.mark)
-    tag = "ht rpc insert last"
-    args, kw = capture.calls[("hash_insert", tag)]
+    args, kw = capture.calls[(name, tag)]
     out = time_calls(cs, use, card, {
-        "hash_insert": (tag, khp.hash_insert, args, kw, 4)}, flush)
-    out["hash_insert"]["component_chain"] = cs.component_chain(
-        "hash_insert", args, kw)
-    out["hash_insert"]["serial_chain"] = cs.serial_chain("hash_insert", args)
+        name: (tag, getattr(khp, name), args, kw, mask_at)}, flush)
+    out[name]["component_chain"] = cs.component_chain(name, args, kw)
+    out[name]["serial_chain"] = cs.serial_chain(name, args)
     return {"calls": out, "batches": drives(drive, use, card)}
 
 
-def rg_lru_mode(cs, use, card, device, seed, flush) -> dict:
+def model_mode(cs, use, card, device, seed, flush, arch: str, name: str,
+               prefill_tag: str) -> dict:
+    """Kernel `name` at the last call of a prefill of `arch` at full width
+    (phase 8's cut) and of a decode step of phase 5's batch; then three
+    prefills of each side."""
     import numpy as np
     import torch
     from repro_torch.configs import registry
-    from repro_torch.kernels import rg_lru as krg
     from repro_torch.launch import steps
     from repro_torch.models import lm
-    cfg = registry.get(cs.RGEMMA)
+    cfg = registry.get(arch)
     model = lm.init_lm(cfg, seed, device)
     B, S = cs.PREFILL["batch"], cs.PREFILL["seq_len"]
     tokens = torch.as_tensor(np.random.default_rng(seed + 8).integers(
         0, cfg.vocab, (B, S)).astype(np.int32), device=device)
     step = steps.make_prefill_step(cfg)
+    kernel = cs.wrappers()[name]
     with cs.Capture(last=True) as capture:
-        capture.mark("prefill")
+        capture.mark(prefill_tag)
         step(model, {"tokens": tokens})
-        Bd = cs.RGEMMA_SERVE["batch"]
+        Bd = cs.SERVE["batch"]
         state = lm.init_decode_state(cfg, Bd, 16, device=device)
         capture.mark("decode step")
         lm.decode_step(model, state, torch.zeros(Bd, dtype=torch.int32,
                                                  device=device))
     del state
     calls = {}
-    for tag in ("prefill", "decode step"):
-        args, kw = capture.calls[("rg_lru_scan", tag)]
-        calls[f"rg_lru_scan {tag}"] = (tag, krg.rg_lru_scan, args, kw, None)
+    for tag in (prefill_tag, "decode step"):
+        args, kw = capture.calls[(name, tag)]
+        calls[f"{name} {tag}"] = (tag, kernel, args, kw, None)
     del capture
     out = time_calls(cs, use, card, calls, flush)
     runs = {"other": [], "this": []}
@@ -224,8 +244,34 @@ def rg_lru_mode(cs, use, card, device, seed, flush) -> dict:
                           f"s per prefill of {B} x {S} tokens")}}
 
 
-MODES = {"owner_lane": owner_lane_mode, "hash_insert": hash_insert_mode,
-         "rg_lru": rg_lru_mode}
+MODES = {"owner_lane": owner_lane_mode,
+         "hash_insert": functools.partial(rpc_mode, name="hash_insert",
+                                          tag="ht rpc insert last",
+                                          mask_at=4),
+         "hash_find": functools.partial(rpc_mode, name="hash_find",
+                                        tag="ht rpc find", mask_at=3),
+         "rg_lru": functools.partial(
+             model_mode, arch="recurrentgemma-9b", name="rg_lru_scan",
+             prefill_tag="prefill"),
+         "moe_dispatch": functools.partial(
+             model_mode, arch="deepseek-moe-16b", name="moe_dispatch",
+             prefill_tag="ds prefill")}
+
+
+def sweep_mode(cs, use, card, device, seed, flush, counts) -> dict:
+    """moe_dispatch on T seeded ids uniform over 64 experts, each T of
+    `counts`."""
+    import numpy as np
+    import torch
+    kernel = cs.wrappers()["moe_dispatch"]
+    rng = np.random.default_rng(seed + 9)
+    calls = {}
+    for T in counts:
+        ids = torch.as_tensor(rng.integers(0, 64, T).astype(np.int32),
+                              device=device)
+        calls[f"moe_dispatch T = {T}"] = ("sweep", kernel, (ids,),
+                                          {"n_experts": 64}, None)
+    return {"calls": time_calls(cs, use, card, calls, flush)}
 
 
 def main() -> int:
@@ -234,7 +280,12 @@ def main() -> int:
     ap.add_argument("--other", required=True, type=Path,
                     help="the other version of the mode's source")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sweep", default="",
+                    help="moe_dispatch only: comma-separated id counts to "
+                    "time instead of the model's calls")
     args = ap.parse_args()
+    if args.sweep and args.mode != "moe_dispatch":
+        ap.error("--sweep is a moe_dispatch option")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: torch sees no CUDA device", file=sys.stderr)
@@ -247,6 +298,10 @@ def main() -> int:
     print(card, flush=True)
     lib = LIBS[args.mode]
     other = _build.load_file(args.other)
+    if lib == "moe_dispatch" and not hasattr(
+            other, "repro_moe_dispatch_work_words"):
+        # a source from before the tile table writes the E counts alone
+        other.repro_moe_dispatch_work_words = lambda T, E: E
 
     def use(which: str):
         """Run the block with this checkout's kernels or the other's."""
@@ -255,7 +310,11 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     flush = torch.empty(cs.L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
-    res = MODES[args.mode](cs, use, card, device, args.seed, flush)
+    if args.sweep:
+        res = sweep_mode(cs, use, card, device, args.seed, flush,
+                         [int(t) for t in args.sweep.split(",")])
+    else:
+        res = MODES[args.mode](cs, use, card, device, args.seed, flush)
     print(json.dumps({"card": card, "mode": args.mode,
                       "other": str(args.other), **res}))
     return 0

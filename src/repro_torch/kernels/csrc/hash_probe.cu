@@ -10,15 +10,32 @@
 // A probe at slot s reads the record at s * rec_w, clamped so the slice
 // stays inside the shard, as lax.dynamic_slice does.
 //
-// B3, find. Requests are independent: one thread per request on a grid of
-// (ceil(m / 128), P) blocks of 128 threads. Each probe reads rec_w words
-// from device memory. The Pallas kernel kept the owner's whole table
-// resident in VMEM; that does not carry over (a slice-size shard is 3 MB,
-// a block may hold 227 KB of shared memory), so the bound here is bytes:
-// live requests x probes taken x rec_w x 4 B at 3.35 TB/s. The probes of
-// neighbouring requests land on unrelated slots, so each probe costs at
-// least one 32-byte sector; with hundreds of requests in flight per SM the
-// kernel hides the latency of those scattered reads.
+// B3, find. Requests are independent, and the Pallas kernel kept the
+// owner's whole table resident in VMEM; that does not carry over (a
+// slice-size shard is 3 MB, a block may hold 227 KB of shared memory).
+// What the function must move is the mask, `found` and `vals` in full and,
+// for live requests only, their starts, keys and the records their probes
+// read: at the first RPC find of the slice (P = 64 owners x m = 65,536
+// slots, about 1,024 live an owner) that is 26.8 MB, mostly the dense
+// outputs, so bytes bound it. The first port ran one thread a slot on
+// 32,768 blocks: 98.4% of the threads loaded one mask byte, stored one
+// byte and vw words and quit, and the live ones, about one a warp, each
+// walked their probe chain alone.
+//
+// What the design does about it. A warp takes 512 consecutive slots of the
+// flat (P, m) order (a group may span two owners' rows; a live slot finds
+// its owner by division), 16 a lane, on a grid of a few blocks per SM
+// that strides over them:
+//  - each lane reads its 16 mask bytes with one 16-byte load;
+//  - the warp zeroes its 512 `found` bytes and 512 x vw `vals` words with
+//    16-byte stores (16 x vw words start 16-byte aligned for any vw), so
+//    dead slots never touch the table;
+//  - the live slots are compacted (popc, a warp scan) into a queue in
+//    shared memory, and the 32 lanes take one live request each and walk
+//    its probes: up to 32 chains in flight a warp instead of about one;
+//    a hit overwrites its slot's zeros (ordered after them by __syncwarp).
+// Scalar loads and stores take a warp's slots where they pass the end or a
+// pointer is not 16-byte aligned.
 //
 // B4, insert-or-assign, out of place. Request j must see the requests
 // before it at its owner, but only where their probe windows meet: request
@@ -60,7 +77,10 @@
 
 namespace {
 
-constexpr int kFindThreads = 128;
+constexpr int kFindThreads = 256;
+constexpr int kGroup = 16;                       // find: slots a lane takes
+constexpr int kWarpSlots = 32 * kGroup;          // find: slots a warp takes
+constexpr int kFindBlocksPerSm = 8;
 constexpr int kInsertThreads = 512;
 constexpr int kItems = 8;                        // requests a thread holds
 constexpr int kChunk = kInsertThreads * kItems;  // live requests per round
@@ -82,40 +102,91 @@ __device__ __forceinline__ long long slice_start(long long s, long long size,
   return j > n - size ? n - size : j;
 }
 
+// one probe chain: the first word of the record it hits, or -1
+__device__ __forceinline__ long long find_one(const int32_t* __restrict__ t,
+                                              long long L, long long nslots,
+                                              int rec_w, int max_probes,
+                                              long long start, int32_t key) {
+  for (int pr = 0; pr < max_probes; ++pr) {
+    const long long s = floor_mod(start + pr, nslots);
+    const long long b = slice_start(s * rec_w, rec_w, L);
+    const int32_t state = t[b] & kStateMask;
+    if (state == kReady && t[b + 1] == key) return b;
+    if (state == kEmpty) return -1;
+  }
+  return -1;
+}
+
+// the bytes of w that are not zero, as 4 bits
+__device__ __forceinline__ unsigned nonzero_bytes(unsigned w) {
+  return ((w & 0xffu) != 0) | ((w & 0xff00u) != 0) << 1 |
+         ((w & 0xff0000u) != 0) << 2 | ((w & 0xff000000u) != 0) << 3;
+}
+
+// n = P * m slots; vec: mask, found and vals are 16-byte aligned
 __global__ void __launch_bounds__(kFindThreads)
 hash_find_kernel(const int32_t* __restrict__ table,
                  const int32_t* __restrict__ starts,
                  const int32_t* __restrict__ keys,
                  const uint8_t* __restrict__ mask,
                  uint8_t* __restrict__ found, int32_t* __restrict__ vals,
-                 long long L, long long m, long long nslots, int rec_w,
-                 int max_probes) {
-  const long long p = blockIdx.y;
-  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (j >= m) return;
-  const long long idx = p * m + j;
+                 long long L, long long m, long long n, long long nslots,
+                 int rec_w, int max_probes, bool vec) {
+  __shared__ uint16_t queue[kFindThreads / 32][kWarpSlots];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  uint16_t* q = queue[warp];
   const int vw = rec_w - 2;
-  const int32_t* t = table + p * L;
-  bool hit = false;
-  long long hb = 0;
-  if (mask[idx]) {
-    const long long start = starts[idx];
-    const int32_t key = keys[idx];
-    for (int pr = 0; pr < max_probes; ++pr) {
-      const long long s = floor_mod(start + pr, nslots);
-      const long long b = slice_start(s * rec_w, rec_w, L);
-      const int32_t state = t[b] & kStateMask;
-      if (state == kReady && t[b + 1] == key) {
-        hit = true;
-        hb = b;
-        break;
-      }
-      if (state == kEmpty) break;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  const long long n_tiles = (n + kWarpSlots - 1) / kWarpSlots;
+  const long long stride = static_cast<long long>(gridDim.x) *
+                           (kFindThreads / 32);
+  for (long long wt = static_cast<long long>(blockIdx.x) *
+                      (kFindThreads / 32) + warp;
+       wt < n_tiles; wt += stride) {
+    const long long s0 = wt * kWarpSlots;
+    const long long g0 = s0 + lane * kGroup;        // this lane's 16 slots
+    const bool wide = vec && s0 + kWarpSlots <= n;
+    unsigned bits = 0;                               // live slots of g0..
+    if (wide) {
+      const uint4 v = reinterpret_cast<const uint4*>(mask)[g0 / kGroup];
+      bits = nonzero_bytes(v.x) | nonzero_bytes(v.y) << 4 |
+             nonzero_bytes(v.z) << 8 | nonzero_bytes(v.w) << 12;
+      reinterpret_cast<uint4*>(found)[g0 / kGroup] = zero;
+      uint4* v4 = reinterpret_cast<uint4*>(vals + s0 * vw);
+      for (int j = lane; j < kWarpSlots / 4 * vw; j += 32) v4[j] = zero;
+    } else {
+      const long long end = s0 + kWarpSlots < n ? s0 + kWarpSlots : n;
+      for (int k = 0; k < kGroup; ++k)
+        if (g0 + k < end && mask[g0 + k]) bits |= 1u << k;
+      for (long long i = s0 + lane; i < end; i += 32) found[i] = 0;
+      for (long long i = s0 * vw + lane; i < end * vw; i += 32) vals[i] = 0;
     }
+    // the warp's live slots, in a queue of offsets from s0
+    const int live = __popc(bits);
+    int incl = live;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += y;
+    }
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    int at = incl - live;
+    for (unsigned rest = bits; rest; rest &= rest - 1)
+      q[at++] = static_cast<uint16_t>(lane * kGroup + __ffs(rest) - 1);
+    __syncwarp();
+    // one live request a lane
+    for (int j = lane; j < total; j += 32) {
+      const long long idx = s0 + q[j];
+      const int32_t* t = table + (idx / m) * L;
+      const long long hb = find_one(t, L, nslots, rec_w, max_probes,
+                                    starts[idx], keys[idx]);
+      if (hb >= 0) {
+        found[idx] = 1;
+        for (int w = 0; w < vw; ++w) vals[idx * vw + w] = t[hb + 2 + w];
+      }
+    }
+    __syncwarp();
   }
-  found[idx] = hit ? 1 : 0;
-  for (int w = 0; w < vw; ++w) vals[idx * vw + w] = hit ? t[hb + 2 + w] : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -320,17 +391,25 @@ extern "C" int repro_hash_find(const void* table, const void* starts,
                                void* found, void* vals, long long P,
                                long long L, long long m, long long nslots,
                                int rec_w, int max_probes, void* stream) {
-  if (P > 0 && m > 0) {
-    const dim3 grid(static_cast<unsigned>((m + kFindThreads - 1) /
-                                          kFindThreads),
-                    static_cast<unsigned>(P));
-    hash_find_kernel<<<grid, kFindThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  const long long n = P * m;
+  if (n > 0) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const long long tiles = (n + kWarpSlots - 1) / kWarpSlots;
+    const long long need = (tiles + kFindThreads / 32 - 1) /
+                           (kFindThreads / 32);
+    const long long most = static_cast<long long>(sms) * kFindBlocksPerSm;
+    const bool vec = ((reinterpret_cast<uintptr_t>(mask) |
+                       reinterpret_cast<uintptr_t>(found) |
+                       reinterpret_cast<uintptr_t>(vals)) & 15) == 0;
+    hash_find_kernel<<<static_cast<unsigned>(need < most ? need : most),
+                       kFindThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(table),
         static_cast<const int32_t*>(starts),
         static_cast<const int32_t*>(keys), static_cast<const uint8_t*>(mask),
-        static_cast<uint8_t*>(found), static_cast<int32_t*>(vals), L, m,
-        nslots, rec_w, max_probes);
+        static_cast<uint8_t*>(found), static_cast<int32_t*>(vals), L, m, n,
+        nslots, rec_w, max_probes, vec);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,9 @@
 """Wrappers of the RPC hash-table handler kernels (csrc/hash_probe.cu),
 ports of the Pallas kernels in repro/kernels/hash_probe.py:
 
-- `hash_find` (B3): independent open-addressing lookups;
+- `hash_find` (B3): independent open-addressing lookups (one launch: a
+  warp's 512 slots scanned 16 a lane, its live requests walked one a
+  lane);
 - `hash_insert` (B4): serialized insert-or-assign per owner (two launches
   a call, a copy across the card and one block per owner; counted once).
 
@@ -29,8 +31,6 @@ def hash_find(table: Tensor, starts: Tensor, keys: Tensor, mask: Tensor, *,
     P, L = table.shape
     m = starts.shape[1]
     dev = table.device
-    if P > 65535:
-        raise ValueError("hash_find: at most 65535 owners (grid y limit)")
     check("table", table, torch.int32, (P, L), dev)
     for name, x in (("starts", starts), ("keys", keys)):
         check(name, x, torch.int32, (P, m), dev)

@@ -402,3 +402,156 @@ def hash_insert_cases(seed: int = 0) -> List[InsertCase]:
         rng.integers(0, 20, (P, m)), rng.integers(0, 99, (P, m, 1)),
         np.zeros((P, m), bool), nslots, rec_w)
     return cases
+
+
+# ---------------------------------------------------------------------------
+# B3 hash_find
+# ---------------------------------------------------------------------------
+FIND_GROUP = 16       # slots a lane of csrc/hash_probe.cu's find takes
+FIND_WARP = 512       # slots a warp takes
+
+
+def hash_find_cases(seed: int = 0) -> List[InsertCase]:
+    """[(label, "hash_find", (table, starts, keys, mask), keyword args)],
+    numpy. They aim at csrc/hash_probe.cu's find: 16 slots a lane read and
+    zeroed with 16-byte accesses where a warp's 512 slots are whole, the
+    live ones compacted and walked one a lane. So: m not a multiple of 16
+    (groups span two owners' rows), vw 1, 2 and 3, no live slot, every
+    slot live, live slots only at index 15 of a group and at a row's last
+    index (all hits), a full table that never shows EMPTY, windows that
+    wrap past slot nslots - 1, starts outside [0, nslots), and a routed
+    batch at slice shape with 1.6% live."""
+    rng = np.random.default_rng(seed + 2)
+    cases: List[InsertCase] = []
+
+    def add(label, table, starts, keys, mask, nslots, rec_w, max_probes=8):
+        cases.append((label, "hash_find", (
+            table, np.asarray(starts).astype(np.int32),
+            np.asarray(keys).astype(np.int32), np.asarray(mask, bool)),
+            {"nslots": nslots, "rec_w": rec_w, "max_probes": max_probes}))
+
+    def requests(table, nslots, rec_w, shape):
+        """(starts, keys): the key of a record at most two slots past the
+        start (mostly hits), a quarter of the keys absent."""
+        P = table.shape[0]
+        rec = table[:, :nslots * rec_w].reshape(P, nslots, rec_w)
+        slot = rng.integers(0, nslots, shape)
+        k = rec[np.arange(P)[:, None], slot, 1]
+        return (slot - rng.integers(0, 3, shape),
+                np.where(rng.random(shape) < 0.25, k + 100000, k))
+
+    # m not a multiple of 16, vw = 1, 2, 3 (a warp's slots cross rows)
+    for vw in (1, 2, 3):
+        P, nslots, rec_w, m = 5, 64, 2 + vw, 100 + vw
+        table = _table(rng, P, nslots, rec_w, nslots * rec_w, 0.8, 30)
+        add(f"m = {m}, vw = {vw}", table,
+            *requests(table, nslots, rec_w, (P, m)), rng.random((P, m)) < 0.7,
+            nslots, rec_w)
+    # whole warps of 512 slots (16-byte path) and a ragged last warp
+    P, nslots, rec_w, m = 3, 256, 4, 700
+    table = _table(rng, P, nslots, rec_w, nslots * rec_w, 0.8, 60)
+    starts, keys = requests(table, nslots, rec_w, (P, m))
+    add("no live slot", table, starts, keys, np.zeros((P, m), bool), nslots,
+        rec_w)
+    add("every slot live", table, starts, keys, np.ones((P, m), bool),
+        nslots, rec_w)
+    # live only at index 15 of some groups and at each row's last index,
+    # every one a hit (its key sits at its start)
+    P, nslots, rec_w, m = 4, 128, 3, 1024
+    table = _table(rng, P, nslots, rec_w, nslots * rec_w, 0.9, 10 ** 6)
+    rec = table.reshape(P, nslots, rec_w)
+    rec[..., 0] = READY
+    rec[..., 1] = np.arange(nslots) + 1000 * np.arange(P)[:, None]
+    mask = np.zeros((P, m), bool)
+    mask[:, 15::FIND_GROUP * 3] = True
+    mask[:, m - 1] = True
+    starts = rng.integers(0, nslots, (P, m))
+    add("live only at index 15 of a group and the row's last", table,
+        starts, rec[np.arange(P)[:, None], starts, 1], mask, nslots, rec_w)
+    # a full table: no EMPTY record, so misses take every probe
+    P, nslots, rec_w, m = 3, 64, 3, 600
+    table = _table(rng, P, nslots, rec_w, nslots * rec_w, 1.0, 40)
+    add("full table, EMPTY never reached", table,
+        rng.integers(0, nslots, (P, m)), rng.integers(0, 80, (P, m)),
+        rng.random((P, m)) < 0.5, nslots, rec_w)
+    # windows past slot nslots - 1: the keys sit at slots 0 and 1 behind a
+    # run of taken slots at the end
+    P, nslots, rec_w, m = 4, 256, 3, 520
+    table = _table(rng, P, nslots, rec_w, nslots * rec_w, 0.0, 1)
+    rec = table.reshape(P, nslots, rec_w)
+    rec[:, nslots - 4:, 0] = READY
+    rec[:, nslots - 4:, 1] = 7000 + np.arange(4)
+    rec[:, :2, 0] = READY
+    rec[:, :2, 1] = [8000, 8001]
+    add("windows wrap past slot nslots - 1", table,
+        rng.integers(nslots - 4, nslots, (P, m)),
+        rng.choice([8000, 8001, 7003, 9999], (P, m)),
+        rng.random((P, m)) < 0.8, nslots, rec_w)
+    # starts outside [0, nslots), int32 extremes included
+    P, nslots, rec_w, m = 2, 64, 4, 512
+    table = _table(rng, P, nslots, rec_w, nslots * rec_w, 0.5, 20)
+    starts = np.clip(rng.choice([-1, -nslots - 3, nslots + 1, 3 * nslots,
+                                 -2 ** 31, 2 ** 31 - 1, 5], (P, m))
+                     + rng.integers(0, 3, (P, m)), -2 ** 31, 2 ** 31 - 1)
+    add("starts outside [0, nslots)", table, starts,
+        rng.integers(0, 20, (P, m)), rng.random((P, m)) < 0.6, nslots, rec_w)
+    # a routed batch at slice shape, 1.6% live, half the keys present
+    P, nslots, rec_w, m = 8, 2 ** 14, 3, 65536
+    table = _table(rng, P, nslots, rec_w, nslots * rec_w, 0.25, 2 ** 20)
+    add("m = 65536, 1.6% live", table,
+        *requests(table, nslots, rec_w, (P, m)),
+        _mask(rng, m, [1049, 1100, 980, 1024, 0, 3, 2000, 1]), nslots,
+        rec_w)
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# B7 moe_dispatch
+# ---------------------------------------------------------------------------
+MoeCase = Tuple[str, str, Tuple[np.ndarray], dict]
+
+
+def moe_dispatch_cases(seed: int = 0) -> List[MoeCase]:
+    """[(label, "moe_dispatch", (ids,), {"n_experts": E})], numpy. They aim
+    at csrc/moe_dispatch.cu: tiles of 2,048 ids (kTile) ranked at once,
+    each from the sum of the tiles before it; 32-id sub-rounds whose peers
+    come from __match_any_sync, or from a shuffle loop where a warp holds
+    an id in [-E, 0); the serial kernel up to 6,144 ids (kSerialIds) and
+    past 2,048 experts (kMaxExperts); tiles of several rounds where the
+    table would grow too long."""
+    rng = np.random.default_rng(seed + 3)
+    cases: List[MoeCase] = []
+
+    def add(label, ids, E):
+        cases.append((label, "moe_dispatch",
+                      (np.asarray(ids).astype(np.int32),), {"n_experts": E}))
+
+    t = 2048                                  # kTile
+    add("T = 196608 uniform over 64 experts (the deepseek prefill)",
+        rng.integers(0, 64, 196608), 64)
+    add("every id on one expert, ten tiles", np.full(10 * t + 7, 63), 64)
+    # ids outside [0, E) at warp, sub-round and tile edges, each in a warp
+    # that also holds in-range ids of the column it wraps onto
+    E, T = 64, 3 * t + 100
+    ids = rng.integers(0, 8, T)
+    edges = [0, 31, 32, 127, 128, t - 1, t, t + 1, 2 * t - 1, 2 * t, T - 1]
+    for n, i in enumerate(edges):
+        ids[i] = (-E + ids[i ^ 1], E + n, -E - 1 - n, -1)[n % 4]
+    add("ids outside [0, E) at warp and tile edges", ids, E)
+    # the serial kernel's cut-off (3 t) and a tile's edge past it
+    for T in (0, 1, 48, 1024, 1025, 3 * t - 1, 3 * t, 3 * t + 1, 4 * t - 1,
+              4 * t):
+        ids = rng.integers(0, 64, T)
+        if T > 2:
+            ids[T // 2] = -64 + int(ids[T // 2 + 1])
+        add(f"T = {T}", ids, 64)
+    add("E = 1", rng.integers(-2, 3, 8000), 1)
+    add("E = 128", rng.integers(-130, 130, 30000), 128)
+    # E = kMaxExperts: past 65,536 ids a tile is two rounds
+    E = 2048
+    add(f"E = {E}, tiles of two rounds",
+        rng.integers(-E, E + 3, 65536 + t + 5), E)
+    add(f"E = {E}, T = 300", rng.integers(-E, E, 300), E)
+    add(f"E = {E + 52} (serial kernel)", rng.integers(-2200, 2200, 3000),
+        E + 52)
+    return cases

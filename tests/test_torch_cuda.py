@@ -539,3 +539,112 @@ def test_hash_insert_cases_reject_planted_faults(cuda_device, fault,
     print(f"{fault}: differs on " + "; ".join(INSERT_CASES[i][0]
                                               for i in bad))
     assert aimed in bad
+
+
+# ---------------------------------------------------------------------------
+# The expert dispatch (csrc/moe_dispatch.cu) and the RPC find
+# (csrc/hash_probe.cu) on kernels/lane_cases.py's B7 and B3 cases, bit for
+# bit, and faults planted in each
+# ---------------------------------------------------------------------------
+MOE_CASES = lane_cases.moe_dispatch_cases()
+FIND_CASES = lane_cases.hash_find_cases()
+
+
+def _case_differs(case, dev) -> bool:
+    """Kernel against plain version, both on the card, on one case."""
+    _, name, args, kw = case
+    xs = _on(dev, *args)
+    return not all(torch.equal(x, y) for x, y in
+                   zip(getattr(kops, name)(*xs, **kw),
+                       getattr(kref, name)(*xs, **kw)))
+
+
+@pytest.mark.parametrize("i", range(len(MOE_CASES)), ids=[
+    label for label, _, _, _ in MOE_CASES])
+def test_moe_dispatch_kernel_on_edge_case(cuda_device, i):
+    assert not _case_differs(MOE_CASES[i], cuda_device)
+
+
+@pytest.mark.parametrize("i", range(len(FIND_CASES)), ids=[
+    label for label, _, _, _ in FIND_CASES])
+def test_hash_find_kernel_on_edge_case(cuda_device, i):
+    assert not _case_differs(FIND_CASES[i], cuda_device)
+
+
+def test_hash_find_unaligned_mask(cuda_device):
+    """A mask whose data starts one byte past a 16-byte boundary: the
+    kernel takes its scalar loads, bit for bit."""
+    _, _, (table, starts, keys, mask), kw = FIND_CASES[-1]
+    table, starts, keys = _on(cuda_device, table, starts, keys)
+    flat = torch.zeros(mask.size + 1, dtype=torch.bool, device=cuda_device)
+    flat[1:] = torch.as_tensor(mask.reshape(-1), device=cuda_device)
+    shifted = flat[1:].view(mask.shape)
+    assert shifted.data_ptr() % 16 == 1
+    for x, y in zip(kops.hash_find(table, starts, keys, shifted, **kw),
+                    kref.hash_find(table, starts, keys, shifted, **kw)):
+        same(x, y)
+
+
+def test_moe_dispatch_counts_one_launch_a_call(cuda_device):
+    """A call over several tiles launches a count and a rank and counts
+    one."""
+    from repro_torch.kernels import moe_dispatch as kmd
+    _, _, (ids,), kw = MOE_CASES[0]
+    before = kmd.moe_dispatch.launches
+    kops.moe_dispatch(*_on(cuda_device, ids), **kw)
+    assert kmd.moe_dispatch.launches == before + 1
+
+
+def test_moe_dispatch_work_words_follow_the_kernel_choice(cuda_device):
+    """The buffer the wrapper allocates, as csrc/moe_dispatch.cu sizes it:
+    the E counts alone where the serial kernel takes the call (up to 6,144
+    ids, or past 2,048 experts), else a row of E tile counts a tile of
+    2,048 ids, longer tiles past 65,536 counts."""
+    from repro_torch.kernels._launch import I32, I64, function
+    words = function("moe_dispatch", "repro_moe_dispatch_work_words",
+                     (I64, I32))
+    assert words(0, 64) == words(48, 64) == words(6144, 64) == 64
+    assert words(6145, 64) == 5 * 64
+    assert words(196608, 64) == 97 * 64
+    assert words(5000, 2049) == 2049
+    assert words(65536 + 2048 + 5, 2048) == 18 * 2048   # tiles of 4,096
+    assert words(32 * 32768 * 6, 64) == 1025 * 64       # tiles of 6,144
+
+
+# planted faults: (source, its text, the faulty text, the case aimed at)
+DISPATCH_FAULTS = {
+    "B7: one tile's base dropped": (
+        "moe_dispatch", "      for (int t = r; t < b; t += R)\n",
+        "      for (int t = r == 0 ? R : r; t < b; t += R)\n",
+        "every id on one expert, ten tiles"),
+    "B7: in-warp rank counted with <=": (
+        "moe_dispatch",
+        "  return __popc(peers & ((1u << (threadIdx.x & 31)) - 1u));\n",
+        "  return __popc(peers & ((2u << (threadIdx.x & 31)) - 1u));\n",
+        "T = 6145"),
+    "B7: negative ids ranked through __match_any_sync": (
+        "moe_dispatch",
+        "  if (__any_sync(kFull, neg)) return column_peers(id, *col);\n",
+        "  if (false) return column_peers(id, *col);\n",
+        "ids outside [0, E) at warp and tile edges"),
+    "B3: live slot at index 15 of a group skipped": (
+        "hash_probe", "    const int live = __popc(bits);\n",
+        "    bits &= 0x7fffu;\n    const int live = __popc(bits);\n",
+        "live only at index 15 of a group and the row's last"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(DISPATCH_FAULTS))
+def test_dispatch_and_find_cases_reject_planted_faults(cuda_device, fault,
+                                                       tmp_path):
+    """With the fault built in, the kernel must differ from its plain
+    version on the case aimed at it (every case of the kernel runs; the
+    ones that differ are printed)."""
+    lib, old, new, label = DISPATCH_FAULTS[fault]
+    cases = MOE_CASES if lib == "moe_dispatch" else FIND_CASES
+
+    def differing():
+        return [c[0] for c in cases if _case_differs(c, cuda_device)]
+    bad = _with_planted_fault(lib, old, new, tmp_path, differing)
+    print(f"{fault}: differs on " + "; ".join(bad))
+    assert label in bad

@@ -134,6 +134,47 @@ def test_hash_insert_matches_jax_ref(P, nslots, vw, m, fill):
     same(t_t, t_j, "table'")
 
 
+FIND_CASES = lane_cases.hash_find_cases()
+
+
+@pytest.mark.parametrize("i", range(len(FIND_CASES)), ids=[
+    label for label, _, _, _ in FIND_CASES])
+def test_hash_find_case_matches_jax_ref(i):
+    """The B3 edge cases of kernels/lane_cases.py (the inputs the card
+    tests and chip_smoke.py hold the CUDA kernel to): the port's plain
+    version against the JAX oracle, bit for bit."""
+    _, _, args, kw = FIND_CASES[i]
+    want = jv(lambda t, s, k, mm: jref.hash_find(
+        t, s, k, mm, kw["nslots"], kw["rec_w"], kw["max_probes"]))(
+            *map(jnp.asarray, args))
+    got = tref.hash_find(*map(tt, args), **kw)
+    for name, x, y in zip(("found", "vals"), got, want):
+        same(x, y, name)
+
+
+def test_hash_find_cases_reach_their_slots():
+    """The B3 cases hold what they aim at: live slots only at index 15 of
+    a group and at each row's last index, every one a hit; hits in the
+    cases whose windows wrap and whose warps span rows."""
+    cases = {label: (args, kw) for label, _, args, kw in FIND_CASES}
+    (table, starts, keys, mask), kw = cases[
+        "live only at index 15 of a group and the row's last"]
+    m = mask.shape[1]
+    live = np.flatnonzero(mask.any(0))
+    assert set(live % lane_cases.FIND_GROUP) == {15} and m - 1 in live
+    found, _ = tref.hash_find(tt(table), tt(starts), tt(keys), tt(mask),
+                              **kw)
+    assert bool(found.eq(torch.from_numpy(mask)).all())
+    for label in ("windows wrap past slot nslots - 1", "m = 101, vw = 1",
+                  "every slot live"):
+        (table, starts, keys, mask), kw = cases[label]
+        found, _ = tref.hash_find(tt(table), tt(starts), tt(keys), tt(mask),
+                                  **kw)
+        assert int(found.sum()) > 0, label
+    (_, _, _, mask), _ = cases["every slot live"]
+    assert mask.all() and mask.size % lane_cases.FIND_WARP != 0
+
+
 INSERT_CASES = lane_cases.hash_insert_cases()
 
 

@@ -26,6 +26,7 @@ from repro.kernels.flash_decode import flash_decode as pallas_flash_decode
 from repro.kernels.moe_dispatch import moe_dispatch as pallas_moe_dispatch
 from repro.models import lm as jlm
 from repro_torch.core.types import Backend
+from repro_torch.kernels import lane_cases
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import lm as tlm
@@ -52,6 +53,66 @@ def test_moe_dispatch_matches_jax_and_pallas(T, E, bt):
     for got, want in ((c_t, c_j), (p_t, p_j), (c_t, c_k), (p_t, p_k)):
         same(got, want)
     assert c_t.dtype == p_t.dtype == torch.int32
+
+
+@pytest.mark.parametrize("T,one_expert", [(2047, False), (2048, False),
+                                          (2049, False), (4097, True)])
+def test_moe_dispatch_tile_edges_match_jax_and_pallas(T, one_expert):
+    """T at either side of the CUDA kernel's tile of 2,048 ids, and two
+    tiles + 1 with every id on one expert: the port's plain version equals
+    the JAX oracle and the Pallas kernel (interpret mode, tile 2,048) bit
+    for bit."""
+    E = 64
+    rng = np.random.default_rng(T)
+    ids = (np.full(T, 17) if one_expert else rng.integers(0, E, T)
+           ).astype(np.int32)
+    c_t, p_t = tops.moe_dispatch(torch.as_tensor(ids), n_experts=E)
+    c_j, p_j = jax.jit(jref.moe_dispatch, static_argnums=1)(
+        jnp.asarray(ids), E)
+    c_k, p_k = pallas_moe_dispatch(jnp.asarray(ids), n_experts=E,
+                                   block_t=2048)
+    for got, want in ((c_t, c_j), (p_t, p_j), (c_t, c_k), (p_t, p_k)):
+        same(got, want)
+    if one_expert:
+        assert int(c_t[17]) == T and int(p_t[-1]) == T - 1
+
+
+@pytest.mark.parametrize("edge", [2047, 2048, 4095, 4096])
+def test_moe_dispatch_outside_range_at_tile_edge_matches_jax_ref(edge):
+    """Ids outside [0, E) at the first and last index of a tile (2,048
+    ids in the CUDA kernel), in [-E, 0) beside in-range ids of the column
+    they wrap onto, and >= E: the plain version equals the JAX oracle."""
+    E, T = 64, 3 * 2048 + 5
+    rng = np.random.default_rng(edge)
+    ids = rng.integers(0, 8, T).astype(np.int32)
+    ids[edge] = -E + int(ids[edge - 1])
+    ids[edge - 2] = E + 3
+    ids[edge + 1] = -E - 1
+    c_t, p_t = tops.moe_dispatch(torch.as_tensor(ids), n_experts=E)
+    c_j, p_j = jax.jit(jref.moe_dispatch, static_argnums=1)(
+        jnp.asarray(ids), E)
+    same(c_t, c_j)
+    same(p_t, p_j)
+    assert int(p_t[edge]) == int((ids[:edge] == ids[edge] + E).sum())
+    assert int(p_t[edge + 1]) == tref.INT32_MIN
+
+
+MOE_CASES = [c for c in lane_cases.moe_dispatch_cases()
+             if c[2][0].size * c[3]["n_experts"] <= 2 ** 24]
+
+
+@pytest.mark.parametrize("i", range(len(MOE_CASES)), ids=[
+    label for label, _, _, _ in MOE_CASES])
+def test_moe_dispatch_case_matches_jax_ref(i):
+    """The B7 edge cases of kernels/lane_cases.py that the card tests and
+    chip_smoke.py hold the CUDA kernel to (those whose one-hot stays under
+    2**24 entries): the plain version against the JAX oracle."""
+    _, _, (ids,), kw = MOE_CASES[i]
+    c_t, p_t = tref.moe_dispatch(torch.as_tensor(ids), kw["n_experts"])
+    c_j, p_j = jax.jit(jref.moe_dispatch, static_argnums=1)(
+        jnp.asarray(ids), kw["n_experts"])
+    same(c_t, c_j)
+    same(p_t, p_j)
 
 
 def test_moe_dispatch_outside_range_matches_jax_ref():
