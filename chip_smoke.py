@@ -137,6 +137,43 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    read end-aligned S < Skv slices of the keys in place, as the full-width
    prefill does, and flash_attention must launch once a chunk.
 
+10. The paper's component operations (Fig. 3 / Table I) at phase 2's
+   size: put, get, fetch-and-add at random words and at one word a rank,
+   a single CAS, a persistent CAS (8 rounds, unplanned and planned), the
+   fused claim+write, claim+write+publish and fetch-and-op+gather
+   descriptors on a window of 64 ranks x 786,432 words, and the AM round
+   trip as an RPC insert into a hash table of phase 2's shape; 64 x 1,024
+   ops a call, the median of 15 calls (host time, each ending in a
+   synchronize) per op. The rows are fitted into a ComponentCosts with
+   costmodel.calibrate, as the JAX package's benchmarks/components.py
+   `calibrated_costs` does (printed with the two Fig. 3 ratios,
+   cas_persistent / cas_single and fad_single / fad).
+11. The adaptive chooser, backend="auto", at phase 2's full size, after
+   the method of the JAX package's benchmarks/adaptive_bench.py: a hash
+   table of 64 ranks x 2**18 slots, batches of 64 x 1,024 distinct keys
+   whose owners follow a mix (uniform; zipfian, p(owner r) ∝
+   1/(r+1)^1.5; hot, every key on owner 0; inattentive, uniform with the
+   `am` arm waiting half of busy_us around each call and `am_pt` paying
+   pt_overhead instead, busy_us = 2x the uniform mix's median fused-RDMA
+   insert+find pair), 16 batches a mix, each an insert (C_RW) and a find
+   (C_R: the inserted keys in even columns, keys never inserted in odd
+   ones) from the same empty table, on the four fixed arms and then
+   through hashtable.insert / find with no backend argument: an
+   AdaptiveEngine with the AM engine, phase 10's calibration,
+   explore_every 8 and its EWMAs seeded by 3 reps of each arm. Then the
+   same for the hosted queue of phase 2's shape (a push of 64 x 256 items
+   and a pop of 256 a rank, from an empty queue), and each arm once more
+   through backend="auto" with `force_arm`, on both structures. Printed
+   per mix: each fixed arm's median µs per batch, AUTO's (decide()
+   included), regret (AUTO / best fixed - 1), the arms chosen, and the
+   calibrated model's predict_arm per arm beside the measured µs per op
+   with whether their argmins agree. Gates: inserted keys are found with
+   their values and no other key is, pops return the pushes in ticket
+   order, every AUTO call logs one Decision with scores for all four
+   arms, and the launch counts show amo_apply / fused_apply on the
+   one-sided arms and hash_find / hash_insert on the AM arms. Regret is
+   printed, not gated.
+
 Before the last line it prints the card's name and power limit, the
 median time per batch of each data-structure arm and per decode step, the
 prefills' times, one JSON line with the report, and one JSON line with
@@ -149,6 +186,7 @@ from __future__ import annotations
 import argparse
 import copy
 import ctypes
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -1270,6 +1308,571 @@ def phase_cpu_vs_gpu(seed: int, device) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Phases 10 and 11: the cost model calibrated on the card, and the adaptive
+# chooser (backend="auto") against every fixed arm
+# ---------------------------------------------------------------------------
+COMPONENT_ROWS = ("put", "get", "fad", "fad_single", "cas_single",
+                  "cas_persistent", "cas_persistent_planned", "cas_put",
+                  "cas_put_pub", "fao_get", "am_rt")
+COMPONENT_ITERS, COMPONENT_WARMUP = 15, 3
+AUTO_ARMS = ("rdma", "rdma_fused", "am", "am_pt")
+AUTO_MIXES = ("uniform", "zipfian", "hot", "inattentive")
+AUTO_BATCHES = 16
+AUTO_SEED_REPS = 3          # reps per arm that seed the chooser's EWMAs
+AUTO_EXPLORE_EVERY = 8
+
+
+def component_rows(seed: int, device, sync, p: int = P, n: int = N,
+                   nslots: int = NSLOTS, iters: int = COMPONENT_ITERS
+                   ) -> dict:
+    """Phase 10: median host µs per op of one call of each component
+    operation (the rows of the JAX package's benchmarks/components.py,
+    copied here), p x n ops a call on a window of p ranks x nslots x 3
+    words, each call ending in a synchronize."""
+    import torch
+    from repro_torch.core import am, hashtable as ht, routing, window
+    from repro_torch.core.types import AmoKind
+    local = nslots * (2 + VW)
+    rng = np.random.default_rng(seed)
+    dst = torch.as_tensor(rng.integers(0, p, (p, n)), dtype=torch.int32,
+                          device=device)
+    off = torch.as_tensor(rng.integers(0, local, (p, n)), dtype=torch.int32,
+                          device=device)
+    win = window.make_window(p, local, device=device)
+    zero_off = torch.zeros_like(off)
+    ones = torch.ones((p, n, 1), dtype=torch.int32, device=device)
+    vals2 = torch.ones((p, n, 2), dtype=torch.int32, device=device)
+
+    def persistent(w, plan):
+        # poll until success: swap cur -> cur + 1, retry on conflict
+        cur = window.rdma_get(w, dst, zero_off, width=1, plan=plan)[..., 0]
+        pending = torch.ones((p, n), dtype=torch.bool, device=device)
+        for _ in range(8):
+            old, w = window.rdma_cas(w, dst, zero_off, cur, cur + 1,
+                                     valid=pending, plan=plan)
+            pending = pending & ~(old == cur)
+            cur = old
+        return w
+
+    table = ht.make_hashtable(p, nslots, VW, device=device)
+    engine = am.AMEngine(p)
+    ht.build_am_handlers(table, engine)
+    keys = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        1, 1 << 20, (p, n)), dtype=torch.int32, device=device)
+    calls = {
+        "put": lambda: window.rdma_put(win, dst, off, ones),
+        "get": lambda: window.rdma_get(win, dst, off, width=1),
+        "fad": lambda: window.rdma_fao(win, dst, off, 1, AmoKind.FAA),
+        "fad_single": lambda: window.rdma_fao(win, dst, zero_off, 1,
+                                              AmoKind.FAA),
+        "cas_single": lambda: window.rdma_cas(win, dst, off, 0, 1),
+        "cas_persistent": lambda: persistent(win, None),
+        "cas_persistent_planned": lambda: persistent(
+            win, routing.make_plan(dst, cap=n)),
+        "cas_put": lambda: window.rdma_cas_put(win, dst, off, 0, 1, off + 1,
+                                               vals2),
+        "cas_put_pub": lambda: window.rdma_cas_put_publish(
+            win, dst, off, 0, 1, off + 1, vals2, 3),
+        "fao_get": lambda: window.rdma_fao_get(win, dst, off, 1, AmoKind.FAA,
+                                               off, 3),
+        "am_rt": lambda: ht.insert_rpc(table, engine, keys, keys[..., None]),
+    }
+    rows = {}
+    for name in COMPONENT_ROWS:
+        for _ in range(COMPONENT_WARMUP):
+            calls[name]()
+            sync()
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            calls[name]()
+            sync()
+            times.append(time.perf_counter() - t0)
+        rows[name] = statistics.median(times) / (p * n) * 1e6
+    return rows
+
+
+def calibrated_costs(rows: dict):
+    """The JAX package's benchmarks/components.py `calibrated_costs`: the
+    rows as the model's components, handler time folded into am_rt."""
+    from repro_torch.core import costmodel as cm
+    return cm.calibrate({
+        "W": rows["put"], "R": rows["get"], "A_cas": rows["cas_single"],
+        "A_fao": rows["fad"], "am_rt": rows["am_rt"],
+        "A_cas_put": rows.get("cas_put"),
+        "A_cas_put_pub": rows.get("cas_put_pub"),
+        "A_fao_get": rows.get("fao_get"),
+        "handler": 0.0,
+    })
+
+
+def owner_targets(p: int, n: int, mix: str, rng) -> np.ndarray:
+    """(p, n) target owner per op, as the JAX package's
+    benchmarks/common.py: uniform; zipfian, p(owner r) ∝ 1/(r+1)^1.5;
+    hot, every op to owner 0 (the inattentive mix is uniform)."""
+    if mix in ("uniform", "inattentive"):
+        return rng.integers(0, p, (p, n))
+    if mix == "zipfian":
+        probs = 1.0 / np.arange(1, p + 1) ** 1.5
+        probs /= probs.sum()
+        return rng.choice(p, size=(p, n), p=probs)
+    if mix == "hot":
+        return np.zeros((p, n), np.int64)
+    raise ValueError(f"unknown mix {mix!r}")
+
+
+def _scramble26(i: np.ndarray) -> np.ndarray:
+    """A bijection of [0, 2**26): odd multiplies and xorshifts."""
+    m = np.uint64(2 ** 26 - 1)
+    x = i.astype(np.uint64) & m
+    for c in (0x2545F491, 0x9E3779B1):
+        x = (x * np.uint64(c)) & m
+        x ^= x >> np.uint64(13)
+    return x
+
+
+def _unmix(h: np.ndarray) -> np.ndarray:
+    """The inverse of the hash table's 32-bit mix (hashtable.hash_mix_np)."""
+    k = h.astype(np.uint32)
+    k = k ^ (k >> np.uint32(16))
+    k = k * np.uint32(pow(0xC2B2AE35, -1, 2 ** 32))
+    k = k ^ (k >> np.uint32(13)) ^ (k >> np.uint32(26))
+    k = k * np.uint32(pow(0x85EBCA6B, -1, 2 ** 32))
+    return k ^ (k >> np.uint32(16))
+
+
+def keys_for_owners(targets: np.ndarray, p: int, first: int) -> np.ndarray:
+    """Distinct int32 keys, key i of `targets` owned by targets[i]: the
+    mix value owner + p * j for j the scrambled index first + i (distinct
+    indices give distinct keys), mapped back through the inverse mix."""
+    i = np.arange(targets.size, dtype=np.int64) + first
+    h = (targets.reshape(-1).astype(np.uint64)
+         + np.uint64(p) * _scramble26(i))
+    return _unmix(h).view(np.int32).reshape(targets.shape)
+
+
+def auto_stream(seed: int, mix: str, p: int, n: int, batches: int) -> list:
+    """Per batch: (insert keys, find keys, present mask of the find), the
+    find holding the inserted key in even columns and a key never
+    inserted, of the same owner, in odd columns; keys distinct across the
+    whole stream."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(batches):
+        targets = owner_targets(p, n, mix, rng)
+        keys = keys_for_owners(targets, p, 2 * b * p * n)
+        absent = keys_for_owners(targets, p, (2 * b + 1) * p * n)
+        present = np.zeros((p, n), bool)
+        present[:, ::2] = True
+        out.append((keys, np.where(present, keys, absent), present))
+    return out
+
+
+def busy_wait(us: float) -> None:
+    """Spin for `us` microseconds: the inattentive owner's compute."""
+    t_end = time.perf_counter() + us * 1e-6
+    while time.perf_counter() < t_end:
+        pass
+
+
+class Accounted:
+    """Host µs of a call ending in a synchronize, as the JAX package's
+    adaptive_bench accounts it: the `am` arm also waits half of the
+    owner's busy time, `am_pt` pays the progress-thread factor instead."""
+
+    def __init__(self, sync, busy_us: float, pt_overhead: float):
+        self.sync, self.busy, self.pt = sync, busy_us, pt_overhead
+
+    def __call__(self, arm: str, fn):
+        """(accounted µs, fn()) for a fixed arm."""
+        t0 = time.perf_counter()
+        if arm == "am" and self.busy:
+            busy_wait(self.busy / 2.0)
+        out = fn()
+        self.sync()
+        us = (time.perf_counter() - t0) * 1e6
+        return (us * self.pt if arm == "am_pt" else us), out
+
+    def auto(self, chooser, spent: list, fn):
+        """(accounted µs, decision, fn()) for one front-door call with the
+        default backend: the accounting of the arm the chooser took, plus
+        the time its decide() took (in `spent`, see timed_decide), which
+        is charged but not observed; the chooser observes the rest, as
+        adaptive_bench does."""
+        n_spent = len(spent)
+        t0 = time.perf_counter()
+        out = fn()
+        dec = chooser.last_decision
+        if dec.arm == "am" and self.busy:
+            busy_wait(self.busy / 2.0)
+        self.sync()
+        decide_us = sum(spent[n_spent:])
+        us = (time.perf_counter() - t0) * 1e6 - decide_us
+        if dec.arm == "am_pt":
+            us *= self.pt
+        chooser.observe(dec, us / dec.batch_ops)
+        return us + decide_us, dec, out
+
+
+def timed_decide(chooser) -> list:
+    """Wrap chooser.decide to record the µs of each call (returned list)."""
+    spent = []
+    decide = chooser.decide
+
+    def wrapped(*a, **kw):
+        t0 = time.perf_counter()
+        dec = decide(*a, **kw)
+        spent.append((time.perf_counter() - t0) * 1e6)
+        return dec
+    chooser.decide = wrapped
+    return spent
+
+
+def check_auto_ht(what: str, ok, found, got, keys, fkeys, present) -> None:
+    """Every key whose insert returned ok is found with val_of(key); keys
+    never inserted, and keys whose insert failed, are not found."""
+    ok, found = ok.cpu().numpy(), found.cpu().numpy()
+    got = got.cpu().numpy()[..., 0]
+    want = present & ok
+    if not np.array_equal(found, want):
+        raise AssertionError(f"phase 11: {what}: {int((found != want).sum())}"
+                             f" finds disagree with the inserts")
+    if not np.array_equal(got, np.where(want, val_of(fkeys), 0)):
+        raise AssertionError(f"phase 11: {what}: found values differ")
+
+
+def check_queue_batch(what: str, ok, got, vals, items: np.ndarray) -> None:
+    """Every push succeeded and the pops return them in ticket order."""
+    got, vals = got.cpu().numpy(), vals.cpu().numpy()
+    if not (bool(ok.all()) and got.all() and np.array_equal(
+            vals[got], items.reshape(-1, Q_VW))):
+        raise AssertionError(f"phase 11: queue {what}: pops are not the "
+                             f"pushes in ticket order")
+
+
+def check_logged(chooser, n_log: int, decs, what: str) -> None:
+    if len(chooser.log) != n_log + len(decs) or any(
+            set(d.scores) != set(AUTO_ARMS) for d in decs):
+        raise AssertionError(f"phase 11: {what}: a call did not log one "
+                             f"Decision with scores for the four arms")
+
+
+def add_launches(arm_launches: dict, key: str, delta: dict) -> None:
+    """Add the nonzero launch counts of `delta` to arm_launches[key]."""
+    tot = arm_launches.setdefault(key, {})
+    for k, v in delta.items():
+        if v:
+            tot[k] = tot.get(k, 0) + v
+
+
+class Stream:
+    """One stream of phase 11: per batch the four fixed arms, then AUTO
+    (an AdaptiveEngine with the AM engine, the calibrated `params` and
+    explore_every 8), each a pair of calls (insert + find, or push + pop)
+    from the same empty state. `fixed_pair(arm, b)` and `auto_pair(b)`
+    return (µs, µs, results...); the launches of each pair go to
+    arm_launches under `prefix` + the arm."""
+
+    def __init__(self, chooser, acc, counts, arm_launches, prefix: str):
+        self.chooser, self.acc, self.counts = chooser, acc, counts
+        self.arm_launches, self.prefix = arm_launches, prefix
+        self.spent = None
+        self.fixed = {a: ([], []) for a in AUTO_ARMS}
+        self.auto, self.chosen = [], ({}, {})
+
+    def seed(self, ops_of, fixed_pair) -> None:
+        """One untimed pair of each arm (warm-up), then the chooser's EWMAs
+        seeded with the median of AUTO_SEED_REPS accounted reps of each
+        arm on the first batch, as adaptive_bench does. ops_of: the
+        (DSOp, ops) of the pair's two calls."""
+        from repro_torch.core.adaptive import Decision
+        from repro_torch.core.types import Promise
+        for arm in AUTO_ARMS:
+            fixed_pair(arm, 0)
+        for arm in AUTO_ARMS:
+            reps = [fixed_pair(arm, 0)[:2] for _ in range(AUTO_SEED_REPS)]
+            for idx, (op, ops) in enumerate(ops_of):
+                dec = Decision(op=op, promise=Promise.CRW, arm=arm,
+                               skew=1.0, scores={}, source="calibration",
+                               batch_ops=ops)
+                self.chooser.observe(
+                    dec, float(np.median([r[idx] for r in reps])) / ops)
+        self.counts()
+        self.spent = timed_decide(self.chooser)
+
+    def batch(self, b: int, fixed_pair, auto_pair, check) -> None:
+        for arm in AUTO_ARMS:
+            out = fixed_pair(arm, b)
+            add_launches(self.arm_launches, self.prefix + arm, self.counts())
+            check(arm, *out[2:])
+            self.fixed[arm][0].append(out[0])
+            self.fixed[arm][1].append(out[1])
+        n_log = len(self.chooser.log)
+        decs, out = auto_pair(b)
+        delta = self.counts()
+        if decs[0].arm == decs[1].arm:
+            add_launches(self.arm_launches,
+                         f"{self.prefix}auto {decs[0].arm}", delta)
+        check_logged(self.chooser, n_log, decs, self.prefix + "auto")
+        check("auto", *out[2:])
+        self.auto.append(out[0] + out[1])
+        for chosen, d in zip(self.chosen, decs):
+            chosen[d.arm] = chosen.get(d.arm, 0) + 1
+
+    def report(self, ops: int, ops_of, mstats, params) -> dict:
+        """Medians of µs per batch; regret = AUTO / best fixed - 1; the
+        arms chosen; the model beside the measured µs per op."""
+        pairs = {a: [x + y for x, y in zip(*v)]
+                 for a, v in self.fixed.items()}
+        med = {a: statistics.median(v) for a, v in pairs.items()}
+        best = min(med, key=med.get)
+        auto = statistics.median(self.auto)
+        return dict(
+            fixed_us=med, best_fixed=best, auto_us=auto,
+            regret=auto / med[best] - 1.0, ops=ops,
+            chosen={name: c for (name, _, _), c in zip(ops_of, self.chosen)},
+            decide_us_per_batch=sum(self.spent) / len(self.auto),
+            sources=sorted({d.source for d in self.chooser.log}),
+            model={name: model_vs_measured(
+                op, promise, mstats, params,
+                {a: statistics.median(self.fixed[a][idx]) / ops
+                 for a in AUTO_ARMS})
+                for idx, (name, op, promise) in enumerate(ops_of)})
+
+
+def model_vs_measured(op, promise, stats, params, measured: dict) -> dict:
+    """The calibrated model's predict_arm per arm beside the measured µs
+    per op, and whether their argmins agree (the paper's §VI question;
+    the model's ties go as the chooser breaks them)."""
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core.adaptive import AdaptiveEngine
+    model = {a: cm.predict_arm(op, promise, a, stats, params)
+             for a in AUTO_ARMS}
+    rank = AdaptiveEngine._ARM_RANK
+    m_arg = min(model, key=lambda a: (model[a], rank[a]))
+    x_arg = min(measured, key=measured.get)
+    return dict(model_us_per_op=model, measured_us_per_op=measured,
+                model_argmin=m_arg, measured_argmin=x_arg,
+                agree=m_arg == x_arg)
+
+
+def phase_auto_ht(seed: int, device, sync, params, counts, arm_launches,
+                  p: int = P, n: int = N, nslots: int = NSLOTS,
+                  batches: int = AUTO_BATCHES) -> dict:
+    """Phase 11's hash-table mixes: per batch, the four fixed arms and
+    AUTO back to back, each an insert (C_RW) and a find (C_R) from the
+    same empty table, through the front doors. `counts()` gives the
+    kernel launches since its last call."""
+    import torch
+    from repro_torch.core import adaptive as ad, am, hashtable as ht
+    from repro_torch.core.costmodel import DSOp
+    from repro_torch.core.types import OpStats, Promise
+    ops = p * n
+    t0 = ht.make_hashtable(p, nslots, VW, device=device)
+    engine = am.AMEngine(p)
+    ht.build_am_handlers(t0, engine)
+    ops_of = (("insert", DSOp.HT_INSERT, Promise.CRW),
+              ("find", DSOp.HT_FIND, Promise.CR))
+    report, busy_ref = {}, 0.0
+    for mi, mix in enumerate(AUTO_MIXES):
+        busy = busy_ref if mix == "inattentive" else 0.0
+        acc = Accounted(sync, busy, params.pt_overhead)
+        stats = OpStats(target_busy_us=busy)
+        batch_np = auto_stream(seed + 100 + mi, mix, p, n, batches)
+        batch = [[torch.as_tensor(x, device=device)
+                  for x in (k, val_of(k)[..., None], f)]
+                 for k, f, _ in batch_np]
+
+        def fixed_pair(arm, b):
+            keys, vals, fkeys = batch[b]
+            if arm in ("am", "am_pt"):
+                kw = dict(backend="rpc", engine=engine)
+            else:
+                kw = dict(backend="rdma", fused=arm == "rdma_fused")
+            us_i, (t, ok, _) = acc(arm, lambda: ht.insert(
+                t0, keys, vals, promise=Promise.CRW, **kw))
+            us_f, (_, found, got) = acc(arm, lambda: ht.find(
+                t, fkeys, promise=Promise.CR, **kw))
+            return us_i, us_f, ok, found, got, b
+
+        def auto_pair(b):
+            keys, vals, fkeys = batch[b]
+            us_i, dec_i, (t, ok, _) = acc.auto(
+                chooser, s.spent, lambda: ht.insert(
+                    t0, keys, vals, promise=Promise.CRW, engine=engine,
+                    adaptive=chooser, stats=stats))
+            us_f, dec_f, (_, found, got) = acc.auto(
+                chooser, s.spent, lambda: ht.find(
+                    t, fkeys, promise=Promise.CR, engine=engine,
+                    adaptive=chooser, stats=stats))
+            return (dec_i, dec_f), (us_i, us_f, ok, found, got, b)
+
+        def check(arm, ok, found, got, b):
+            k, f, present = batch_np[b]
+            check_auto_ht(f"{mix} {arm}", ok, found, got, k, f, present)
+
+        chooser = ad.AdaptiveEngine(p, am_engine=engine, params=params,
+                                    explore_every=AUTO_EXPLORE_EVERY)
+        s = Stream(chooser, acc, counts, arm_launches, "")
+        counts()
+        s.seed(((DSOp.HT_INSERT, ops), (DSOp.HT_FIND, ops)), fixed_pair)
+        for b in range(batches):
+            s.batch(b, fixed_pair, auto_pair, check)
+        skew = float(np.mean([ad.batch_skew(
+            ht.place_np(p, nslots, k)[0], p) for k, _, _ in batch_np]))
+        report[mix] = s.report(ops, ops_of, OpStats(
+            target_busy_us=busy, skew=skew, nranks=p), params)
+        report[mix].update(busy_us=busy, skew_mean=skew)
+        if mix == "uniform":
+            busy_ref = 2.0 * statistics.median(
+                x + y for x, y in zip(*s.fixed["rdma_fused"]))
+    return report
+
+
+def phase_auto_queue(seed: int, device, sync, params, counts, arm_launches,
+                     p: int = P, n: int = Q_N, cap: int = Q_CAP,
+                     batches: int = AUTO_BATCHES) -> dict:
+    """Phase 11's queue stream: per batch, a push (C_RW) of p x n items
+    and a pop (C_R) of n a rank from the same empty queue, on the four
+    fixed arms and AUTO; the pops must return the pushes in ticket
+    order."""
+    import torch
+    from repro_torch.core import adaptive as ad, am, queue as dq
+    from repro_torch.core.costmodel import DSOp
+    from repro_torch.core.types import OpStats, Promise
+    ops = p * n
+    q0 = dq.make_queue(p, Q_HOST, cap, Q_VW, device=device)
+    engine = am.AMEngine(p)
+    dq.build_am_handlers(q0, engine)
+    acc = Accounted(sync, 0.0, params.pt_overhead)
+    items = queue_items(seed + 200, batches, p, n)
+    it_dev = torch.as_tensor(items, device=device)
+
+    def fixed_pair(arm, b):
+        if arm in ("am", "am_pt"):
+            kw = dict(backend="rpc", engine=engine)
+        else:
+            kw = dict(backend="rdma", planned=arm == "rdma_fused")
+        us_p, (q, ok) = acc(arm, lambda: dq.push(
+            q0, it_dev[b], promise=Promise.CRW, **kw))
+        us_o, (_, got, vals) = acc(arm, lambda: dq.pop(
+            q, n, promise=Promise.CR, **kw))
+        return us_p, us_o, ok, got, vals, b
+
+    def auto_pair(b):
+        us_p, dec_p, (q, ok) = acc.auto(chooser, s.spent, lambda: dq.push(
+            q0, it_dev[b], promise=Promise.CRW, engine=engine,
+            adaptive=chooser))
+        us_o, dec_o, (_, got, vals) = acc.auto(
+            chooser, s.spent, lambda: dq.pop(
+                q, n, promise=Promise.CR, engine=engine, adaptive=chooser))
+        return (dec_p, dec_o), (us_p, us_o, ok, got, vals, b)
+
+    def check(arm, ok, got, vals, b):
+        check_queue_batch(arm, ok, got, vals, items[b])
+
+    chooser = ad.AdaptiveEngine(p, am_engine=engine, params=params,
+                                explore_every=AUTO_EXPLORE_EVERY)
+    s = Stream(chooser, acc, counts, arm_launches, "queue ")
+    counts()
+    s.seed(((DSOp.Q_PUSH, ops), (DSOp.Q_POP, ops)), fixed_pair)
+    for b in range(batches):
+        s.batch(b, fixed_pair, auto_pair, check)
+    return s.report(ops, (("push", DSOp.Q_PUSH, Promise.CRW),
+                          ("pop", DSOp.Q_POP, Promise.CR)),
+                    OpStats(skew=float(p), nranks=p), params)
+
+
+def forced_arms(device, sync, counts, arm_launches, p: int = P,
+                n: int = N, nslots: int = NSLOTS, qn: int = Q_N,
+                cap: int = Q_CAP) -> None:
+    """Each of the four arms once through the AUTO front doors
+    (`force_arm`), on a hash-table batch and a queue batch: every arm
+    really runs behind backend="auto", whatever the chooser picked in the
+    timed streams. Launches go to arm_launches under "forced <arm>"."""
+    import torch
+    from repro_torch.core import adaptive as ad, am, hashtable as ht
+    from repro_torch.core import queue as dq
+    (k_np, f_np, present), = auto_stream(7, "uniform", p, n, 1)
+    keys, fkeys = (torch.as_tensor(x, device=device) for x in (k_np, f_np))
+    vals = torch.as_tensor(val_of(k_np)[..., None], device=device)
+    items = queue_items(300, 1, p, qn)
+    t0 = ht.make_hashtable(p, nslots, VW, device=device)
+    q0 = dq.make_queue(p, Q_HOST, cap, Q_VW, device=device)
+    for arm in AUTO_ARMS:
+        e_ht, e_q = am.AMEngine(p), am.AMEngine(p)
+        a_ht = ad.AdaptiveEngine(p, am_engine=e_ht)
+        a_q = ad.AdaptiveEngine(p, am_engine=e_q)
+        a_ht.force_arm = a_q.force_arm = arm
+        counts()
+        t, ok, _ = ht.insert(t0, keys, vals, engine=e_ht, adaptive=a_ht)
+        _, found, got = ht.find(t, fkeys, engine=e_ht, adaptive=a_ht)
+        sync()
+        add_launches(arm_launches, f"forced {arm}", counts())
+        check_auto_ht(f"forced {arm}", ok, found, got, k_np, f_np, present)
+        q, okq = dq.push(q0, torch.as_tensor(items[0], device=device),
+                         engine=e_q, adaptive=a_q)
+        _, gq, vq = dq.pop(q, qn, engine=e_q, adaptive=a_q)
+        sync()
+        add_launches(arm_launches, f"forced queue {arm}", counts())
+        check_queue_batch(f"forced {arm}", okq, gq, vq, items[0])
+        if {d.arm for d in a_ht.log} | {d.arm for d in a_q.log} != {arm}:
+            raise AssertionError(f"phase 11: forced {arm} ran another arm")
+
+
+def log_auto(auto: dict, card: str) -> None:
+    """Phase 11's lines: per stream the medians, regret and arms chosen,
+    and per op the model beside the measurements."""
+    for name, rep in auto.items():
+        log(f"phase 11: {name}: median us per batch (insert + find, or push "
+            f"+ pop; {rep['ops']} ops each): "
+            + ", ".join(f"{a} {v:.1f}" for a, v in rep["fixed_us"].items())
+            + f"; auto {rep['auto_us']:.1f} (decide "
+            f"{rep['decide_us_per_batch']:.1f} a batch); regret "
+            f"{rep['regret']:+.4f} against {rep['best_fixed']}; chosen "
+            f"{rep['chosen']} ({', '.join(rep['sources'])}; {card})")
+        for op, m in rep["model"].items():
+            log(f"phase 11: {name} {op}: model us/op "
+                + ", ".join(f"{a} {v:.6f}" for a, v in
+                            m["model_us_per_op"].items())
+                + "; measured " + ", ".join(
+                    f"{a} {v:.6f}" for a, v in
+                    m["measured_us_per_op"].items())
+                + f"; argmin model {m['model_argmin']}, measured "
+                f"{m['measured_argmin']}: "
+                + ("agree" if m["agree"] else "DISAGREE"))
+
+
+# the owner-lane kernels each arm must (and must not) launch
+ARM_KERNELS = {"rdma": ({"amo_apply"}, {"hash_find", "hash_insert"}),
+               "rdma_fused": ({"fused_apply"}, {"hash_find", "hash_insert"}),
+               "am": ({"hash_find", "hash_insert"},
+                      {"amo_apply", "fused_apply"}),
+               "am_pt": ({"hash_find", "hash_insert"},
+                         {"amo_apply", "fused_apply"})}
+# the hosted queue: its one-sided arms run B1; its handlers are plain torch
+QUEUE_KERNELS = {"rdma": ({"amo_apply"}, set(DS_KERNELS) - {"amo_apply"}),
+                 "rdma_fused": ({"amo_apply"},
+                                set(DS_KERNELS) - {"amo_apply"}),
+                 "am": (set(), set(DS_KERNELS)),
+                 "am_pt": (set(), set(DS_KERNELS))}
+
+
+def check_arm_launches(arm_launches: dict) -> None:
+    """B1/B2 on the one-sided arms, B3/B4 on the AM arms, in every entry
+    of arm_launches (fixed, AUTO-chosen and forced)."""
+    for key, got in arm_launches.items():
+        arm = key.split()[-1]
+        table = QUEUE_KERNELS if "queue" in key else ARM_KERNELS
+        need, never = table[arm]
+        bad = [k for k in need if not got.get(k)] + [
+            k for k in never if got.get(k)]
+        if bad:
+            raise AssertionError(f"phase 11: {key} launched {got}; "
+                                 f"{sorted(bad)} wrong for that arm")
+
+
+# ---------------------------------------------------------------------------
 # Phases 5 to 9: the serving and prefill paths
 # ---------------------------------------------------------------------------
 def describe(cfg, model) -> tuple:
@@ -1905,6 +2508,45 @@ def main() -> int:
         f"{rg_check['split_len']} tokens (chunked_flash split, launches "
         f"{rg_check['split_launches']}) equal CPU vs GPU (max abs err "
         f"{rg_check['split_cpu_vs_gpu']:.3e})")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    comp = component_rows(args.seed, device, torch.cuda.synchronize)
+    fitted = calibrated_costs(comp)
+    counts = read_counts(("amo_apply", "fused_apply", "hash_insert"))
+    record("phase 10", counts, DS_KERNELS)
+    log(f"phase 10: component us per op ({P} ranks x {N} ops a call, "
+        f"median of {COMPONENT_ITERS} calls; {card}): "
+        + ", ".join(f"{k} {v:.6f}" for k, v in comp.items()))
+    log(f"phase 10: fitted {fitted}")
+    log(f"phase 10: Fig. 3 ratios: cas_persistent / cas_single "
+        f"{comp['cas_persistent'] / comp['cas_single']:.3f}, fad_single / "
+        f"fad {comp['fad_single'] / comp['fad']:.3f}; launches {counts} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    report["components"] = dict(us_per_op=comp, fitted=dataclasses.asdict(
+        fitted), launches=counts)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    counter, arm_launches = launch_counter(), {}
+    sync = torch.cuda.synchronize
+    auto = phase_auto_ht(args.seed, device, sync, fitted, counter,
+                         arm_launches)
+    auto["queue"] = phase_auto_queue(args.seed, device, sync, fitted,
+                                     counter, arm_launches)
+    forced_arms(device, sync, counter, arm_launches)
+    counts = read_counts(DS_KERNELS)
+    record("phase 11", counts, DS_KERNELS)
+    check_arm_launches(arm_launches)
+    taken = {a for rep in auto.values() for per_op in rep["chosen"].values()
+             for a in per_op}
+    log_auto(auto, card)
+    log(f"phase 11: arms the chooser took: {sorted(taken)}; each of "
+        f"{list(AUTO_ARMS)} also ran forced through backend='auto'; "
+        f"launches by arm {arm_launches}; in all {counts} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    report["auto"] = auto
+    report["auto_launches_by_arm"] = arm_launches
 
     for arm in ARMS:
         r = report[arm]

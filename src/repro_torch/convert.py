@@ -5,13 +5,16 @@ The tests build a structure in JAX, carry `np.asarray(win.data)` across
 with these functions, and continue the same op stream in both packages;
 `to_numpy` brings the port's state back for comparison (or for a JAX
 structure built from it). A model's state is its parameter tree:
-`lm_from_numpy` builds the port's model from the JAX package's.
+`lm_from_numpy` builds the port's model from the JAX package's. The cost
+model's parameters are its constants: `component_costs` carries a
+`ComponentCosts` across as the dict `dataclasses.asdict` gives.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .core.costmodel import ComponentCosts
 from .core.hashtable import DHashTable
 from .core.queue import DQueue
 from .core.window import Window
@@ -54,6 +57,13 @@ def to_numpy(x) -> np.ndarray:
     if isinstance(x, Window):
         x = x.data
     return x.detach().cpu().numpy()
+
+
+def component_costs(d: dict) -> ComponentCosts:
+    """The port's ComponentCosts with the fields of `d` (a JAX package
+    ComponentCosts as `dataclasses.asdict` gives it); a key the port does
+    not know raises."""
+    return ComponentCosts(**d)
 
 
 def _param(a, device) -> torch.Tensor:

@@ -1,13 +1,15 @@
 # The paper's PGAS data structures with selectable RDMA / RPC backends,
 # ported from `repro.core` (same module names, same public functions).
-from . import (am, costmodel, faults, hashtable, queue, routing, types,
-               window)
+from . import (adaptive, am, costmodel, faults, hashtable, queue, routing,
+               types, window)
+from .adaptive import AdaptiveEngine, Decision, default_engine
 from .types import AmoKind, Backend, OpStats, Promise
 from .window import Window, make_window, rdma_cas, rdma_fao, rdma_get, rdma_put
 
 __all__ = [
-    "am", "costmodel", "faults", "hashtable", "queue", "routing", "types",
-    "window",
+    "adaptive", "am", "costmodel", "faults", "hashtable", "queue",
+    "routing", "types", "window",
+    "AdaptiveEngine", "Decision", "default_engine",
     "AmoKind", "Backend", "OpStats", "Promise",
     "Window", "make_window", "rdma_cas", "rdma_fao", "rdma_get", "rdma_put",
 ]

@@ -99,6 +99,9 @@ class AMEngine:
     def handler(self, name: str) -> Handler:
         return self._handlers[name]
 
+    def has_handler(self, name: str) -> bool:
+        return name in self._handlers
+
     def dispatch(self, handler: Handler, state: Any, dst: Tensor,
                  payload: Tensor, valid: Optional[Tensor] = None,
                  cap: Optional[int] = None,

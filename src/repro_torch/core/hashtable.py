@@ -37,8 +37,8 @@ from . import am as am_mod
 from . import routing
 from . import window as win_mod
 from .types import (FLAG_EMPTY, FLAG_READY, FLAG_RESERVED, READ_UNIT,
-                    STATE_MASK, AmoKind, Backend, Promise, as_i32, as_mask,
-                    explicit_backend)
+                    STATE_MASK, AmoKind, Backend, Promise, as_backend,
+                    as_i32, as_mask)
 from .window import (Window, rdma_cas, rdma_cas_put, rdma_cas_put_publish,
                      rdma_fao, rdma_fao_get, rdma_get, rdma_put)
 
@@ -352,29 +352,44 @@ def find_rpc(ht: DHashTable, engine: am_mod.AMEngine, keys, valid=None,
 
 
 # ---------------------------------------------------------------------------
-# Front doors for an explicit backend. Backend.AUTO (the cost-model chooser)
-# is not ported yet.
+# Front doors. backend accepts Backend or its string value; the default is
+# AUTO: the adaptive layer (core/adaptive.py) picks the cheapest arm per
+# batch. Without an AMEngine the AUTO choice is between the one-sided arms
+# (rdma / rdma_fused).
 # ---------------------------------------------------------------------------
 def insert(ht, keys, vals, *, promise=Promise.CRW, backend=Backend.AUTO,
-           engine=None, **kw):
+           engine=None, adaptive=None, **kw):
     """Batched distributed insert — the paper's §III-B1 op.
 
-    keys (P, n) int32 (distinct per batch for RDMA), vals (P, n, vw);
-    backend "rdma" or "rpc" (with `engine`). **kw: valid, max_probes,
-    fused, coalesce (rdma); valid, coalesce (rpc).
+    keys (P, n) int32 (distinct per batch for the RDMA arms), vals
+    (P, n, vw); backend "auto" (default), "rdma" or "rpc" (with `engine`,
+    which AUTO also uses for its AM arms); adaptive: an explicit
+    AdaptiveEngine (default: one cached per nranks or per engine).
+    **kw: valid, max_probes (any backend); stats (AUTO: the chooser's
+    OpStats); fused, coalesce (rdma); coalesce (rpc).
     Returns (table', ok (P, n) bool, probes (P, n) int32)."""
-    if explicit_backend(backend) == Backend.RPC:
+    backend = as_backend(backend)
+    if backend == Backend.AUTO:
+        from . import adaptive as ad
+        a = adaptive or ad.default_engine(ht.nranks, am_engine=engine)
+        return a.ht_insert(ht, keys, vals, promise=promise, **kw)
+    if backend == Backend.RPC:
         return insert_rpc(ht, engine, keys, vals, valid=kw.get("valid"),
                           coalesce=kw.get("coalesce", False))
     return insert_rdma(ht, keys, vals, promise=promise, **kw)
 
 
 def find(ht, keys, *, promise=Promise.CR, backend=Backend.AUTO, engine=None,
-         **kw):
+         adaptive=None, **kw):
     """Batched distributed find. Same backend selection as `insert`.
     Returns (table', found (P, n) bool, vals (P, n, vw) int32), vals zero
     where not found (the table changes only under C_RW reader counts)."""
-    if explicit_backend(backend) == Backend.RPC:
+    backend = as_backend(backend)
+    if backend == Backend.AUTO:
+        from . import adaptive as ad
+        a = adaptive or ad.default_engine(ht.nranks, am_engine=engine)
+        return a.ht_find(ht, keys, promise=promise, **kw)
+    if backend == Backend.RPC:
         found, vals = find_rpc(ht, engine, keys, valid=kw.get("valid"),
                                coalesce=kw.get("coalesce", False))
         return ht, found, vals

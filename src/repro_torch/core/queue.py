@@ -30,8 +30,7 @@ from .. import intops
 from . import am as am_mod
 from . import routing
 from . import window as win_mod
-from .types import (AmoKind, Backend, Promise, as_i32, as_mask,
-                    explicit_backend)
+from .types import AmoKind, Backend, Promise, as_backend, as_i32, as_mask
 from .window import Window, rdma_cas, rdma_fao, rdma_get, rdma_put
 
 Tensor = torch.Tensor
@@ -343,28 +342,42 @@ def pop_rpc(q: DQueue, engine: am_mod.AMEngine, n: int, valid=None,
 
 
 # ---------------------------------------------------------------------------
-# Front doors for an explicit backend (the AUTO chooser is not ported yet).
-# C_L short-circuits before any backend decision (zero network phases).
+# Front doors. The default backend AUTO routes through the adaptive layer
+# (core/adaptive.py). C_L short-circuits before any backend decision (zero
+# network phases).
 # ---------------------------------------------------------------------------
 def push(q, vals, *, promise=Promise.CRW, backend=Backend.AUTO, engine=None,
-         **kw):
+         adaptive=None, **kw):
     """Batched push onto the hosted ring buffer — paper §III-B2.
 
-    vals (P, n, vw) int32 ((n, vw) for C_L); backend "rdma" or "rpc".
+    vals (P, n, vw) int32 ((n, vw) for C_L); backend "auto" (default),
+    "rdma" or "rpc" (with `engine`, which AUTO also uses for its AM arms);
+    adaptive: an explicit AdaptiveEngine (default: cached). **kw: valid,
+    max_cas_rounds (any backend); stats (AUTO); planned, coalesce (rdma).
     Returns (queue', pushed bool)."""
     if promise == Promise.CL:
         return push_local(q, vals, **kw)
-    if explicit_backend(backend) == Backend.RPC:
+    backend = as_backend(backend)
+    if backend == Backend.AUTO:
+        from . import adaptive as ad
+        a = adaptive or ad.default_engine(q.nranks, am_engine=engine)
+        return a.q_push(q, vals, promise=promise, **kw)
+    if backend == Backend.RPC:
         return push_rpc(q, engine, vals, valid=kw.get("valid"))
     return push_rdma(q, vals, promise=promise, **kw)
 
 
 def pop(q, n, *, promise=Promise.CR, backend=Backend.AUTO, engine=None,
-        **kw):
+        adaptive=None, **kw):
     """Batched pop of up to n values per rank. Backends as in `push`.
     Returns (queue', got (P, n) bool, vals (P, n, vw)), zeros where not got."""
     if promise == Promise.CL:
         return pop_local(q, n)
-    if explicit_backend(backend) == Backend.RPC:
+    backend = as_backend(backend)
+    if backend == Backend.AUTO:
+        from . import adaptive as ad
+        a = adaptive or ad.default_engine(q.nranks, am_engine=engine)
+        return a.q_pop(q, n, promise=promise, **kw)
+    if backend == Backend.RPC:
         return pop_rpc(q, engine, n, valid=kw.get("valid"))
     return pop_rdma(q, n, promise=promise, **kw)

@@ -263,6 +263,23 @@ def make_plan_np(dst, valid=None, cap: Optional[int] = None,
                      cap=cap)
 
 
+def owner_loads(plan: RoutePlan) -> Tensor:
+    """Delivered ops per owner rank, from the plan's occupancy mask: the
+    (P,) int32 histogram behind the adaptive layer's skew statistic, on
+    the plan's device."""
+    return plan.mask.sum(dim=(1, 2)).to(torch.int32)
+
+
+def plan_skew(plan: RoutePlan) -> Tensor:
+    """Batch skew statistic as a float32 scalar tensor: max owner load /
+    mean owner load over all P owners (1.0 uniform, P one hot owner).
+    `adaptive.batch_skew` computes the same statistic from `dst` without
+    the plan's occupancy exchange."""
+    loads = owner_loads(plan).to(torch.float32)
+    total = torch.clamp(loads.sum(), min=1.0)
+    return loads.max() * loads.shape[0] / total
+
+
 def route_with_plan(plan: RoutePlan, payload: Tensor,
                     active: Optional[Tensor] = None,
                     role: str = "req") -> Routed:

@@ -29,7 +29,7 @@ class Promise(enum.Enum):
 class Backend(enum.Enum):
     RDMA = "rdma"   # one-sided component ops (put/get/CAS/FAO phases)
     RPC = "rpc"     # aggregated active messages (one round trip + handler)
-    AUTO = "auto"   # cost-model-selected (not ported yet)
+    AUTO = "auto"   # cost-model-selected per batch (core/adaptive.py)
 
 
 def as_backend(backend) -> "Backend":
@@ -69,17 +69,6 @@ STATE_MASK = 255
 EMPTY_KEY = -0x7FFFFFFF  # sentinel for "no key present"
 
 
-def explicit_backend(backend) -> "Backend":
-    """A Backend the front doors can run: RDMA or RPC. AUTO needs the
-    cost-model chooser, which is not ported yet."""
-    backend = as_backend(backend)
-    if backend == Backend.AUTO:
-        raise NotImplementedError(
-            "backend='auto' needs the adaptive chooser, not ported yet; "
-            "pass backend='rdma' or 'rpc'")
-    return backend
-
-
 def as_i32(x, device) -> torch.Tensor:
     """A tensor, array or scalar as an int32 tensor on `device`."""
     return torch.as_tensor(x, dtype=torch.int32, device=device)
@@ -94,9 +83,12 @@ def as_mask(x, shape, device) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class OpStats:
-    """Workload statistics for the cost model's backend chooser (the cost
-    model and the adaptive chooser are not ported yet; the fields and
-    defaults match `repro.core.types.OpStats`)."""
+    """Workload statistics fed to the cost model's backend chooser (the
+    fields and defaults of `repro.core.types.OpStats`, whose comments say
+    what each prices: skew = max owner load / mean, dedup = distinct-row
+    fraction, target_busy_us = the owner's compute between dispatch
+    points, loss_rate and abort_rate = measured retry probabilities,
+    nranks = P, 0 for unknown)."""
 
     ops_per_rank: int = 1
     payload_bytes: int = 8

@@ -18,7 +18,7 @@ from repro_torch.core.types import Promise
 from repro_torch.kernels import lane_cases, ops as kops
 from repro_torch.kernels import ref as kref
 from torch_parity import (amo_inputs, cuda_device, probe_table,  # noqa: F401
-                          same)
+                          run_port_auto, same)
 
 
 def _on(dev, *xs):
@@ -648,3 +648,17 @@ def test_dispatch_and_find_cases_reject_planted_faults(cuda_device, fault,
     bad = _with_planted_fault(lib, old, new, tmp_path, differing)
     print(f"{fault}: differs on " + "; ".join(bad))
     assert label in bad
+
+
+def test_auto_stream_on_cuda_equals_cpu(cuda_device):
+    """The AUTO stream (hashtable.insert / find with no backend argument,
+    measure=False) takes the same arms on the card as on the CPU, with
+    equal results and an equal final window, bit for bit."""
+    from repro_torch.core import costmodel as cm
+    arms, res, data = run_port_auto("cpu", cm.H100_SXM)
+    arms_g, res_g, data_g = run_port_auto(cuda_device, cm.H100_SXM)
+    assert arms_g == arms
+    assert len(set(arms)) > 1
+    for i, (x, y) in enumerate(zip(res_g, res)):
+        same(x, y, f"result {i}")
+    same(data_g, data, "final window")

@@ -16,6 +16,7 @@ from repro.core import am as jam
 from repro.core import hashtable as jht
 from repro.core.types import Promise as JPromise
 from repro_torch import convert
+from repro_torch.core import adaptive as tad
 from repro_torch.core import am as tam
 from repro_torch.core import hashtable as tht
 from repro_torch.core.types import Promise
@@ -167,7 +168,8 @@ def test_rpc_stream_matches_jax(coalesce):
 
 def test_front_doors_and_valid_masks():
     """insert/find front doors with explicit backends and a valid mask;
-    AUTO waits for the adaptive chooser."""
+    with no backend argument (AUTO) the adaptive chooser picks a
+    one-sided arm and the result is that arm's."""
     vw = 1
     ks, vals = _keys(6, 2, vw)
     valid = np.random.default_rng(1).random((P, N)) > 0.3
@@ -188,8 +190,14 @@ def test_front_doors_and_valid_masks():
                          valid=tt(valid))
     same(ft, fj)
     same(vt, vj)
-    with pytest.raises(NotImplementedError):
-        tht.insert(htt, tt(ks[1]), tt(vals[1]))
+    a = tad.AdaptiveEngine(P)
+    auto = tht.insert(htt, tt(ks[0]), tt(vals[0]), adaptive=a)
+    arm = a.last_decision.arm
+    assert arm in ("rdma", "rdma_fused")
+    for x, y in zip(auto[1:] + (auto[0].win.data,), (
+            lambda r: r[1:] + (r[0].win.data,))(tht.insert_rdma(
+                htt, tt(ks[0]), tt(vals[0]), fused=arm == "rdma_fused"))):
+        same(x, y)
     with pytest.raises(NotImplementedError):
         tht.find_rdma(htt, tt(ks[1]), cache=object())
 

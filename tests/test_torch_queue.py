@@ -12,6 +12,7 @@ from repro.core import am as jam
 from repro.core import queue as jq
 from repro.core.types import Promise as JPromise
 from repro_torch import convert
+from repro_torch.core import adaptive as tad
 from repro_torch.core import am as tam
 from repro_torch.core import queue as tq
 from repro_torch.core.types import Promise
@@ -97,7 +98,8 @@ def test_rpc_stream_matches_jax(checksum):
 
 def test_local_ops_and_front_doors_match_jax():
     """C_L push/pop at the host, and push/pop front doors for explicit
-    backends on the same stream; AUTO waits for the adaptive chooser."""
+    backends on the same stream; with no backend argument (AUTO) the
+    chooser runs an arm whose result equals the same fixed arm's."""
     vals = _vals(5, 2)
     qj = jq.make_queue(P, host=2, capacity=16, val_words=VW)
     qt = _carry(qj)
@@ -122,5 +124,13 @@ def test_local_ops_and_front_doors_match_jax():
     same(gt, gj)
     same(vt, vj)
     same(convert.to_numpy(qt), qj.win.data)
-    with pytest.raises(NotImplementedError):
-        tq.push(qt, tt(vals[1]))
+    a = tad.AdaptiveEngine(P, am_engine=et)
+    qa, oka = tq.push(qt, tt(vals[1]), engine=et, adaptive=a)
+    arm = a.last_decision.arm
+    if arm in ("am", "am_pt"):
+        qr, okr = tq.push(qt, tt(vals[1]), backend="rpc", engine=et)
+    else:
+        qr, okr = tq.push(qt, tt(vals[1]), backend="rdma",
+                          planned=arm == "rdma_fused")
+    same(oka, okr)
+    same(convert.to_numpy(qa), convert.to_numpy(qr))

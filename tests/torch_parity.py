@@ -111,3 +111,67 @@ def jax_and_port_models(name, seed=0):
     model = convert.lm_from_numpy(tcfg, jax.tree.map(np.asarray, params),
                                   "cpu")
     return jcfg, params, tcfg, model
+
+
+# ---------------------------------------------------------------------------
+# The AUTO stream: one op stream through the hash table's default backend,
+# replayed in the JAX package, in the port on the CPU and on the card
+# ---------------------------------------------------------------------------
+AUTO_P, AUTO_NSLOTS, AUTO_N = 4, 64, 6
+# owner compute between dispatch points, per batch: flips the AM arms
+AUTO_BUSY_US = (0.0, 0.0, 0.5, 0.0, 0.05, 0.0, 0.5, 0.0)
+
+
+def auto_stream(seed=0):
+    """Per batch: insert keys (P, N) with a duplicate pair in odd batches
+    (dedup < 1 turns coalescing on), find keys (every inserted key of the
+    batch's first half and as many never inserted), and the owner's busy
+    µs. Values are derived from the key, so duplicates are identical."""
+    rng = np.random.default_rng(seed)
+    nb = len(AUTO_BUSY_US)
+    pool = rng.choice(2 ** 20, size=2 * nb * AUTO_P * AUTO_N,
+                      replace=False).astype(np.int32) + 1
+    pool = pool.reshape(2 * nb, AUTO_P, AUTO_N)
+    out = []
+    for b, busy in enumerate(AUTO_BUSY_US):
+        keys = pool[2 * b].copy()
+        if b % 2:
+            keys[:, 1] = keys[:, 0]
+        half = AUTO_N // 2
+        fkeys = np.concatenate([keys[:, :half], pool[2 * b + 1][:, :half]],
+                               axis=1)
+        out.append((keys, fkeys, busy))
+    return out
+
+
+def auto_val(keys):
+    return ((np.asarray(keys) * 31 + 7) & 0x7FFFFF)[..., None]
+
+
+def run_port_auto(device, params, stream=None):
+    """The AUTO stream through the port's `hashtable.insert` / `find` with
+    no backend argument (an AdaptiveEngine with an AM engine, policy
+    "cost", measure=False, explore_every=3). Returns (arms, results,
+    final window) as numpy."""
+    from repro_torch.core import adaptive as ad, am
+    from repro_torch.core import hashtable as ht
+    from repro_torch.core.types import OpStats, Promise
+    table = ht.make_hashtable(AUTO_P, AUTO_NSLOTS, 1, device=device)
+    engine = am.AMEngine(AUTO_P)
+    chooser = ad.AdaptiveEngine(AUTO_P, am_engine=engine, params=params,
+                                explore_every=3)
+    arms, results = [], []
+    for keys, fkeys, busy in stream or auto_stream():
+        stats = OpStats(target_busy_us=busy)
+        table, ok, probes = ht.insert(
+            table, torch.as_tensor(keys, device=device),
+            torch.as_tensor(auto_val(keys), device=device),
+            promise=Promise.CRW, engine=engine, adaptive=chooser,
+            stats=stats)
+        arms.append(chooser.last_decision.arm)
+        table, found, vals = ht.find(
+            table, torch.as_tensor(fkeys, device=device), promise=Promise.CR,
+            engine=engine, adaptive=chooser, stats=stats)
+        arms.append(chooser.last_decision.arm)
+        results += [npy(x) for x in (ok, probes, found, vals)]
+    return arms, results, npy(table.win.data)
