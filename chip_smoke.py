@@ -173,6 +173,50 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    arms, and the launch counts show amo_apply / fused_apply on the
    one-sided arms and hash_find / hash_insert on the AM arms. Regret is
    printed, not gated.
+12. The pipelined engine (core/pipeline.py, the async front doors) at
+   phase 2's size, after the method of the JAX package's
+   benchmarks/pipeline_bench.py: a stream of PIPE_PAIRS pairs (8 of the
+   16 of the full stream, a printed cut), each an insert of
+   64 x 1,024 keys and a find of as many (the insert's keys in even
+   columns, keys never inserted in odd ones), passed as host arrays,
+   through `Pipeline(table, depth=d, am_engine=...)` for d in 1, 2, 3 on
+   rpc (deferred), rdma_fused, rdma (unfused: fixed probe rounds, so its
+   staging reads no device value) and AUTO (phase 10's fit, EWMAs seeded
+   by 3 reps of each arm, measure=False); AUTO once more with auto_depth (cap
+   3); the hosted queue (pushes of 64 x 256 and pops of 256 a rank) at
+   depths 1 and 2 on its two arms. After every submit the host busy-waits
+   busy_us, the median submit time of a depth-1 pass with no wait. Gates:
+   depth 1 equals the synchronous front doors bit for bit; every depth,
+   and a pass forced in reverse order, equals depth 1 (outputs and final
+   window); every pass launches the same kernels; the slot-tagged phase
+   log of each depth is depth 1's with slot = seq % depth; inserted keys
+   are found and pops return the pushes in ticket order; and the same
+   streams at phase 4's small size give equal outputs, windows, dispatch
+   points and phase logs on the CPU and on the card. Printed: the median
+   stream time per depth (5 interleaved passes) and the depth-2 / depth-1
+   speedup, the device idle share of one traced pass per depth, the
+   implicit host syncs per submit (torch.cuda.set_sync_debug_mode) by
+   file:line, and the service latency of a deferred rpc find at busy
+   windows of 0, 1 and 4 x busy_us.
+13. The fault plane (core/faults.py) at phase 2's size: insert + find
+   batches (CHAOS_BATCHES of CHAOS_FULL, a printed cut: the plane
+   simulates delivery on the host) on rdma, rdma_fused, am and AUTO (round
+   robin), and queue push + pop batches on its rdma and am arms, under the
+   three seeded schedules of tests/test_faults.py (drops; duplicates;
+   drops, duplicates, delays and owner 1 dead until round 3). Gates:
+   every result and final window equals the fault-free run of the same
+   stream bit for bit (AUTO: results and every final read) and the host
+   oracle; under an owner dead forever, AUTO fails its rows of the first
+   insert over to the one-sided lane (fused_apply beside hash_insert),
+   quarantines it, and runs the next insert one-sided (fused_apply, no
+   hash_insert); a depth-2 pipelined stream under wire faults and a queue
+   stalled for 2 rounds equals its fault-free run; a queue stalled forever
+   raises RemoteTimeout at Handle.result(timeout=8), twice; a pipeline
+   left on an exception fails its stranded handle and runs it never; and
+   a small pipelined chaos stream gives the same replies, windows and
+   plane statistics on the CPU and on the card. Printed: plan.stats() and
+   the median time per batch pair under each schedule beside the
+   fault-free time, per arm.
 
 Before the last line it prints the card's name and power limit, the
 median time per batch of each data-structure arm and per decode step, the
@@ -1873,6 +1917,827 @@ def check_arm_launches(arm_launches: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phases 12 and 13: the pipelined engine and the fault plane at phase 2's
+# size
+# ---------------------------------------------------------------------------
+PIPE_FULL_PAIRS = 16        # phase 12: insert + find pairs of a stream
+PIPE_PAIRS = 8              # run (a printed cut: 16 pairs took 154 s)
+PIPE_DEPTHS = (1, 2, 3)
+PIPE_ITERS = 5              # interleaved timed passes per depth
+# rdma (unfused) runs fixed probe rounds: its staging reads no device value
+PIPE_ARMS = ("rpc", "rdma_fused", "rdma", "auto")
+PIPE_Q_DEPTHS = (1, 2)
+PIPE_BUSY_FACTORS = (0.0, 1.0, 4.0)   # the attentiveness line
+PIPE_SMALL_PAIRS = 4        # the CPU-against-GPU stream at SMALL's size
+CHAOS_FULL = 8              # phase 13: insert + find batches an arm
+CHAOS_BATCHES = 2           # run: the plane's host simulation takes about
+                            # 0.5 s a phase of 65,536 rows (printed cut)
+CHAOS_ARMS = ("rdma", "rdma_fused", "am", "auto")
+# tests/test_faults.py::_schedules()
+CHAOS_SCHEDULES = (
+    ("drops", dict(seed=101, drop_rate=0.30)),
+    ("dups", dict(seed=202, dup_rate=0.40)),
+    ("mixed", dict(seed=303, drop_rate=0.15, dup_rate=0.15,
+                   delay_rate=0.20, delay_rounds=2, dead_owners={1: 3})),
+)
+
+
+def pipe_stream(seed: int, pairs: int, p: int, n: int) -> list:
+    """Per pair (host arrays): insert keys (p, n), their values
+    (p, n, 1), and find keys: the insert's keys in even columns, keys
+    never inserted in odd ones. Keys are distinct across the stream."""
+    keys = make_keys(seed, 2 * pairs * p * n).reshape(2 * pairs, p, n)
+    present = np.zeros((p, n), bool)
+    present[:, ::2] = True
+    return [(keys[2 * b], val_of(keys[2 * b])[..., None],
+             np.where(present, keys[2 * b], keys[2 * b + 1]))
+            for b in range(pairs)]
+
+
+def check_pipe_ht(what: str, outs: list, stream: list) -> None:
+    """Every inserted key is found with val_of(key) in its pair's find;
+    the keys never inserted are not."""
+    for b, (k, _, f) in enumerate(stream):
+        (ok, _), (found, got) = outs[2 * b], outs[2 * b + 1]
+        ok, found = ok.cpu().numpy(), found.cpu().numpy()
+        want = np.zeros_like(found)
+        want[:, ::2] = ok[:, ::2]
+        if not ok.all() or not np.array_equal(found, want):
+            raise AssertionError(f"{what}: pair {b}: inserts failed or "
+                                 f"finds disagree with them")
+        if not np.array_equal(got.cpu().numpy()[..., 0],
+                              np.where(want, val_of(f), 0)):
+            raise AssertionError(f"{what}: pair {b}: found values differ")
+
+
+def ht_kwargs(arm: str, engine, ewma, params):
+    """(front-door keyword arguments, chooser) of one arm: a fixed backend,
+    or AUTO with a chooser holding the seeded EWMAs (measure=False)."""
+    from repro_torch.core import adaptive as ad
+    if arm in ("rpc", "am"):
+        return dict(backend="rpc", engine=engine), None
+    if arm in ("rdma", "rdma_fused"):
+        return dict(backend="rdma", fused=arm == "rdma_fused"), None
+    kw = {} if params is None else dict(params=params)
+    chooser = ad.AdaptiveEngine(engine.nranks, am_engine=engine, **kw)
+    chooser.ewma = dict(ewma or {})
+    return dict(engine=engine, adaptive=chooser), chooser
+
+
+def fresh_ht(p: int, nslots: int, device):
+    from repro_torch.core import am, hashtable as ht
+    table = ht.make_hashtable(p, nslots, VW, device=device)
+    engine = am.AMEngine(p)
+    ht.build_am_handlers(table, engine)
+    return table, engine
+
+
+def fresh_queue(p: int, device):
+    """Phase 2's hosted queue, empty, with its AM handlers."""
+    from repro_torch.core import am, queue as dq
+    q = dq.make_queue(p, Q_HOST, Q_CAP, Q_VW, device=device)
+    engine = am.AMEngine(p)
+    dq.build_am_handlers(q, engine)
+    return q, engine
+
+
+def ht_pipe_run(arm: str, stream: list, depth: int, busy_us: float, device,
+                p: int = P, nslots: int = NSLOTS, ewma=None, params=None,
+                auto_depth: bool = False, reverse: bool = False,
+                per_submit=None) -> dict:
+    """One pass of the stream through `Pipeline(table, depth)` and the
+    async front doors, busy-waiting busy_us after every submit, then
+    forcing every handle (in reverse submission order with reverse) and
+    flushing. per_submit(fn) wraps each submit (the sync counter)."""
+    from repro_torch.core import hashtable as ht, pipeline as pl, window
+    from repro_torch.core.types import Promise
+    table, engine = fresh_ht(p, nslots, device)
+    kw, chooser = ht_kwargs(arm, engine, ewma, params)
+    pipe = pl.Pipeline(table, depth=depth, am_engine=engine,
+                       auto_depth=auto_depth)
+    window.drain_phase_log()
+    handles, per = [], []
+    wrap = per_submit or (lambda fn: fn())
+    t0 = time.perf_counter()
+    for k, v, f in stream:
+        for kind in ("insert", "find"):
+            tb = time.perf_counter()
+            if kind == "insert":
+                h = wrap(lambda: ht.insert_async(pipe, k, v,
+                                                 promise=Promise.CRW, **kw))
+            else:
+                h = wrap(lambda: ht.find_async(pipe, f, promise=Promise.CR,
+                                               **kw))
+            busy_wait(busy_us)
+            handles.append(h)
+            per.append(time.perf_counter() - tb)
+    for h in (reversed(handles) if reverse else handles):
+        h.result()
+    table = pipe.flush()
+    wall = time.perf_counter() - t0
+    log = [(role, info["slot"], info["seq"])
+           for role, _, info in window.drain_phase_log()]
+    return dict(outs=[h.result() for h in handles], data=table.win.data,
+                wall=wall, per=per, dispatch_points=engine.dispatch_points,
+                log=log, chooser=chooser)
+
+
+def ht_sync_run(arm: str, stream: list, device, p: int = P,
+                nslots: int = NSLOTS, ewma=None, params=None) -> dict:
+    """The same stream through the synchronous front doors."""
+    from repro_torch.core import hashtable as ht
+    from repro_torch.core.types import Promise
+    table, engine = fresh_ht(p, nslots, device)
+    kw, _ = ht_kwargs(arm, engine, ewma, params)
+    outs = []
+    for k, v, f in stream:
+        table, ok, pr = ht.insert(table, k, v, promise=Promise.CRW, **kw)
+        outs.append((ok, pr))
+        table, found, got = ht.find(table, f, promise=Promise.CR, **kw)
+        outs.append((found, got))
+    return dict(outs=outs, data=table.win.data)
+
+
+def same_outs(a: list, b: list, what: str) -> None:
+    """Two runs' outputs (tensors or tuples of them) equal, bit for bit."""
+    import torch
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} against {len(b)} outputs")
+    for i, (x, y) in enumerate(zip(a, b)):
+        x = x if isinstance(x, tuple) else (x,)
+        y = y if isinstance(y, tuple) else (y,)
+        for u, w in zip(x, y):
+            if not torch.equal(u.to(w.device), w):
+                raise AssertionError(f"{what}: output {i} differs")
+
+
+def same_run(a: dict, b: dict, what: str) -> None:
+    """Every output and the final window equal, bit for bit."""
+    import torch
+    same_outs(a["outs"], b["outs"], what)
+    if not torch.equal(a["data"].to(b["data"].device), b["data"]):
+        raise AssertionError(f"{what}: final windows differ")
+
+
+def seed_ewma(stream: list, device, sync, params, p: int = P,
+              nslots: int = NSLOTS) -> dict:
+    """The AUTO chooser's EWMAs, as phase 11 seeds them: the median of
+    AUTO_SEED_REPS synchronized reps of each arm's insert and find of the
+    stream's first pair on an empty table, µs per op (am_pt: am times
+    pt_overhead)."""
+    from repro_torch.core import hashtable as ht
+    from repro_torch.core.costmodel import DSOp
+    from repro_torch.core.types import Promise
+    k, v, f = stream[0]
+    ops = k.size
+    pt = params.pt_overhead
+    ewma = {}
+    for arm in ("rdma", "rdma_fused", "am"):
+        reps = []
+        for _ in range(AUTO_SEED_REPS + 1):
+            table, engine = fresh_ht(p, nslots, device)
+            kw, _ = ht_kwargs(arm, engine, None, None)
+            sync()
+            t0 = time.perf_counter()
+            table, _, _ = ht.insert(table, k, v, promise=Promise.CRW, **kw)
+            sync()
+            t1 = time.perf_counter()
+            ht.find(table, f, promise=Promise.CR, **kw)
+            sync()
+            reps.append(((t1 - t0) * 1e6 / ops,
+                         (time.perf_counter() - t1) * 1e6 / ops))
+        ins, fnd = (float(np.median([r[i] for r in reps[1:]]))
+                    for i in (0, 1))
+        for a, scale in ((arm, 1.0),) + ((("am_pt", pt),)
+                                         if arm == "am" else ()):
+            ewma[(DSOp.HT_INSERT, a)] = ins * scale
+            ewma[(DSOp.HT_FIND, a)] = fnd * scale
+    return ewma
+
+
+class SyncCounter:
+    """Counts the implicit host syncs of the calls it wraps, through
+    torch.cuda.set_sync_debug_mode("warn"), by the file:line of the
+    Python caller."""
+
+    def __init__(self):
+        self.calls, self.total, self.sites = 0, 0, {}
+
+    def __call__(self, fn):
+        import warnings
+        import torch
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        self.calls += 1
+        for w in caught:
+            if "synchroniz" not in str(w.message).lower():
+                continue
+            self.total += 1
+            site = f"{Path(w.filename).name}:{w.lineno}"
+            self.sites[site] = self.sites.get(site, 0) + 1
+        return out
+
+    def report(self) -> dict:
+        return dict(per_submit=self.total / max(1, self.calls),
+                    submits=self.calls,
+                    sites=dict(sorted(self.sites.items(),
+                                      key=lambda kv: -kv[1])))
+
+
+def calibrate_busy(run, depth1_passes: int = 2) -> tuple:
+    """(busy_us, the median µs of each kind of submit): busy_us is the
+    median per-submit time of a depth-1 pass over the stream with no busy
+    wait (after an untimed warm-up pass), as the JAX package's
+    benchmarks/pipeline_bench.py sizes its window (it takes the p90; this
+    run takes the median)."""
+    for _ in range(depth1_passes - 1):
+        run(1, 0.0)
+    per = run(1, 0.0)["per"]
+    return (statistics.median(per) * 1e6,
+            [statistics.median(per[i::2]) * 1e6 for i in (0, 1)])
+
+
+def depth_sweep(run, depths, busy_us: float, iters: int, counts) -> dict:
+    """Interleaved passes per depth (the JAX bench's method): wall time
+    medians, the launches of each pass (equal across depths), and the
+    first pass of each depth for the equality gates."""
+    walls = {d: [] for d in depths}
+    first, launches = {}, {}
+    for _ in range(iters):
+        for d in depths:
+            counts()
+            r = run(d, busy_us)
+            got = {k: v for k, v in counts().items() if v}
+            if launches.setdefault(d, got) != got:
+                raise AssertionError(f"launches differ between passes at "
+                                     f"depth {d}: {launches[d]} / {got}")
+            walls[d].append(r["wall"])
+            first.setdefault(d, r)
+    return dict(walls=walls, first=first, launches=launches,
+                median_s={d: statistics.median(v) for d, v in walls.items()})
+
+
+def stream_idle(run, depth: int, busy_us: float, sync,
+                untraced_s: float) -> dict:
+    """One stream pass traced with torch.profiler: device busy ms and the
+    idle share against its traced wall time."""
+    prof, wall = traced(lambda: run(depth, busy_us), sync)
+    pr = profile_summary(prof, [wall], untraced_s * 1e3, 12)
+    return dict(device_ms=pr.get("device_ms_per_step"),
+                traced_wall_ms=pr.get("traced_wall_ms_per_step"),
+                idle_share=pr.get("idle_share_traced"),
+                idle_vs_untraced=pr.get("idle_share_vs_median"))
+
+
+def attentiveness(stream: list, busy_us: float, device, sync, reps: int = 5,
+                  p: int = P, nslots: int = NSLOTS) -> dict:
+    """The service latency of a deferred find_async (rpc) at busy windows
+    of 0, 1 and 4 x busy_us between its submit and the next dispatch
+    point (its result()): the wait until the dispatch point staged it,
+    measured inside the op, as benchmarks/pipeline_bench.py does; median
+    of `reps`."""
+    from repro_torch.core import hashtable as ht, pipeline as pl
+    k, v, f = stream[0]
+    out = {}
+    for factor in PIPE_BUSY_FACTORS:
+        waits, totals = [], []
+        for _ in range(reps):
+            table, engine = fresh_ht(p, nslots, device)
+            table, _, _ = ht.insert_rpc(table, engine, k, v)
+            pipe = pl.Pipeline(table, depth=2, am_engine=engine)
+            staged = {}
+
+            def op(t):
+                staged["t"] = time.perf_counter()
+                found, vals = ht.find_rpc(t, engine, f)
+                return t, (found, vals)
+
+            sync()
+            t0 = time.perf_counter()
+            h = pipe.submit(op, deferred=True, label="att_find")
+            busy_wait(factor * busy_us)
+            h.result()
+            totals.append((time.perf_counter() - t0) * 1e6)
+            waits.append((staged["t"] - t0) * 1e6)
+        out[factor] = dict(busy_us=factor * busy_us,
+                           wait_us=statistics.median(waits),
+                           result_us=statistics.median(totals))
+    return out
+
+
+def q_pipe_run(arm: str, items: np.ndarray, depth: int, busy_us: float,
+               device, p: int = P, reverse: bool = False,
+               per_submit=None) -> dict:
+    """Push batch b then pop Q_N a rank, for every batch, through
+    `Pipeline(queue, depth)` and push_async / pop_async."""
+    from repro_torch.core import pipeline as pl, queue as dq
+    from repro_torch.core.types import Promise
+    q, engine = fresh_queue(p, device)
+    kw = (dict(backend="rpc", engine=engine) if arm == "rpc"
+          else dict(backend="rdma"))
+    pipe = pl.Pipeline(q, depth=depth, am_engine=engine)
+    handles, per = [], []
+    wrap = per_submit or (lambda fn: fn())
+    n = items.shape[2]
+    t0 = time.perf_counter()
+    for b in range(items.shape[0]):
+        for kind in ("push", "pop"):
+            tb = time.perf_counter()
+            if kind == "push":
+                h = wrap(lambda: dq.push_async(pipe, items[b],
+                                               promise=Promise.CRW, **kw))
+            else:
+                h = wrap(lambda: dq.pop_async(pipe, n, promise=Promise.CR,
+                                              **kw))
+            busy_wait(busy_us)
+            handles.append(h)
+            per.append(time.perf_counter() - tb)
+    for h in (reversed(handles) if reverse else handles):
+        h.result()
+    q = pipe.flush()
+    return dict(outs=[h.result() for h in handles], data=q.win.data,
+                wall=time.perf_counter() - t0, per=per,
+                dispatch_points=engine.dispatch_points)
+
+
+def q_sync_run(arm: str, items: np.ndarray, device, p: int = P) -> dict:
+    from repro_torch.core import queue as dq
+    from repro_torch.core.types import Promise
+    q, engine = fresh_queue(p, device)
+    kw = (dict(backend="rpc", engine=engine) if arm == "rpc"
+          else dict(backend="rdma"))
+    outs = []
+    for b in range(items.shape[0]):
+        q, ok = dq.push(q, items[b], promise=Promise.CRW, **kw)
+        q, got, vals = dq.pop(q, items.shape[2], promise=Promise.CR, **kw)
+        outs += [ok, (got, vals)]
+    return dict(outs=outs, data=q.win.data)
+
+
+def pipe_arm(name: str, run, sync_ref: dict, depths, sync, counts,
+             check, iters: int = PIPE_ITERS, trace: bool = True) -> dict:
+    """Phase 12 for one arm: busy calibration, the interleaved depth
+    sweep, the gates (depth 1 == the synchronous front doors; every depth
+    and a reverse-forced pass == depth 1; equal launches; the slot-tagged
+    phase log of each depth is depth 1's with slot = seq % depth), the
+    syncs per submit at depth 2, and one traced pass per depth."""
+    busy, by_kind = calibrate_busy(run)
+    sweep = depth_sweep(run, depths, busy, iters, counts)
+    d1 = sweep["first"][1]
+    same_run(d1, sync_ref, f"phase 12: {name} depth 1 vs sync")
+    check(f"phase 12: {name}", d1["outs"])
+    for d in depths[1:]:
+        same_run(sweep["first"][d], d1, f"phase 12: {name} depth {d}")
+    counts()
+    rev = run(depths[-1] + len(d1["outs"]), 0.0, reverse=True)
+    same_run(rev, d1, f"phase 12: {name} forced in reverse")
+    counts()
+    launches = sweep["launches"]
+    if any(launches[d] != launches[1] for d in depths):
+        raise AssertionError(f"phase 12: {name}: launches differ by depth "
+                             f"{launches}")
+    for d in depths:
+        log = sweep["first"][d].get("log", [])
+        want = [(role, seq % d, seq) for role, _, seq in d1.get("log", [])]
+        if log != want:
+            raise AssertionError(f"phase 12: {name}: the phase log at "
+                                 f"depth {d} is not depth 1's re-slotted")
+    syncs = SyncCounter()
+    run(2, 0.0, per_submit=syncs)
+    counts()
+    rep = dict(busy_us=busy, submit_us_by_kind=by_kind,
+               median_s=sweep["median_s"],
+               walls=sweep["walls"], launches=launches[1],
+               speedup_d2=sweep["median_s"][1] / sweep["median_s"][2],
+               syncs=syncs.report(), phase_log_len=len(d1.get("log", [])),
+               dispatch_points={d: sweep["first"][d].get("dispatch_points")
+                                for d in depths})
+    if trace:
+        rep["idle"] = {d: stream_idle(run, d, busy, sync,
+                                      sweep["median_s"][d]) for d in depths}
+        counts()
+    return rep
+
+
+def phase_pipeline(seed: int, device, sync, params, counts,
+                   p: int = P, nslots: int = NSLOTS, n: int = N,
+                   pairs: int = PIPE_PAIRS, qn: int = Q_N,
+                   iters: int = PIPE_ITERS, trace: bool = True) -> dict:
+    """Phase 12: the pipelined engine at phase 2's size. Hash-table
+    streams of `pairs` insert + find pairs on rpc (deferred), rdma_fused,
+    rdma and AUTO at depths 1-3, AUTO once more with auto_depth (cap 3); the
+    queue's two arms at depths 1 and 2; the attentiveness line."""
+    stream = pipe_stream(seed + 1200, pairs, p, n)
+    ewma = seed_ewma(stream, device, sync, params, p, nslots)
+    counts()
+    report = {}
+    for arm in PIPE_ARMS:
+        def run(d, busy, reverse=False, per_submit=None, arm=arm, **kw):
+            return ht_pipe_run(arm, stream, d, busy, device, p, nslots,
+                               ewma, params, reverse=reverse,
+                               per_submit=per_submit, **kw)
+        ref = ht_sync_run(arm, stream, device, p, nslots, ewma, params)
+        counts()
+        report[arm] = pipe_arm(arm, run, ref, PIPE_DEPTHS, sync, counts,
+                               lambda what, outs: check_pipe_ht(
+                                   what, outs, stream), iters, trace)
+        del ref
+    # AUTO choosing its own window count, capped at 3
+    busy = report["auto"]["busy_us"]
+    r = ht_pipe_run("auto", stream, 3, busy, device, p, nslots, ewma, params,
+                    auto_depth=True)
+    same_run(r, ht_pipe_run("auto", stream, 1, 0.0, device, p, nslots, ewma,
+                            params), "phase 12: auto_depth vs depth 1")
+    depths = [d.depth for d in r["chooser"].log]
+    arms = sorted({d.arm for d in r["chooser"].log})
+    report["auto_depth"] = dict(wall_s=r["wall"], depths=sorted(set(depths)),
+                                arms=arms, decisions=len(depths))
+    counts()
+    # the queue: push + pop pairs
+    items = queue_items(seed + 1210, pairs, p, qn)
+
+    def q_check(what, outs):
+        for b in range(items.shape[0]):
+            ok, (got, vals) = outs[2 * b], outs[2 * b + 1]
+            check_queue_batch(what, ok, got, vals, items[b])
+
+    for arm in ("rdma", "rpc"):
+        def run(d, busy, reverse=False, per_submit=None, arm=arm):
+            return q_pipe_run(arm, items, d, busy, device, p, reverse,
+                              per_submit)
+        ref = q_sync_run(arm, items, device, p)
+        counts()
+        report[f"queue_{arm}"] = pipe_arm(f"queue {arm}", run, ref,
+                                          PIPE_Q_DEPTHS, sync, counts,
+                                          q_check, iters, trace)
+    report["attentiveness"] = attentiveness(
+        stream, report["rpc"]["busy_us"], device, sync, p=p, nslots=nslots)
+    counts()
+    return report
+
+
+def pipe_small_cpu_vs_gpu(seed: int, device, params) -> dict:
+    """Phase 12's gate against the CPU: the same pipelined streams at
+    SMALL's size (every arm of PIPE_ARMS at depth 2) on both devices:
+    equal outputs, windows, dispatch points and slot-tagged phase logs."""
+    s = SMALL
+    stream = pipe_stream(seed + 1220, PIPE_SMALL_PAIRS, s["P"], s["N"])
+    ewma = seed_ewma(stream, "cpu", lambda: None, params, s["P"],
+                     s["NSLOTS"])
+    for arm in PIPE_ARMS:
+        a, b = (ht_pipe_run(arm, stream, 2, 0.0, dev, s["P"], s["NSLOTS"],
+                            ewma, params) for dev in (device, "cpu"))
+        same_run(a, b, f"phase 12: small {arm} GPU vs CPU")
+        if a["dispatch_points"] != b["dispatch_points"] or \
+                a["log"] != b["log"]:
+            raise AssertionError(f"phase 12: small {arm}: dispatch points "
+                                 f"or phase log differ GPU vs CPU")
+        if arm == "auto" and [d.arm for d in a["chooser"].log] != \
+                [d.arm for d in b["chooser"].log]:
+            raise AssertionError("phase 12: small auto: arms differ")
+    return dict(pairs=PIPE_SMALL_PAIRS, p=s["P"], nslots=s["NSLOTS"],
+                n=s["N"])
+
+
+def log_pipeline(rep: dict, card: str) -> None:
+    for name, r in rep.items():
+        if not isinstance(r, dict) or "median_s" not in r:
+            continue
+        walls = ", ".join(f"depth {d} {v * 1e3:.3f} ms"
+                          for d, v in r["median_s"].items())
+        kinds = "/".join(f"{v:.1f}" for v in r["submit_us_by_kind"])
+        log(f"phase 12: {name}: busy {r['busy_us']:.1f} us a submit (depth "
+            f"1, alternate submits {kinds} us); median stream {walls}; "
+            f"depth-2 / depth-1 speedup "
+            f"{r['speedup_d2']:.4f}; syncs per submit "
+            f"{r['syncs']['per_submit']:.2f} at "
+            f"{r['syncs']['sites']}; launches a pass {r['launches']}; "
+            f"dispatch points {r['dispatch_points']} ({card})")
+        for d, idle in r.get("idle", {}).items():
+            if idle["device_ms"] is not None:
+                log(f"phase 12: {name}: traced stream at depth {d}: device "
+                    f"busy {idle['device_ms']:.3f} ms, idle "
+                    f"{idle['idle_vs_untraced']:.4f} of the untraced "
+                    f"median stream ({idle['idle_share']:.4f} of the "
+                    f"traced {idle['traced_wall_ms']:.3f} ms) ({card})")
+    a = rep["auto_depth"]
+    log(f"phase 12: auto with auto_depth (cap 3): depths {a['depths']}, "
+        f"arms {a['arms']}, {a['decisions']} decisions, stream "
+        f"{a['wall_s'] * 1e3:.3f} ms ({card})")
+    for f, r in rep["attentiveness"].items():
+        log(f"phase 12: attentiveness: busy {r['busy_us']:.1f} us -> "
+            f"deferred rpc find waits {r['wait_us']:.1f} us for its "
+            f"dispatch point, result after {r['result_us']:.1f} us "
+            f"({card})")
+
+
+# -- phase 13 ----------------------------------------------------------------
+class ChaosArm:
+    """A stream of insert + find batches on one arm through the chooser's
+    wrappers (forced, or round robin for auto), as tests/test_faults.py
+    runs its arms."""
+
+    def __init__(self, arm: str, device, p: int, nslots: int, params=None):
+        from repro_torch.core import adaptive as ad
+        self.table, self.engine = fresh_ht(p, nslots, device)
+        kw = {} if params is None else dict(params=params)
+        self.auto = ad.AdaptiveEngine(p, am_engine=self.engine,
+                                      policy="round_robin", **kw)
+        if arm != "auto":
+            self.auto.policy = "cost"
+            self.auto.force_arm = arm
+        self.device = device
+
+    def pair(self, k, v, f):
+        import torch
+        dev = self.device
+        self.table, ok, probes = self.auto.ht_insert(
+            self.table, torch.as_tensor(k, device=dev),
+            torch.as_tensor(v, device=dev))
+        self.table, found, got = self.auto.ht_find(
+            self.table, torch.as_tensor(f, device=dev))
+        return (ok, probes), (found, got)
+
+
+def chaos_ht(arm: str, stream: list, cfg, device, sync, params, p: int,
+             nslots: int) -> dict:
+    """One arm's stream with cfg's plan in scope (None: fault-free):
+    outputs, window, ms per pair, the plan's stats."""
+    from repro_torch.core import faults as flt
+    runner = ChaosArm(arm, device, p, nslots, params)
+    plan = None if cfg is None else flt.FaultPlan(p, **cfg)
+    outs, per = [], []
+    with flt.fault_scope(plan):
+        for k, v, f in stream:
+            sync()
+            t0 = time.perf_counter()
+            outs += list(runner.pair(k, v, f))
+            sync()
+            per.append(time.perf_counter() - t0)
+    return dict(outs=outs, data=runner.table.win.data, per=per,
+                stats=None if plan is None else plan.stats(),
+                runner=runner)
+
+
+def chaos_queue(arm: str, items: np.ndarray, cfg, device, sync, p: int,
+                n: int) -> dict:
+    from repro_torch.core import adaptive as ad, am, faults as flt
+    from repro_torch.core import queue as dq
+    q = dq.make_queue(p, Q_HOST, Q_CAP, Q_VW, device=device)
+    auto = ad.AdaptiveEngine(p, am_engine=am.AMEngine(p))
+    auto.force_arm = arm
+    plan = None if cfg is None else flt.FaultPlan(p, **cfg)
+    outs, per = [], []
+    import torch
+    with flt.fault_scope(plan):
+        for b in range(items.shape[0]):
+            sync()
+            t0 = time.perf_counter()
+            q, ok = auto.q_push(q, torch.as_tensor(items[b], device=device))
+            q, got, vals = auto.q_pop(q, n)
+            sync()
+            per.append(time.perf_counter() - t0)
+            outs += [ok, (got, vals)]
+    return dict(outs=outs, data=q.win.data, per=per,
+                stats=None if plan is None else plan.stats())
+
+
+def chaos_pipelined(stream: list, cfg, device, p: int, nslots: int) -> dict:
+    """A depth-2 pipelined stream of fused inserts, every other batch
+    deferred, under cfg's plan: handles forced with timeout=32."""
+    import torch
+    from repro_torch.core import faults as flt, hashtable as ht
+    from repro_torch.core import pipeline as pl
+    table, engine = fresh_ht(p, nslots, device)
+    plan = None if cfg is None else flt.FaultPlan(p, **cfg)
+    outs = []
+
+    def step(k, v):
+        k, v = (torch.as_tensor(x, device=device) for x in (k, v))
+
+        def op(st):
+            st2, ok, pr = ht.insert_rdma(st, k, v)
+            return st2, (ok, pr)
+        return op
+
+    with flt.fault_scope(plan):
+        with pl.Pipeline(table, depth=2, am_engine=engine) as pipe:
+            hs = [pipe.submit(step(k, v), deferred=i % 2 == 1,
+                              label=f"b{i}")
+                  for i, (k, v, _) in enumerate(stream)]
+            outs = [h.result(timeout=32) for h in hs]
+            table = pipe.flush()
+    return dict(outs=outs, data=table.win.data,
+                stats=None if plan is None else plan.stats())
+
+
+def phase_faults(seed: int, device, sync, params, counts,
+                 p: int = P, nslots: int = NSLOTS, n: int = N,
+                 batches: int = CHAOS_BATCHES, qn: int = Q_N,
+                 small: dict = SMALL) -> dict:
+    """Phase 13: the fault plane at phase 2's size. Every arm under each
+    schedule against its fault-free run and the host oracle; an owner dead
+    forever under AUTO; a pipelined stream under a stalled queue; a queue
+    stalled forever; a pipeline left on an exception; and a small
+    pipelined chaos stream on both devices."""
+    import torch
+    from repro_torch.core import adaptive as ad, faults as flt
+    from repro_torch.core import hashtable as ht, pipeline as pl
+    from repro_torch.core import queue as dq
+    from repro_torch.core.costmodel import DSOp
+    stream = pipe_stream(seed + 1300, batches, p, n)
+    items = queue_items(seed + 1310, batches, p, qn)
+    report = dict(batches=batches, full_batches=CHAOS_FULL, ht={}, queue={})
+    for arm in CHAOS_ARMS:
+        clean = chaos_ht(arm, stream, None, device, sync, params, p, nslots)
+        check_pipe_ht(f"phase 13: {arm} fault-free", clean["outs"], stream)
+        rep = report["ht"][arm] = dict(
+            clean_ms=statistics.median(clean["per"]) * 1e3)
+        for name, cfg in CHAOS_SCHEDULES:
+            r = chaos_ht(arm, stream, cfg, device, sync, params, p, nslots)
+            what = f"phase 13: {arm} under {name}"
+            check_pipe_ht(what, r["outs"], stream)
+            if arm == "auto":
+                # a quarantine re-route may run a batch on another
+                # (conformant) arm: results and every read must agree
+                same_outs(r["outs"], clean["outs"], what)
+                for k, _, f in stream:
+                    _, a_f, a_v = r["runner"].auto.ht_find(
+                        r["runner"].table, torch.as_tensor(f, device=device))
+                    _, b_f, b_v = clean["runner"].auto.ht_find(
+                        clean["runner"].table,
+                        torch.as_tensor(f, device=device))
+                    if not (torch.equal(a_f, b_f) and torch.equal(a_v, b_v)):
+                        raise AssertionError(f"{what}: final reads differ")
+            else:
+                same_run(r, clean, what)
+            rep[name] = dict(ms=statistics.median(r["per"]) * 1e3,
+                             stats=r["stats"])
+        del clean
+    counts()
+    for arm in ("rdma", "am"):
+        clean = chaos_queue(arm, items, None, device, sync, p, qn)
+        rep = report["queue"][arm] = dict(
+            clean_ms=statistics.median(clean["per"]) * 1e3)
+        for name, cfg in CHAOS_SCHEDULES:
+            r = chaos_queue(arm, items, cfg, device, sync, p, qn)
+            what = f"phase 13: queue {arm} under {name}"
+            same_run(r, clean, what)
+            for b in range(items.shape[0]):
+                ok, (got, vals) = r["outs"][2 * b], r["outs"][2 * b + 1]
+                check_queue_batch(what, ok, got, vals, items[b])
+            rep[name] = dict(ms=statistics.median(r["per"]) * 1e3,
+                             stats=r["stats"])
+    counts()
+    # an owner dead forever under AUTO (cost policy, AM cheapest by its
+    # EWMAs): its rows of the first insert fail over one-sided (B2 beside
+    # B4), it is quarantined, and the next insert re-routes one-sided
+    # (B2 where B4 would run)
+    dead = 5
+    table, engine = fresh_ht(p, nslots, device)
+    chooser = ad.AdaptiveEngine(p, am_engine=engine)
+    for op in (DSOp.HT_INSERT, DSOp.HT_FIND):
+        for a, us in (("am", 1e-6), ("am_pt", 2e-6), ("rdma_fused", 1.0),
+                      ("rdma", 2.0)):
+            chooser.ewma[(op, a)] = us
+    plan = flt.FaultPlan(p, seed=505, dead_owners={dead: None})
+    inserts, outs, quarantined = [], [], []
+    with flt.fault_scope(plan):
+        for k, v, _ in stream:
+            counts()
+            table, ok, _ = chooser.ht_insert(
+                table, *(torch.as_tensor(x, device=device) for x in (k, v)))
+            sync()
+            inserts.append(counts())
+            quarantined.append(sorted(chooser.quarantined))
+            outs.append(ok)
+        for b, (_, _, f) in enumerate(stream):
+            table, found, got = chooser.ht_find(
+                table, torch.as_tensor(f, device=device))
+            outs.insert(2 * b + 1, (found, got))
+    decs = list(chooser.log)
+    check_pipe_ht("phase 13: dead owner", [o if isinstance(o, tuple)
+                                           else (o, None) for o in outs],
+                  stream)
+    first, second = inserts[0], inserts[1]
+    if quarantined[0] != [dead] or not (first["hash_insert"]
+                                        and first["fused_apply"]):
+        raise AssertionError(f"phase 13: dead owner: quarantined "
+                             f"{quarantined[0]}, first insert launched "
+                             f"{first}")
+    if decs[1].source != "quarantine" or second["hash_insert"] or \
+            not second["fused_apply"]:
+        raise AssertionError(f"phase 13: dead owner: the second insert ran "
+                             f"{decs[1].arm} ({decs[1].source}) launching "
+                             f"{second}")
+    report["dead_owner"] = dict(
+        owner=dead, quarantined=quarantined[0],
+        arms=[d.arm for d in decs], sources=[d.source for d in decs],
+        first_launches={a: c for a, c in first.items() if c},
+        second_launches={a: c for a, c in second.items() if c},
+        unserviced_rows=int((ht.place_np(p, nslots, stream[0][0])[0]
+                             == dead).sum()))
+    # a pipelined depth-2 stream under a stalled queue and wire faults
+    pcfg = dict(seed=11, drop_rate=0.2, dup_rate=0.2, stall_rounds=2)
+    a = chaos_pipelined(stream, None, device, p, nslots)
+    b = chaos_pipelined(stream, pcfg, device, p, nslots)
+    same_run(b, a, "phase 13: pipelined under stall_rounds=2")
+    if b["stats"]["stall_hits"] == 0:
+        raise AssertionError("phase 13: the stalled queue never stalled")
+    report["pipelined"] = dict(cfg=pcfg, stats=b["stats"])
+    # a queue stalled forever: the typed timeout within its deadline, twice
+    q, qeng = fresh_queue(p, device)
+    plan = flt.FaultPlan(p, seed=1, stall_forever=True)
+    raised = []
+    with flt.fault_scope(plan):
+        pipe = pl.Pipeline(q, depth=4, am_engine=qeng)
+        h = dq.push_async(pipe, items[0], backend="rpc")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            try:
+                h.result(timeout=8)
+            except flt.RemoteTimeout as e:
+                raised.append(((time.perf_counter() - t0) * 1e6, str(e)))
+    if len(raised) != 2 or not h.done():
+        raise AssertionError("phase 13: the dead queue did not raise "
+                             "RemoteTimeout twice")
+    report["stall_forever"] = dict(raise_us=[r[0] for r in raised],
+                                   message=raised[0][1],
+                                   stall_hits=plan.stall_hits)
+    # a pipeline left on an exception fails its stranded handles
+    table, engine = fresh_ht(p, nslots, device)
+    plan = flt.FaultPlan(p, seed=5, stall_forever=True)
+
+    class Left(Exception):
+        pass
+
+    try:
+        with flt.fault_scope(plan):
+            with pl.Pipeline(table, depth=4, am_engine=engine) as pipe:
+                h = ht.insert_async(pipe, *stream[0][:2], backend="rpc")
+                raise Left()
+    except Left:
+        pass
+    try:
+        h.result()
+        raise AssertionError("phase 13: a stranded handle did not fail")
+    except flt.RemoteTimeout:
+        pass
+    engine.drain_dispatch_queue()
+    if engine.pending_dispatches or pipe.staged_state is not table:
+        raise AssertionError("phase 13: a failed batch ran after close")
+    counts()
+    # a small pipelined chaos stream: the same replies, windows and plane
+    # stats on the CPU and on the card
+    s = small
+    sstream = pipe_stream(seed + 1320, 3, s["P"], s["N"])
+    name, cfg = CHAOS_SCHEDULES[-1]
+    runs = [chaos_pipelined(sstream, cfg, dev, s["P"], s["NSLOTS"])
+            for dev in (device, "cpu")]
+    same_run(runs[0], runs[1], "phase 13: small pipelined chaos GPU vs CPU")
+    if runs[0]["stats"] != runs[1]["stats"]:
+        raise AssertionError("phase 13: small chaos: plane stats differ GPU "
+                             "vs CPU")
+    report["small"] = dict(schedule=name, stats=runs[0]["stats"],
+                           p=s["P"], nslots=s["NSLOTS"], n=s["N"])
+    return report
+
+
+def log_faults(rep: dict, card: str) -> None:
+    for kind in ("ht", "queue"):
+        for arm, r in rep[kind].items():
+            per = ", ".join(f"{name} {r[name]['ms']:.1f} ms "
+                            f"({r[name]['ms'] / r['clean_ms']:.1f}x)"
+                            for name, _ in CHAOS_SCHEDULES)
+            pair = "insert + find" if kind == "ht" else "push + pop"
+            log(f"phase 13: {kind} {arm}: median ms per {pair}: fault-free "
+                f"{r['clean_ms']:.3f}, {per} ({card})")
+            for name, _ in CHAOS_SCHEDULES:
+                log(f"phase 13: {kind} {arm} {name}: plan.stats() "
+                    f"{r[name]['stats']}")
+    d = rep["dead_owner"]
+    log(f"phase 13: owner {d['owner']} dead forever under auto: "
+        f"quarantined {d['quarantined']} after batch 1 "
+        f"({d['unserviced_rows']} rows failed over); arms {d['arms']} "
+        f"({d['sources']}); launches {d['first_launches']} then "
+        f"{d['second_launches']}")
+    log(f"phase 13: pipelined depth 2 under {rep['pipelined']['cfg']}: equal "
+        f"to fault-free; stats {rep['pipelined']['stats']}")
+    s = rep["stall_forever"]
+    log(f"phase 13: queue stalled forever: RemoteTimeout after "
+        f"{s['raise_us'][0]:.1f} us and again after {s['raise_us'][1]:.1f} "
+        f"us ({s['message']})")
+    log(f"phase 13: small pipelined chaos ({rep['small']['schedule']}, "
+        f"{rep['small']['p']} ranks x {rep['small']['nslots']} slots) "
+        f"equal on CPU and GPU, stats {rep['small']['stats']}")
+
+
+# ---------------------------------------------------------------------------
 # Phases 5 to 9: the serving and prefill paths
 # ---------------------------------------------------------------------------
 def describe(cfg, model) -> tuple:
@@ -2547,6 +3412,37 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     report["auto"] = auto
     report["auto_launches_by_arm"] = arm_launches
+
+    zero_counts()
+    t0 = time.perf_counter()
+    log(f"phase 12: cut: streams of {PIPE_PAIRS} insert + find (push + pop) "
+        f"pairs instead of {PIPE_FULL_PAIRS}")
+    pipe = phase_pipeline(args.seed, device, sync, fitted, launch_counter())
+    pipe["small_cpu_vs_gpu"] = pipe_small_cpu_vs_gpu(args.seed, device,
+                                                     fitted)
+    counts = read_counts(DS_KERNELS)
+    record("phase 12", counts, DS_KERNELS)
+    log_pipeline(pipe, card)
+    log(f"phase 12: every depth and arm equal to depth 1 and to the "
+        f"synchronous front doors bit for bit (also forced in reverse); "
+        f"the same launches at every depth; small streams equal on CPU and "
+        f"GPU (outputs, windows, dispatch points, phase logs); launches "
+        f"{counts} in {time.perf_counter() - t0:.1f} s")
+    report["pipeline"] = pipe
+
+    zero_counts()
+    t0 = time.perf_counter()
+    log(f"phase 13: cut: {CHAOS_BATCHES} insert + find batches per arm and "
+        f"schedule instead of {CHAOS_FULL} (the plane simulates delivery "
+        f"on the host)")
+    chaos = phase_faults(args.seed, device, sync, fitted, launch_counter())
+    counts = read_counts(DS_KERNELS)
+    record("phase 13", counts, DS_KERNELS)
+    log_faults(chaos, card)
+    log(f"phase 13: every arm and the queue equal to their fault-free runs "
+        f"and the host oracle under {[n for n, _ in CHAOS_SCHEDULES]}; "
+        f"launches {counts} in {time.perf_counter() - t0:.1f} s")
+    report["faults"] = chaos
 
     for arm in ARMS:
         r = report[arm]

@@ -10,6 +10,8 @@ calls:
     python3 scripts/kernel_ab.py moe_dispatch --other path/to/moe_dispatch.cu \
         --sweep 48,1024,4096
     python3 scripts/kernel_ab.py hash_find --other path/to/hash_probe.cu
+    python3 scripts/kernel_ab.py syncs --other path/to/other/src [--pairs 10]
+    python3 scripts/kernel_ab.py staging
 
 The other source must export the same C interface (for example the file
 from an earlier commit, unpacked with `git archive` into a directory that
@@ -45,6 +47,31 @@ how many of the paired drives each side won (the host's noise is wide):
   the hash table's RPC arm to load 0.25; the call is the first find
   batch's, also with the mask cleared; ten drives of each side.
 
+- syncs (no kernel: the Python front doors): `--other` is another tree of
+  the package (an earlier commit's `src/`, unpacked with `git archive`).
+  Each drive is a process of its own that imports one tree and, at
+  chip_smoke.py phase 2's size, calls each synchronous front door on host
+  (numpy) arrays: the hash table (64 ranks x 2**18 slots, val_words 1)
+  takes an insert and a find of 64 x 1,024 keys on rpc, rdma_fused and
+  rdma (unfused), the hosted queue (capacity 2**20, 2 words a slot) a
+  push of 64 x 256 items and a pop of 256 a rank on rdma and rpc. Each
+  call runs once to warm up, once under chip_smoke.py's SyncCounter
+  (`torch.cuda.set_sync_debug_mode("warn")`: every synchronizing
+  operation counts, by the file:line that triggered it), then 15 times on
+  the state the warm-up left, each ending in a synchronize; a drive's ms
+  is their median. The trees alternate, other and this, then this and
+  other, for `--pairs` pairs (default 10). It prints each call's syncs on
+  both sides, each side's median drive, the pairs this tree won and the
+  range of this / other over the pairs.
+
+- staging (no kernel, no `--other`): the host staging of the front
+  doors' host arrays at phase 2's size (keys 64 x 1,024 int32, values 64 x
+  1,024 x 1, queue items 64 x 256 x 2) through this checkout's
+  `types.to_device` (pinned memory, a non-blocking copy) against a
+  pageable `torch.as_tensor(..., device=)`, in alternating blocks of 200
+  calls, 10 blocks a side: the median µs a call until the host has the
+  tensor back, and until a synchronize after it.
+
 It prints one line a measurement, the card's name and power limit, and a
 JSON line.
 """
@@ -55,6 +82,7 @@ import contextlib
 import functools
 import json
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -274,22 +302,180 @@ def sweep_mode(cs, use, card, device, seed, flush, counts) -> dict:
     return {"calls": time_calls(cs, use, card, calls, flush)}
 
 
+SYNC_P, SYNC_NSLOTS, SYNC_N, SYNC_QN, SYNC_QCAP = 64, 2 ** 18, 1024, 256, \
+    2 ** 20
+SYNC_REPS = 15
+
+
+def count_syncs(src: str) -> dict:
+    """One drive of the syncs mode in this process, with the package tree
+    `src`: {call: {"syncs", "sites", "ms"}} and the tree imported."""
+    import numpy as np
+    import torch
+    sys.path[:0] = [str(ROOT), src]
+    from chip_smoke import SyncCounter
+    import repro_torch
+    from repro_torch.core import am, hashtable as ht, queue as dq
+    from repro_torch.core.types import Promise
+    P, N, QN = SYNC_P, SYNC_N, SYNC_QN
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    keys = rng.choice(2 ** 30, size=(P, N), replace=False).astype(np.int32)
+    vals = (keys * 7)[..., None]
+    items = rng.integers(0, 2 ** 20, (P, QN, 2)).astype(np.int32)
+    table = ht.make_hashtable(P, SYNC_NSLOTS, 1, device=dev)
+    engine = am.AMEngine(P)
+    ht.build_am_handlers(table, engine)
+    queue = dq.make_queue(P, 0, SYNC_QCAP, 2, device=dev)
+    qengine = am.AMEngine(P)
+    dq.build_am_handlers(queue, qengine)
+    calls = {
+        "rpc insert": lambda: ht.insert_rpc(table, engine, keys, vals),
+        "rpc find": lambda: ht.find_rpc(table, engine, keys),
+        "rdma_fused insert": lambda: ht.insert_rdma(table, keys, vals),
+        "rdma_fused find": lambda: ht.find_rdma(table, keys),
+        "rdma insert": lambda: ht.insert_rdma(table, keys, vals,
+                                              fused=False),
+        "rdma find": lambda: ht.find_rdma(table, keys, fused=False),
+        "queue rdma push": lambda: dq.push_rdma(queue, items,
+                                                promise=Promise.CRW),
+        "queue rdma pop": lambda: dq.pop_rdma(queue, QN,
+                                              promise=Promise.CR),
+        "queue rpc push": lambda: dq.push_rpc(queue, qengine, items),
+        "queue rpc pop": lambda: dq.pop_rpc(queue, qengine, QN),
+    }
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        syncs = SyncCounter()
+        syncs(fn)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(SYNC_REPS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = dict(syncs=syncs.total, sites=syncs.sites,
+                         ms=statistics.median(times))
+    return {"tree": str(Path(repro_torch.__file__).parents[1]),
+            "calls": out}
+
+
+def syncs_mode(other: Path, pairs: int, card: str) -> dict:
+    """Drives of count_syncs, a process each, the two trees alternating."""
+    trees = {"other": str(other.resolve()), "this": str(ROOT / "src")}
+    got = {"other": [], "this": []}
+    for i in range(pairs):
+        for which in (("other", "this") if i % 2 == 0 else
+                      ("this", "other")):
+            res = subprocess.run(
+                [sys.executable, __file__, "syncs", "--other", str(other),
+                 "--count-src", trees[which]],
+                capture_output=True, text=True, check=True)
+            got[which].append(json.loads(res.stdout.splitlines()[-1]))
+    out = {}
+    for call in got["this"][0]["calls"]:
+        runs = {w: [d["calls"][call] for d in ds]
+                for w, ds in got.items()}
+        syncs = {w: rs[0]["syncs"] for w, rs in runs.items()}
+        print(f"{call}: syncs other {syncs['other']} "
+              f"{runs['other'][0]['sites']}, this {syncs['this']} "
+              f"{runs['this'][0]['sites']}", flush=True)
+        row = paired(runs, "ms", card, f"ms per {call}")
+        ratio = [t["ms"] / o["ms"] for t, o in zip(runs["this"],
+                                                   runs["other"])]
+        row.update(syncs=syncs, sites=runs["this"][0]["sites"],
+                   ratio_min=min(ratio), ratio_max=max(ratio),
+                   ratio_median=statistics.median(ratio))
+        print(f"{call}: this / other over {len(ratio)} pairs: median "
+              f"{row['ratio_median']:.4f}, range {row['ratio_min']:.4f}-"
+              f"{row['ratio_max']:.4f} ({card})", flush=True)
+        out[call] = row
+    return {"trees": trees, "pairs": pairs, "calls": out}
+
+
+def staging_mode(card: str, blocks: int = 10, reps: int = 200) -> dict:
+    """types.to_device (this) against a pageable copy (other) of phase
+    2's host arrays, alternating blocks of `reps` calls."""
+    import numpy as np
+    import torch
+    sys.path[:0] = [str(ROOT / "src")]
+    from repro_torch.core.types import to_device
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    arrays = {"keys": rng.integers(0, 2 ** 30, (SYNC_P, SYNC_N)),
+              "values": rng.integers(0, 2 ** 30, (SYNC_P, SYNC_N, 1)),
+              "queue items": rng.integers(0, 2 ** 20, (SYNC_P, SYNC_QN, 2))}
+    ways = {"this": lambda x: to_device(x, torch.int32, dev),
+            "other": lambda x: torch.as_tensor(x, dtype=torch.int32,
+                                               device=dev)}
+    out = {}
+    for name, x in arrays.items():
+        x = x.astype(np.int32)
+        for way in ways.values():      # warm both paths
+            way(x)
+        torch.cuda.synchronize()
+        issue = {"other": [], "this": []}
+        done = {"other": [], "this": []}
+        for b in range(blocks):
+            for which in (("other", "this") if b % 2 == 0 else
+                          ("this", "other")):
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    ways[which](x)
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    issue[which].append((t1 - t0) * 1e6)
+                    done[which].append((t2 - t0) * 1e6)
+        row = {f"{w}_{what}_us": statistics.median(v[w])
+               for what, v in (("issue", issue), ("done", done))
+               for w in ("other", "this")}
+        out[name] = row
+        print(f"staging {name} {x.shape}: median µs to issue / to done: "
+              f"pageable {row['other_issue_us']:.1f} / "
+              f"{row['other_done_us']:.1f}, pinned {row['this_issue_us']:.1f}"
+              f" / {row['this_done_us']:.1f} ({card})", flush=True)
+    return {"arrays": out, "blocks": blocks, "reps": reps}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("mode", choices=sorted(MODES))
-    ap.add_argument("--other", required=True, type=Path,
-                    help="the other version of the mode's source")
+    ap.add_argument("mode", choices=sorted(MODES) + ["staging", "syncs"])
+    ap.add_argument("--other", type=Path,
+                    help="the other version of the mode's source (syncs: "
+                    "the other package tree's src directory; staging: "
+                    "none)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sweep", default="",
                     help="moe_dispatch only: comma-separated id counts to "
                     "time instead of the model's calls")
+    ap.add_argument("--pairs", type=int, default=10,
+                    help="syncs only: alternating pairs of drives")
+    ap.add_argument("--count-src", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.sweep and args.mode != "moe_dispatch":
         ap.error("--sweep is a moe_dispatch option")
+    if (args.other is None) != (args.mode == "staging"):
+        ap.error("--other is required, except by the staging mode")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: torch sees no CUDA device", file=sys.stderr)
         return 2
+    if args.count_src:          # one drive of the syncs mode
+        print(json.dumps(count_syncs(args.count_src)))
+        return 0
+    if args.mode in ("syncs", "staging"):
+        sys.path[:0] = [str(ROOT)]
+        from chip_smoke import card_line
+        card = card_line()
+        print(card, flush=True)
+        res = (syncs_mode(args.other, args.pairs, card)
+               if args.mode == "syncs" else staging_mode(card))
+        print(json.dumps({"card": card, "mode": args.mode, **res}))
+        return 0
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import chip_smoke as cs
     from repro_torch.kernels import _build, _launch

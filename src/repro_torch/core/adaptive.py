@@ -24,9 +24,12 @@ Every choice is recorded as a `Decision`; the RDMA arms run inside
 kernels as the fixed backend it names (B1/B2 on the one-sided arms, B3/B4
 on the AM arms); an arm that fails raises.
 
-Three parts wait for their own modules and raise NotImplementedError: the
-hot-bucket cache (ROADMAP A10), the pipeline's auto-depth (A9) and the
-fault plane's failover of unserviced AM rows (A11).
+Under a fault plane (core/faults.py) the AM arms fail the rows of a dead
+or stalled owner over to the one-sided lane, and the plane's per-owner
+pressure feeds the health EWMA and the quarantine. With a pipeline
+(core/pipeline.py) `auto_depth` lets the chooser set the window count.
+The hot-bucket cache waits for its module (ROADMAP A10) and raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ from . import hashtable as ht_mod
 from . import queue as q_mod
 from . import window as win_mod
 from .costmodel import ARMS, ComponentCosts, DSOp
-from .types import OpStats, Promise, as_i32, as_mask
+from .types import OpStats, Promise, as_i32, as_mask, to_device
 
 
 @dataclass(frozen=True)
@@ -110,12 +113,12 @@ def _sync(out) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _failover(uns) -> None:
-    """Seam for the fault plane's failover of unserviced AM rows."""
-    if uns is not None:
-        raise NotImplementedError(
-            "failing unserviced AM rows over to the one-sided lane waits "
-            "for the fault plane (ROADMAP A11)")
+def _failover_rows(uns: np.ndarray, valid, device):
+    """(m, rv) for the failover of unserviced AM rows: the plane's host
+    mask on the batch's device, and the rows to re-run one-sided (m, or
+    valid & m)."""
+    m = to_device(uns, torch.bool, device)
+    return m, (m if valid is None else valid & m)
 
 
 class AdaptiveEngine:
@@ -307,11 +310,12 @@ class AdaptiveEngine:
                     if h < self.QUARANTINE_ON / 2:
                         self.quarantined.discard(r)
 
-    def _after_am(self):
+    def _after_am(self) -> Optional[np.ndarray]:
         """Post-execution fault bookkeeping: with a fault plane in scope,
         ingest its per-owner pressure and return the last AM dispatch's
-        unserviced-row mask (None when everything was serviced). The
-        port's `faults.active_plane()` is a seam that returns None."""
+        unserviced-row mask (host numpy; None when everything was
+        serviced) so the wrapper can fail those rows over to the one-sided
+        lane."""
         plane = flt.active_plane()
         if plane is None:
             return None
@@ -423,8 +427,18 @@ class AdaptiveEngine:
 
     def auto_depth(self, pipe, op: DSOp, promise: Promise,
                    stats: Optional[OpStats] = None) -> OpStats:
-        raise NotImplementedError("auto-depth needs the pipeline, not "
-                                  "ported yet (ROADMAP A9)")
+        """Submit-time hook of the async front doors: when `pipe` opted
+        into auto-depth, pick the window count with `choose_depth`,
+        retarget the pipeline (`Pipeline.set_depth`, capped at its
+        constructor depth) and return the stats priced at that depth, so
+        the stage-time Decision records it. A fixed-depth pipeline passes
+        through untouched."""
+        s = stats or OpStats()
+        if not getattr(pipe, "auto_depth", False):
+            return s
+        d = self.choose_depth(op, promise, s, max_depth=pipe.max_depth)
+        pipe.set_depth(d)
+        return replace(s, pipeline_depth=d)
 
     def decide(self, op: DSOp, promise: Promise, dst=None, valid=None,
                stats: Optional[OpStats] = None,
@@ -565,11 +579,27 @@ class AdaptiveEngine:
                 "ht_insert",
                 lambda e: ht_mod.build_am_handlers(ht, e,
                                                    max_probes=max_probes))
-            out = self._timed(dec, lambda: ht_mod.insert_rpc(
+            ht2, ok, probes = self._timed(dec, lambda: ht_mod.insert_rpc(
                 ht, eng, keys, vals, valid=valid, decision=dec,
                 coalesce=dec.coalesce))
-            _failover(self._after_am())
-            return out
+            uns = self._after_am()
+            if uns is not None:
+                # rows whose owner never serviced the AM (dead/stalled)
+                # land through the one-sided lane: the target NIC stays
+                # live when its host CPU does not. A dead owner's rows
+                # move together, so its apply order is kept; coalesce
+                # rides along so duplicate keys collapse to one record, as
+                # the AM insert-or-assign would have applied them
+                m, rv = _failover_rows(uns, valid, dev)
+                with win_mod.decision_scope(dec), \
+                        win_mod.cache_scope(self.cache):
+                    ht2, ok2, pr2 = ht_mod.insert_rdma(
+                        ht2, keys, vals, promise=promise, valid=rv,
+                        max_probes=max_probes, fused=True,
+                        coalesce=dec.coalesce)
+                ok = torch.where(m, ok2, ok)
+                probes = torch.where(m, pr2, probes)
+            return ht2, ok, probes
 
         def run():
             with win_mod.decision_scope(dec):
@@ -604,7 +634,18 @@ class AdaptiveEngine:
             found, vals = self._timed(dec, lambda: ht_mod.find_rpc(
                 ht, eng, keys, valid=valid, decision=dec,
                 coalesce=dec.coalesce))
-            _failover(self._after_am())
+            uns = self._after_am()
+            if uns is not None:
+                # unserviced finds re-read one-sided (reply words of
+                # undelivered ops are garbage by contract, so the merge
+                # overwrites exactly those rows)
+                m, rv = _failover_rows(uns, valid, dev)
+                with win_mod.decision_scope(dec):
+                    _, f2, v2 = ht_mod.find_rdma(
+                        ht, keys, promise=promise, valid=rv,
+                        max_probes=max_probes, fused=True)
+                found = torch.where(m, f2, found)
+                vals = torch.where(m[..., None], v2, vals)
             return ht, found, vals
 
         def run():
@@ -634,10 +675,20 @@ class AdaptiveEngine:
         if dec.arm in ("am", "am_pt"):
             eng = self._need_am(
                 "q_push", lambda e: q_mod.build_am_handlers(q, e))
-            out = self._timed(dec, lambda: q_mod.push_rpc(
+            q2, ok = self._timed(dec, lambda: q_mod.push_rpc(
                 q, eng, vals, valid=valid, decision=dec))
-            _failover(self._after_am())
-            return out
+            uns = self._after_am()
+            if uns is not None:
+                # the queue lives on ONE rank, so a dead host leaves the
+                # whole batch unserviced and the re-run is a full
+                # one-sided push, in the order its reservations hand out
+                m, rv = _failover_rows(uns, valid, dev)
+                with win_mod.decision_scope(dec):
+                    q2, ok2 = q_mod.push_rdma(
+                        q2, vals, promise=promise, valid=rv,
+                        max_cas_rounds=max_cas_rounds, planned=True)
+                ok = torch.where(m, ok2, ok)
+            return q2, ok
 
         def run():
             with win_mod.decision_scope(dec):
@@ -663,10 +714,20 @@ class AdaptiveEngine:
         if dec.arm in ("am", "am_pt"):
             eng = self._need_am(
                 "q_pop", lambda e: q_mod.build_am_handlers(q, e))
-            out = self._timed(dec, lambda: q_mod.pop_rpc(
+            q2, got, pvals = self._timed(dec, lambda: q_mod.pop_rpc(
                 q, eng, n, valid=valid, decision=dec))
-            _failover(self._after_am())
-            return out
+            uns = self._after_am()
+            if uns is not None:
+                # unserviced pops consumed nothing: run them again
+                # one-sided against the updated queue
+                m, rv = _failover_rows(uns, valid, dev)
+                with win_mod.decision_scope(dec):
+                    q2, g2, v2 = q_mod.pop_rdma(
+                        q2, n, promise=promise, valid=rv,
+                        max_cas_rounds=max_cas_rounds, planned=True)
+                got = torch.where(m, g2, got)
+                pvals = torch.where(m[..., None], v2, pvals)
+            return q2, got, pvals
 
         def run():
             with win_mod.decision_scope(dec):

@@ -80,7 +80,19 @@ class AMEngine:
 
     def drain_dispatch_queue(self) -> int:
         """Enter a dispatch point: service every queued dispatch, FIFO.
-        Returns the number serviced; every entry counts a dispatch point."""
+        Returns the number serviced; every entry counts a dispatch point.
+
+        Under an active FaultPlan each call is one AM service opportunity:
+        the plane's round clock ticks, and while the plan stalls the queue
+        (`stall_rounds` / `stall_forever`) the queue does NOT drain and no
+        dispatch point is counted (the owner never entered the runtime)."""
+        plane = flt.active_plane()
+        if plane is not None:
+            stalled = plane.queue_stalled()
+            plane.tick()
+            if stalled:
+                plane.stall_hits += 1
+                return 0
         self.dispatch_points += 1
         count = len(self._pending)
         while self._pending:

@@ -21,7 +21,8 @@ argument.
 
 JAX's `while_loop` probe rounds become a Python loop that reads its stop
 flag once per round (`.item()`, one host sync per round); `fori_loop`
-rounds become plain Python loops.
+rounds become plain Python loops. Each loop runs under `faults.loop_scope`,
+so a fault plan draws its phases once, as JAX's traced body does.
 """
 from __future__ import annotations
 
@@ -34,11 +35,12 @@ import torch
 from .. import intops
 from ..kernels import ops as kops
 from . import am as am_mod
+from . import faults as flt
 from . import routing
 from . import window as win_mod
 from .types import (FLAG_EMPTY, FLAG_READY, FLAG_RESERVED, READ_UNIT,
                     STATE_MASK, AmoKind, Backend, Promise, as_backend,
-                    as_i32, as_mask)
+                    as_i32, as_mask, to_host)
 from .window import (Window, rdma_cas, rdma_cas_put, rdma_cas_put_publish,
                      rdma_fao, rdma_fao_get, rdma_get, rdma_put)
 
@@ -152,36 +154,39 @@ def insert_rdma(ht: DHashTable, keys, vals, promise: Promise = Promise.CRW,
             co = None
         flip = FLAG_RESERVED ^ FLAG_READY
         j = 0
-        while j < max_probes and bool(active.any()):
-            slot = (start + j) % nslots
-            off = slot * rec_w
-            if promise == Promise.CRW:
-                old, win = rdma_cas_put_publish(
-                    win, dst, off, FLAG_EMPTY, claim_to, off + 1, payload,
-                    flip, valid=active, plan=plan)
-            else:
-                old, win = rdma_cas_put(
-                    win, dst, off, FLAG_EMPTY, claim_to, off + 1, payload,
-                    valid=active, plan=plan)
-            if co is not None:
-                # the whole duplicate run adopts its representative's outcome
-                old = routing.lead(co, old)
-            newly = active & (old == FLAG_EMPTY)
-            probes = probes + active.to(torch.int32)
-            active = active & ~newly
-            j += 1
+        role = "cas_put_pub" if promise == Promise.CRW else "cas_put"
+        with flt.loop_scope(dst, (role,)):
+            while j < max_probes and bool(active.any()):
+                slot = (start + j) % nslots
+                off = slot * rec_w
+                if promise == Promise.CRW:
+                    old, win = rdma_cas_put_publish(
+                        win, dst, off, FLAG_EMPTY, claim_to, off + 1,
+                        payload, flip, valid=active, plan=plan)
+                else:
+                    old, win = rdma_cas_put(
+                        win, dst, off, FLAG_EMPTY, claim_to, off + 1,
+                        payload, valid=active, plan=plan)
+                if co is not None:
+                    # the duplicate run adopts its representative's outcome
+                    old = routing.lead(co, old)
+                newly = active & (old == FLAG_EMPTY)
+                probes = probes + active.to(torch.int32)
+                active = active & ~newly
+                j += 1
         return _with_win(ht, win), valid & ~active, probes
 
-    for j in range(max_probes):
-        slot = (start + j) % nslots
-        off = slot * rec_w
-        # coalesce is phase-local here (fresh runs per probe)
-        old, win = rdma_cas(win, dst, off, FLAG_EMPTY, claim_to,
-                            valid=active, coalesce=coalesce)
-        newly = active & (old == FLAG_EMPTY)
-        claimed = torch.where(newly, slot, claimed)
-        probes = probes + active.to(torch.int32)
-        active = active & ~newly
+    with flt.loop_scope(dst, ("cas",)):
+        for j in range(max_probes):
+            slot = (start + j) % nslots
+            off = slot * rec_w
+            # coalesce is phase-local here (fresh runs per probe)
+            old, win = rdma_cas(win, dst, off, FLAG_EMPTY, claim_to,
+                                valid=active, coalesce=coalesce)
+            newly = active & (old == FLAG_EMPTY)
+            claimed = torch.where(newly, slot, claimed)
+            probes = probes + active.to(torch.int32)
+            active = active & ~newly
     success = valid & ~active
 
     # ONE put phase writes [key | val words] for every claimed op.
@@ -263,11 +268,16 @@ def find_rdma(ht: DHashTable, keys, promise: Promise = Promise.CR,
     win, active = ht.win, valid
     found = torch.zeros(keys.shape, dtype=torch.bool, device=dev)
     out = torch.zeros(keys.shape + (vw,), dtype=torch.int32, device=dev)
-    for j in range(max_probes):
-        # fused: an all-inactive probe is an identity, so stop early
-        if fused and not bool(active.any()):
-            break
-        win, active, found, out = probe_body(j, win, active, found, out)
+    if promise == Promise.CR:
+        roles = ("get",)
+    else:
+        roles = ("fao_get", "fao") if fused else ("fao", "get", "fao")
+    with flt.loop_scope(dst, roles):
+        for j in range(max_probes):
+            # fused: an all-inactive probe is an identity, so stop early
+            if fused and not bool(active.any()):
+                break
+            win, active, found, out = probe_body(j, win, active, found, out)
     return _with_win(ht, win), found, out
 
 
@@ -394,3 +404,109 @@ def find(ht, keys, *, promise=Promise.CR, backend=Backend.AUTO, engine=None,
                                coalesce=kw.get("coalesce", False))
         return ht, found, vals
     return find_rdma(ht, keys, promise=promise, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Pipelined (async) front doors: submit through a core/pipeline.Pipeline
+# whose state is the DHashTable; return a Handle instead of blocking.
+# Forcing at once (depth=1, or result() right after submit) IS the
+# synchronous path, bit for bit.
+# ---------------------------------------------------------------------------
+def _async_stats(ht, keys, valid, stats, depth: int):
+    """Fold the batch's skew (owners through `place_np`) and dedup ratio,
+    counted on the host, and the pipeline depth into the cost-model
+    stats, as the JAX package does, so that staging reads no device value.
+    Keys given as a CUDA tensor are copied to the host here, which waits
+    for the batches already queued: pass host arrays to keep the overlap."""
+    from dataclasses import replace as _rep
+
+    from . import adaptive as ad
+    from .types import OpStats
+    s = stats or OpStats()
+    k, v = to_host(keys), to_host(valid)
+    # 1.0 doubles as OpStats' "unknown": nudge a computed 1.0 off it by an
+    # epsilon the scores cannot see, so the stage-time decide() does not
+    # count it again from a device value
+    if s.skew == 1.0:
+        owner, _ = place_np(ht.nranks, ht.nslots, k)
+        skew = ad.batch_skew(owner, ht.nranks, v)
+        s = _rep(s, skew=skew if skew != 1.0 else 1.0 + 1e-9)
+    if s.dedup == 1.0:
+        # nudged UP: dedup < 1 would turn coalescing on; every consumer
+        # clamps at 1.0, so > 1 means "known all-distinct"
+        dd = ad.batch_dedup(k, v)
+        s = _rep(s, dedup=dd if dd != 1.0 else 1.0 + 1e-9)
+    return _rep(s, pipeline_depth=max(1, int(depth)))
+
+
+def insert_async(pipe, keys, vals, *, promise=Promise.CRW,
+                 backend=Backend.AUTO, engine=None, adaptive=None,
+                 deferred=None, **kw):
+    """Submit one insert batch to a pipeline; returns a `pipeline.Handle`
+    resolving to (ok, probes); the table threads through `pipe.state`.
+
+    The batch stages at once (eager) unless its arm is an active message,
+    in which case it waits in the deferred-dispatch queue until the next
+    dispatch point (`deferred` overrides; default: backend "rpc", or what
+    `AdaptiveEngine.peek_arm` says for AUTO). Submission order is
+    serialization order, so results equal calling `insert` in the same
+    order, with `result()` forced in any order.
+
+    AUTO batches price arms with `stats.pipeline_depth = pipe.depth`, take
+    skew and dedup from the keys on the host (`_async_stats`), and under
+    `Pipeline(auto_depth=True)` let the chooser retarget the window count
+    (`AdaptiveEngine.auto_depth`)."""
+    backend = as_backend(backend)
+    eng = engine if engine is not None else pipe.am_engine
+    st = pipe.staged_state
+    if backend == Backend.AUTO:
+        from . import adaptive as ad
+        from .costmodel import DSOp
+        a = adaptive or ad.default_engine(st.nranks, am_engine=eng)
+        stats = _async_stats(st, keys, kw.get("valid"), kw.pop("stats", None),
+                             pipe.depth)
+        stats = a.auto_depth(pipe, DSOp.HT_INSERT, promise, stats)
+        if deferred is None:
+            deferred = a.peek_arm(DSOp.HT_INSERT, promise,
+                                  a._ht_stats(keys, kw.get("valid"), stats)
+                                  ) in ("am", "am_pt")
+        kw = dict(kw, stats=stats, adaptive=a)
+    elif deferred is None:
+        deferred = backend == Backend.RPC
+
+    def op(ht):
+        ht2, ok, probes = insert(ht, keys, vals, promise=promise,
+                                 backend=backend, engine=eng, **kw)
+        return ht2, (ok, probes)
+
+    return pipe.submit(op, deferred=deferred, label="ht_insert")
+
+
+def find_async(pipe, keys, *, promise=Promise.CR, backend=Backend.AUTO,
+               engine=None, adaptive=None, deferred=None, **kw):
+    """Submit one find batch to a pipeline; returns a Handle resolving to
+    (found, vals). Staging and deferral as in `insert_async`."""
+    backend = as_backend(backend)
+    eng = engine if engine is not None else pipe.am_engine
+    st = pipe.staged_state
+    if backend == Backend.AUTO:
+        from . import adaptive as ad
+        from .costmodel import DSOp
+        a = adaptive or ad.default_engine(st.nranks, am_engine=eng)
+        stats = _async_stats(st, keys, kw.get("valid"), kw.pop("stats", None),
+                             pipe.depth)
+        stats = a.auto_depth(pipe, DSOp.HT_FIND, promise, stats)
+        if deferred is None:
+            deferred = a.peek_arm(DSOp.HT_FIND, promise,
+                                  a._ht_stats(keys, kw.get("valid"), stats)
+                                  ) in ("am", "am_pt")
+        kw = dict(kw, stats=stats, adaptive=a)
+    elif deferred is None:
+        deferred = backend == Backend.RPC
+
+    def op(ht):
+        ht2, found, vals = find(ht, keys, promise=promise, backend=backend,
+                                engine=eng, **kw)
+        return ht2, (found, vals)
+
+    return pipe.submit(op, deferred=deferred, label="ht_find")

@@ -28,6 +28,7 @@ import torch
 
 from .. import intops
 from . import am as am_mod
+from . import faults as flt
 from . import routing
 from . import window as win_mod
 from .types import AmoKind, Backend, Promise, as_backend, as_i32, as_mask
@@ -150,10 +151,11 @@ def push_rdma(q: DQueue, vals, promise: Promise = Promise.CRW, valid=None,
         off_tr = torch.full((P, n), TAIL_READY, dtype=torch.int32,
                             device=dev)
         pending = ok
-        for _ in range(max_cas_rounds):
-            old, win = rdma_cas(win, dst, off_tr, ticket, ticket + 1,
-                                valid=pending, plan=plan)
-            pending = pending & ~(old == ticket)
+        with flt.loop_scope(dst, ("cas",)):
+            for _ in range(max_cas_rounds):
+                old, win = rdma_cas(win, dst, off_tr, ticket, ticket + 1,
+                                    valid=pending, plan=plan)
+                pending = pending & ~(old == ticket)
         ok = ok & ~pending  # unpublished pushes report failure
     return _with_win(q, win), ok
 
@@ -203,10 +205,11 @@ def pop_rdma(q: DQueue, n: int, promise: Promise = Promise.CR, valid=None,
         off_hr = torch.full((P, n), HEAD_READY, dtype=torch.int32,
                             device=dev)
         pending = got
-        for _ in range(max_cas_rounds):
-            old, win = rdma_cas(win, dst, off_hr, ticket, ticket + 1,
-                                valid=pending, plan=plan)
-            pending = pending & ~(old == ticket)
+        with flt.loop_scope(dst, ("cas",)):
+            for _ in range(max_cas_rounds):
+                old, win = rdma_cas(win, dst, off_hr, ticket, ticket + 1,
+                                    valid=pending, plan=plan)
+                pending = pending & ~(old == ticket)
     vals = torch.where(got[..., None], vals, 0)
     return _with_win(q, win), got, vals
 
@@ -381,3 +384,77 @@ def pop(q, n, *, promise=Promise.CR, backend=Backend.AUTO, engine=None,
     if backend == Backend.RPC:
         return pop_rpc(q, engine, n, valid=kw.get("valid"))
     return pop_rdma(q, n, promise=promise, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Pipelined (async) front doors: submit through a core/pipeline.Pipeline
+# whose state is the DQueue. Submission order is serialization order.
+# ---------------------------------------------------------------------------
+def _q_async_stats(stats, depth: int):
+    from dataclasses import replace as _rep
+
+    from .types import OpStats
+    return _rep(stats or OpStats(), pipeline_depth=max(1, int(depth)))
+
+
+def push_async(pipe, vals, *, promise=Promise.CRW, backend=Backend.AUTO,
+               engine=None, adaptive=None, deferred=None, **kw):
+    """Submit one push batch to a pipeline; returns a Handle resolving to
+    `pushed`; the queue threads through `pipe.state`.
+
+    AM-arm batches wait in the deferred-dispatch queue for the next
+    dispatch point (`deferred` overrides; see `hashtable.insert_async`);
+    AUTO batches price arms with `stats.pipeline_depth = pipe.depth`. C_L
+    pushes are always eager (local compute, nothing to overlap)."""
+    backend = as_backend(backend)
+    eng = engine if engine is not None else pipe.am_engine
+    q0 = pipe.staged_state
+    if promise != Promise.CL and backend == Backend.AUTO:
+        from . import adaptive as ad
+        from .costmodel import DSOp
+        a = adaptive or ad.default_engine(q0.nranks, am_engine=eng)
+        stats = _q_async_stats(kw.pop("stats", None), pipe.depth)
+        stats = a.auto_depth(pipe, DSOp.Q_PUSH, promise,
+                             a._host_stats(stats))
+        if deferred is None:
+            deferred = a.peek_arm(DSOp.Q_PUSH, promise,
+                                  a._host_stats(stats)) in ("am", "am_pt")
+        kw = dict(kw, stats=stats, adaptive=a)
+    elif deferred is None:
+        deferred = promise != Promise.CL and backend == Backend.RPC
+
+    def op(q):
+        q2, ok = push(q, vals, promise=promise, backend=backend, engine=eng,
+                      **kw)
+        return q2, ok
+
+    return pipe.submit(op, deferred=deferred, label="q_push")
+
+
+def pop_async(pipe, n, *, promise=Promise.CR, backend=Backend.AUTO,
+              engine=None, adaptive=None, deferred=None, **kw):
+    """Submit one pop batch to a pipeline; returns a Handle resolving to
+    (got, vals). Staging and deferral as in `push_async`."""
+    backend = as_backend(backend)
+    eng = engine if engine is not None else pipe.am_engine
+    q0 = pipe.staged_state
+    if promise != Promise.CL and backend == Backend.AUTO:
+        from . import adaptive as ad
+        from .costmodel import DSOp
+        a = adaptive or ad.default_engine(q0.nranks, am_engine=eng)
+        stats = _q_async_stats(kw.pop("stats", None), pipe.depth)
+        stats = a.auto_depth(pipe, DSOp.Q_POP, promise,
+                             a._host_stats(stats))
+        if deferred is None:
+            deferred = a.peek_arm(DSOp.Q_POP, promise,
+                                  a._host_stats(stats)) in ("am", "am_pt")
+        kw = dict(kw, stats=stats, adaptive=a)
+    elif deferred is None:
+        deferred = promise != Promise.CL and backend == Backend.RPC
+
+    def op(q):
+        q2, got, vals = pop(q, n, promise=promise, backend=backend,
+                            engine=eng, **kw)
+        return q2, (got, vals)
+
+    return pipe.submit(op, deferred=deferred, label="q_pop")

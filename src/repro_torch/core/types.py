@@ -14,6 +14,7 @@ from __future__ import annotations
 import enum
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -69,16 +70,40 @@ STATE_MASK = 255
 EMPTY_KEY = -0x7FFFFFFF  # sentinel for "no key present"
 
 
+def to_device(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """A tensor, array or scalar as a `dtype` tensor on `device`. A host
+    array or tensor bound for a CUDA device goes through pinned memory
+    with a non-blocking copy, so the host does not wait for the work
+    already queued on the stream (a pageable copy would); the caching
+    host allocator keeps the pinned block until its copy has run."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and (isinstance(x, np.ndarray) or (
+            isinstance(x, torch.Tensor) and x.device.type == "cpu")):
+        host = torch.as_tensor(x, dtype=dtype)
+        return host.pin_memory().to(dev, non_blocking=True)
+    return torch.as_tensor(x, dtype=dtype, device=dev)
+
+
+def to_host(x):
+    """numpy copy of a tensor or array (None stays None). A CUDA tensor's
+    copy waits for the work that produces it."""
+    if x is None or isinstance(x, np.ndarray):
+        return x
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def as_i32(x, device) -> torch.Tensor:
     """A tensor, array or scalar as an int32 tensor on `device`."""
-    return torch.as_tensor(x, dtype=torch.int32, device=device)
+    return to_device(x, torch.int32, device)
 
 
 def as_mask(x, shape, device) -> torch.Tensor:
     """An optional validity mask as a bool tensor (all True when None)."""
     if x is None:
         return torch.ones(shape, dtype=torch.bool, device=device)
-    return torch.as_tensor(x, dtype=torch.bool, device=device)
+    return to_device(x, torch.bool, device)
 
 
 @dataclass(frozen=True)

@@ -28,9 +28,11 @@ mask with their own valid/delivered flags); put completion is phase-end.
 from __future__ import annotations
 
 import contextlib
+import weakref
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import intops
@@ -47,6 +49,24 @@ Tensor = torch.Tensor
 # ---------------------------------------------------------------------------
 _CURRENT_DECISION = None
 _CURRENT_SLOT: Optional[Tuple[int, int]] = None
+# Pipelines holding unforced in-flight batches (core/pipeline.py notes
+# every transition). A WeakSet, so an abandoned pipeline never counts.
+_INFLIGHT_PIPES: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def note_pipeline_inflight(pipe, active: bool) -> None:
+    """Record whether `pipe` currently holds unforced in-flight batches."""
+    if active:
+        _INFLIGHT_PIPES.add(pipe)
+    else:
+        _INFLIGHT_PIPES.discard(pipe)
+
+
+def pipeline_inflight() -> bool:
+    """True while ANY pipeline holds unforced in-flight batches."""
+    return len(_INFLIGHT_PIPES) > 0
+
+
 PHASE_LOG_MAX = 4096
 _PHASE_LOG: List[Tuple[str, object, Optional[dict]]] = []
 
@@ -286,6 +306,12 @@ def _coalesce_for(plan, coalesce: bool, dst: Tensor, off: Tensor,
 
 
 def _bcast(x, like: Tensor) -> Tensor:
+    """x (a Python scalar or a tensor) as an int32 tensor of like's shape
+    on its device. A scalar is filled on the device: no host copy, which
+    on CUDA would wait for the work already queued."""
+    if isinstance(x, (int, np.integer)):
+        return torch.full(like.shape, int(x), dtype=torch.int32,
+                          device=like.device)
     return torch.broadcast_to(
         torch.as_tensor(x, dtype=torch.int32, device=like.device),
         like.shape).contiguous()

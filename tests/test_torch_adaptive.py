@@ -4,8 +4,8 @@ counters, hysteresis, exploration, forced arms and the round-robin policy
 goes to both packages' AdaptiveEngine, and every Decision must agree field
 by field (scores to 1e-12), as must the engines' signals. Also the batch
 statistics (batch_skew, batch_dedup, routing.owner_loads / plan_skew) on
-random batches, and the seams left for the cache, the pipeline and the
-fault plane.
+random batches, the cache's seam, auto_depth's retargeting of a pipeline
+and the fault plane's unserviced mask.
 """
 import dataclasses
 
@@ -24,24 +24,13 @@ from repro_torch.core import adaptive as ad
 from repro_torch.core import am, routing
 from repro_torch.core import costmodel as cm
 from repro_torch.core.types import OpStats, Promise
-from torch_parity import torch_one_thread, tt  # noqa: F401
+from torch_parity import same_decision, torch_one_thread, tt  # noqa: F401
 
 P = 8
 
 
 def _carry(params):
     return convert.component_costs(dataclasses.asdict(params))
-
-
-def same_decision(td, jd, what=""):
-    assert td.op.value == jd.op.value and td.promise.value == \
-        jd.promise.value, what
-    for f in ("arm", "skew", "source", "batch_ops", "dedup", "coalesce",
-              "cached", "hit_rate", "depth", "quarantined"):
-        assert getattr(td, f) == getattr(jd, f), (what, f)
-    assert set(td.scores) == set(jd.scores), what
-    for a, v in jd.scores.items():
-        assert abs(td.scores[a] - v) <= 1e-12 * max(1.0, abs(v)), (what, a)
 
 
 def same_state(te, je):
@@ -267,11 +256,30 @@ def test_seams_raise_naming_their_roadmap_items():
     eng = ad.AdaptiveEngine(P)
     with pytest.raises(NotImplementedError, match="A10"):
         eng.attach_cache(object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        eng.auto_depth(object(), cm.DSOp.HT_FIND, Promise.CR)
+    # auto_depth retargets a pipeline that opted in (capped at its
+    # constructor depth) and passes a fixed-depth one through
+    from repro_torch.core import faults, pipeline
+    chooser = ad.AdaptiveEngine(P, am_engine=am.AMEngine(P))
+    chooser.force_arm = "am"      # an owner-heavy arm: depth 2 hides it
+    auto = pipeline.Pipeline(object(), depth=3, auto_depth=True)
+    s = chooser.auto_depth(auto, cm.DSOp.HT_FIND, Promise.CR,
+                           OpStats(target_busy_us=50.0))
+    assert auto.depth == s.pipeline_depth == 2 == chooser.choose_depth(
+        cm.DSOp.HT_FIND, Promise.CR, OpStats(target_busy_us=50.0),
+        max_depth=3)
+    fixed = pipeline.Pipeline(object(), depth=2)
+    assert eng.auto_depth(fixed, cm.DSOp.HT_FIND, Promise.CR) == OpStats()
+    assert fixed.depth == 2
+    # _after_am returns the plane's unserviced mask (None without a plane)
     assert eng._after_am() is None
-    with pytest.raises(NotImplementedError, match="A11"):
-        ad._failover(torch.ones(2, dtype=torch.bool))
+    plan = faults.FaultPlan(P, seed=1, dead_owners={3: None})
+    dst = torch.arange(2 * P, dtype=torch.int32).reshape(2, P) % P
+    with faults.fault_scope(plan):
+        plan.inject_am(dst, None)
+        uns = eng._after_am()
+        np.testing.assert_array_equal(uns, dst.numpy() == 3)
+        assert eng._after_am() is None        # taken once
+    assert 3 in eng.quarantined
     assert not eng.cache_reads_on()
     # the default engines persist per nranks and per AM engine
     e = am.AMEngine(P)

@@ -662,3 +662,96 @@ def test_auto_stream_on_cuda_equals_cpu(cuda_device):
     for i, (x, y) in enumerate(zip(res_g, res)):
         same(x, y, f"result {i}")
     same(data_g, data, "final window")
+
+
+def _pipelined_stream(dev):
+    """A depth-2 pipelined stream on `dev`: deferred RPC inserts and finds
+    interleaved with eager fused, unfused and AUTO batches, forced in
+    reverse order. Returns (outputs, final window, dispatch points, the
+    slot-tagged phase log) on the host."""
+    from repro_torch.core import adaptive as ad, costmodel as cm
+    from repro_torch.core import pipeline as pl, window
+    rng = np.random.default_rng(31)
+    P, n = 4, 16
+    table = ht.make_hashtable(P, 64, 1, device=dev)
+    engine = am.AMEngine(P)
+    ht.build_am_handlers(table, engine)
+    chooser = ad.AdaptiveEngine(P, am_engine=engine, params=cm.H100_SXM)
+    pipe = pl.Pipeline(table, depth=2, am_engine=engine)
+    keys = rng.choice(2 ** 20, size=(6, P, n), replace=False).astype(
+        np.int32) + 1
+    arms = (dict(backend="rpc"), dict(backend="rdma"),
+            dict(backend="rdma", fused=False), dict(adaptive=chooser),
+            dict(backend="rpc"), dict(adaptive=chooser))
+    window.drain_phase_log()
+    handles = []
+    for b, kw in enumerate(arms):
+        k = keys[b]
+        handles.append(ht.insert_async(pipe, k, (k * 7)[..., None], **kw))
+        handles.append(ht.find_async(pipe, keys[max(0, b - 1)], **kw))
+    outs = [h.result() for h in reversed(handles)]
+    table = pipe.flush()
+    log = [(role, info["slot"], info["seq"])
+           for role, _, info in window.drain_phase_log()]
+    return ([x.cpu() for o in outs for x in o], table.win.data.cpu(),
+            engine.dispatch_points, log)
+
+
+def test_pipelined_stream_on_cuda_equals_cpu(cuda_device):
+    """A depth-2 pipelined stream with deferred AM batches, forced in
+    reverse: the same outputs, final window, dispatch points and
+    slot-tagged phase log on the card as on the CPU."""
+    outs, data, points, log = _pipelined_stream("cpu")
+    outs_g, data_g, points_g, log_g = _pipelined_stream(cuda_device)
+    for i, (x, y) in enumerate(zip(outs_g, outs)):
+        same(x, y, f"output {i}")
+    same(data_g, data, "final window")
+    assert points_g == points and log_g == log and log
+
+
+def _chaos_stream(dev):
+    """Hash-table batches on every arm (AUTO round robin) and queue
+    batches on both arms under the mixed schedule of tests/test_faults.py
+    (drops, duplicates, delays, owner 1 dead until round 3). Returns the
+    outputs and final windows on the host and the plane's stats."""
+    from repro_torch.core import adaptive as ad, faults as flt
+    rng = np.random.default_rng(32)
+    P, n = 4, 16
+    plan = flt.FaultPlan(P, seed=303, drop_rate=0.15, dup_rate=0.15,
+                         delay_rate=0.20, delay_rounds=2, dead_owners={1: 3})
+    table = ht.make_hashtable(P, 64, 2, device=dev)
+    chooser = ad.AdaptiveEngine(P, am_engine=am.AMEngine(P),
+                                policy="round_robin")
+    q = dq.make_queue(P, 1, 256, 2, device=dev)
+    qchooser = ad.AdaptiveEngine(P, am_engine=am.AMEngine(P),
+                                 policy="round_robin")
+    keys = rng.choice(4000, size=(5, P, n), replace=False).astype(np.int32)
+    items = rng.integers(0, 99, (4, P, 4, 2)).astype(np.int32)
+    outs = []
+    with flt.fault_scope(plan):
+        for k in keys:
+            k = torch.as_tensor(k, device=dev)
+            table, ok, pr = chooser.ht_insert(
+                table, k, torch.stack([k * 3, k * 5], -1))
+            table, found, got = chooser.ht_find(table, k)
+            outs += [ok, pr, found, got]
+        for it in items:
+            q, ok = qchooser.q_push(q, torch.as_tensor(it, device=dev))
+            q, got, vals = qchooser.q_pop(q, 4)
+            outs += [ok, got, vals]
+    return ([x.cpu() for x in outs], table.win.data.cpu(), q.win.data.cpu(),
+            plan.stats(), [d.arm for d in chooser.log])
+
+
+def test_chaos_stream_on_cuda_equals_cpu(cuda_device):
+    """A chaos stream through every arm: the card gives the CPU's replies,
+    windows, arms and plane statistics (the schedule is drawn on the host
+    from the seed, so both devices see the same faults)."""
+    res = _chaos_stream("cpu")
+    res_g = _chaos_stream(cuda_device)
+    for i, (x, y) in enumerate(zip(res_g[0], res[0])):
+        same(x, y, f"output {i}")
+    same(res_g[1], res[1], "table window")
+    same(res_g[2], res[2], "queue window")
+    assert res_g[3] == res[3] and res_g[4] == res[4]
+    assert res[3]["dropped"] > 0 and res[3]["dup_filtered"] > 0

@@ -37,6 +37,19 @@ def same(a, b, what=""):
     np.testing.assert_array_equal(a, b, err_msg=what)
 
 
+def same_decision(td, jd, what=""):
+    """Assert a port Decision equals the JAX package's field by field
+    (scores to 1e-12: the same sums, possibly in another order)."""
+    assert td.op.value == jd.op.value and td.promise.value == \
+        jd.promise.value, what
+    for f in ("arm", "skew", "source", "batch_ops", "dedup", "coalesce",
+              "cached", "hit_rate", "depth", "quarantined"):
+        assert getattr(td, f) == getattr(jd, f), (what, f)
+    assert set(td.scores) == set(jd.scores), what
+    for a, v in jd.scores.items():
+        assert abs(td.scores[a] - v) <= 1e-12 * max(1.0, abs(v)), (what, a)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def torch_one_thread():
     prev = torch.get_num_threads()
