@@ -36,8 +36,12 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    components W - 1 and W slots apart, duplicate keys in a component and
    full windows, starts outside [0, nslots), max_probes past nslots,
    shards longer and shorter (clamped) than their records, m = 65,536
-   with 1.6% live, live counts past the chunk, all rows masked: the
-   kernel on the card against its plain version on the CPU, bit for bit.
+   with 1.6% live, live counts past the chunk, all rows masked; and its
+   txn_group_apply (B9) cases: a group split into two runs, a failing
+   guard after writes to its word, gid outside [0, ngroups), chain flags
+   on rows that are not CAS, an all-masked owner, offsets outside [0, L),
+   64 groups of 4 rows, 3,500 rows across staging chunks: the kernel on
+   the card against its plain version on the CPU, bit for bit.
    Then, kernel and plain version both on the card, bit for bit, the
    moe_dispatch cases of kernels/lane_cases.py (196,608 ids over 64
    experts, every id on one expert across ten tiles, ids outside [0, E)
@@ -172,7 +176,11 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    order, every AUTO call logs one Decision with scores for all four
    arms, and the launch counts show amo_apply / fused_apply on the
    one-sided arms and hash_find / hash_insert on the AM arms. Regret is
-   printed, not gated.
+   printed, not gated. Then the hot mix once more with a hot-bucket
+   cache on the chooser: per batch an AUTO insert and find from the empty
+   table (the cache flushed with it), and the find twice more through the
+   cached fused arm, each held to the oracle; printed: AUTO's arms, the
+   re-reads' ms and hit rates, cache.stats().
 12. The pipelined engine (core/pipeline.py, the async front doors) at
    phase 2's size, after the method of the JAX package's
    benchmarks/pipeline_bench.py: a stream of PIPE_PAIRS pairs (8 of the
@@ -214,9 +222,42 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    raises RemoteTimeout at Handle.result(timeout=8), twice; a pipeline
    left on an exception fails its stranded handle and runs it never; and
    a small pipelined chaos stream gives the same replies, windows and
-   plane statistics on the CPU and on the card. Printed: plan.stats() and
-   the median time per batch pair under each schedule beside the
-   fault-free time, per arm.
+   plane statistics on the CPU and on the card. The arms include
+   "cached" (the fused arm with a hot-bucket cache, its finds read twice,
+   the second from the cache), and TXN_CHAOS_BATCHES batches of phase
+   15's txn stream run on rdma_fused and am under each schedule, equal to
+   their fault-free runs and their serial replays. Printed: plan.stats()
+   and the median time per batch pair (per txn batch) under each schedule
+   beside the fault-free time, per arm, and the cached arm's
+   cache.stats().
+14. The hot-bucket cache (core/cache.py) on phase 2's table (64 ranks x
+   2**18 slots, filled with its 4,194,304 keys through the RPC insert),
+   after the JAX package's bench_cache: 16 find batches of 64 x 1,024 keys
+   drawn zipf(1.1) from the filled keys, an insert batch of fresh keys
+   after every 8 finds (about 90% reads), on the fused CR find without a
+   cache, the same with a BucketCache(capacity 4096, ways 4, max_probes
+   8), and AUTO with a cache. Gates: every find equals the host oracle and
+   the uncached run's, the final windows are equal with and without the
+   cache, a batch of the 64 hottest present keys found a second time is
+   all-hit, launches no kernel and logs only its cache_hit, a depth-2
+   pipelined stream of cached finds adds no host sync to the uncached one
+   (SyncCounter), and a small stream gives the same outputs, windows and
+   cache.stats() on the CPU and the card. Printed: the median ms per find
+   batch of each arm, hit rates, cache.stats(), the host ms of lookup and
+   drain_fills, AUTO's arms.
+15. The transaction engine (core/txn.py) after the JAX package's
+   bench_txn: 6 batches, every rank of 64 running one txn of 4 ops a
+   batch on words drawn zipf(1.1) from 24 hot words, over a window of
+   phase 2's table shape, on rdma, rdma_fused, am, am_pt and auto (priced
+   with phase 10's fit). Gates: each batch's committed order replayed
+   through serial_apply gives its replies and window bit for bit; B9
+   launches on every arm and B1 on the one-sided ones; the last B9 call
+   of each arm, kept, equals its plain version bit for bit (timed as in
+   phase 3). Then `move` of 64 present keys to fresh ones on phase 14's
+   full table and `pop_then_insert` of 64 items from a queue of phase 2's
+   capacity (one value word, the table's) into it, each held to a host
+   oracle. Printed per arm: µs per txn, abort rate, rounds, saved reads,
+   host syncs per round; the composites' times.
 
 Before the last line it prints the card's name and power limit, the
 median time per batch of each data-structure arm and per decode step, the
@@ -551,10 +592,16 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:94"),
     "rg_lru_scan": ("src/repro_torch/kernels/csrc/rg_lru.cu",
                     "src/repro/kernels/rg_lru.py:53"),
+    # no TPU counterpart: the JAX package's lane is jnp only (no
+    # pallas_call); `replaces` names it
+    "txn_group_apply": ("src/repro_torch/kernels/csrc/txn_lane.cu",
+                        "src/repro/kernels/ops.py:74"),
 }
 # the kernels each main path runs (phase 2, phase 5, phase 7; a prefill's
 # come from expected_prefill_launches)
 DS_KERNELS = ("amo_apply", "fused_apply", "hash_find", "hash_insert")
+# with the transactional owner lane (phases 13 and 15)
+OWNER_KERNELS = DS_KERNELS + ("txn_group_apply",)
 MODEL_KERNELS = ("flash_decode", "moe_dispatch")
 RGEMMA_DECODE_KERNELS = ("rg_lru_scan",)
 # the model kernels: their plain versions are timed as the kernels are
@@ -568,14 +615,17 @@ NO_LIBRARY = {
     "hash_insert": "no single PyTorch call",
     "moe_dispatch": "bincount gives counts, not positions",
     "rg_lru_scan": "PyTorch has no eager linear-recurrence scan",
+    "txn_group_apply": "no TPU counterpart; no single PyTorch call",
 }
 
 
 def wrappers():
     from repro_torch.kernels import (amo_apply as kamo, flash_attention as kfa,
                                      flash_decode as kfd, hash_probe as khp,
-                                     moe_dispatch as kmd, rg_lru as krg)
+                                     moe_dispatch as kmd, rg_lru as krg,
+                                     txn_lane as ktx)
     return {"amo_apply": kamo.amo_apply, "fused_apply": kamo.fused_apply,
+            "txn_group_apply": ktx.txn_group_apply,
             "hash_find": khp.hash_find, "hash_insert": khp.hash_insert,
             "flash_decode": kfd.flash_decode,
             "moe_dispatch": kmd.moe_dispatch,
@@ -585,7 +635,7 @@ def wrappers():
 
 def plain_versions():
     from repro_torch.kernels import ref as kref
-    return {name: getattr(kref, name) for name in DS_KERNELS} | {
+    return {name: getattr(kref, name) for name in OWNER_KERNELS} | {
         "flash_decode": kref.decode_attention,
         "moe_dispatch": kref.moe_dispatch,
         "flash_attention": plain_mha,
@@ -876,7 +926,8 @@ def bound_bytes(name: str, args, kw, out) -> float:
 def serial_chain(name: str, args):
     """Live ops at the busiest owner, the length of its list (None for the
     kernels without an owner list): hash_insert walks it serially."""
-    if name not in ("amo_apply", "fused_apply", "hash_insert"):
+    if name not in ("amo_apply", "fused_apply", "hash_insert",
+                    "txn_group_apply"):
         return None
     return int(args[-1].sum(1).max())
 
@@ -1056,6 +1107,7 @@ def edge_cases(device) -> None:
     # CPU, where its op-by-op loop is quicker
     from repro_torch.kernels import lane_cases
     for label, name, args, kw in (lane_cases.owner_lane_cases()
+                                  + lane_cases.txn_group_apply_cases()
                                   + lane_cases.hash_insert_cases()):
         got = getattr(kops, name)(*(t(a, torch.from_numpy(a).dtype)
                                     for a in args), **kw)
@@ -1079,14 +1131,15 @@ HEADLINE = {"amo_apply": "ht rdma_unfused insert last",
             "flash_decode": "serve last step",
             "moe_dispatch": "serve last step",
             "flash_attention": "prefill",
-            "rg_lru_scan": "prefill"}
+            "rg_lru_scan": "prefill",
+            "txn_group_apply": "txn rdma_fused"}
 
 
 def live_count(name: str, args, kw) -> int:
     """What a call works on: live ops (data structures), valid cache rows
     (flash_decode), tokens (moe_dispatch), live (q, k) pairs x heads
     (flash_attention), (B, S, D) elements (rg_lru_scan)."""
-    if name in DS_KERNELS:
+    if name in OWNER_KERNELS:
         return int(args[-1].sum())
     if name == "flash_decode":
         return int(args[3].sum())
@@ -1773,6 +1826,50 @@ def phase_auto_ht(seed: int, device, sync, params, counts, arm_launches,
     return report
 
 
+def phase_auto_hot_cached(seed: int, device, sync, params, counts,
+                          p: int = P, n: int = N, nslots: int = NSLOTS,
+                          batches: int = AUTO_BATCHES) -> dict:
+    """Phase 11's hot owner mix once more with a hot-bucket cache on the
+    chooser: per batch, from the empty table (the cache flushed, since the
+    table was reset behind it), an AUTO insert and find, then the find
+    twice more through the cached fused arm (forced), the second served
+    from the cache. Every find is held to the oracle."""
+    import torch
+    from repro_torch.core import adaptive as ad, cache, hashtable as ht
+    mix = "hot"
+    batch_np = auto_stream(seed + 100 + AUTO_MIXES.index(mix), mix, p, n,
+                           batches)
+    t0, engine = fresh_ht(p, nslots, device)
+    c = cache.BucketCache(p, nslots, VW, **CACHE_KW)
+    chooser = ad.AdaptiveEngine(p, am_engine=engine, params=params, cache=c)
+    arms, hits, ms = [], [], ([], [])
+    counts()
+    for b, (k, f, present) in enumerate(batch_np):
+        c.invalidate_all()
+        chooser.force_arm = None
+        t, ok, _ = ht.insert(t0, k, val_of(k)[..., None], engine=engine,
+                             adaptive=chooser)
+        t, found, got = ht.find(t, f, engine=engine, adaptive=chooser)
+        arms.append((chooser.log[-2].arm, chooser.log[-1].arm))
+        check_auto_ht(f"hot cached auto {b}", ok, found, got, k, f, present)
+        chooser.force_arm = "rdma_fused"
+        for i in range(2):
+            sync()
+            s0 = time.perf_counter()
+            t, found2, got2 = ht.find(t, f, engine=engine, adaptive=chooser)
+            sync()
+            ms[i].append((time.perf_counter() - s0) * 1e3)
+            if not (torch.equal(found2, found) and torch.equal(got2, got)):
+                raise AssertionError(f"phase 11: hot cached batch {b}: a "
+                                     f"cached re-read differs")
+        hits.append(c.last_hit_rate)
+    launched = {k: v for k, v in counts().items() if v}
+    return dict(auto_arms=arms, hit_rate_second_reread=hits,
+                fill_ms=statistics.median(ms[0]),
+                cached_ms=statistics.median(ms[1]), stats=c.stats(),
+                launches=launched)
+
+
 def phase_auto_queue(seed: int, device, sync, params, counts, arm_launches,
                      p: int = P, n: int = Q_N, cap: int = Q_CAP,
                      batches: int = AUTO_BATCHES) -> dict:
@@ -1867,7 +1964,16 @@ def forced_arms(device, sync, counts, arm_launches, p: int = P,
 def log_auto(auto: dict, card: str) -> None:
     """Phase 11's lines: per stream the medians, regret and arms chosen,
     and per op the model beside the measurements."""
+    hc = auto.get("hot_cached")
+    if hc is not None:
+        log(f"phase 11: hot mix with the cache: AUTO's (insert, find) arms "
+            f"{hc['auto_arms']}; forced cached re-reads: median ms "
+            f"{hc['fill_ms']:.3f} (filling) then {hc['cached_ms']:.3f} "
+            f"(hit rates {hc['hit_rate_second_reread']}); stats "
+            f"{hc['stats']}; launches {hc['launches']} ({card})")
     for name, rep in auto.items():
+        if name == "hot_cached":
+            continue
         log(f"phase 11: {name}: median us per batch (insert + find, or push "
             f"+ pop; {rep['ops']} ops each): "
             + ", ".join(f"{a} {v:.1f}" for a, v in rep["fixed_us"].items())
@@ -1932,7 +2038,7 @@ PIPE_SMALL_PAIRS = 4        # the CPU-against-GPU stream at SMALL's size
 CHAOS_FULL = 8              # phase 13: insert + find batches an arm
 CHAOS_BATCHES = 2           # run: the plane's host simulation takes about
                             # 0.5 s a phase of 65,536 rows (printed cut)
-CHAOS_ARMS = ("rdma", "rdma_fused", "am", "auto")
+CHAOS_ARMS = ("rdma", "rdma_fused", "am", "auto", "cached")
 # tests/test_faults.py::_schedules()
 CHAOS_SCHEDULES = (
     ("drops", dict(seed=101, drop_rate=0.30)),
@@ -2440,14 +2546,20 @@ def log_pipeline(rep: dict, card: str) -> None:
 class ChaosArm:
     """A stream of insert + find batches on one arm through the chooser's
     wrappers (forced, or round robin for auto), as tests/test_faults.py
-    runs its arms."""
+    runs its arms; "cached" is the fused arm with a hot-bucket cache,
+    whose finds run twice (the second served from the cache)."""
 
     def __init__(self, arm: str, device, p: int, nslots: int, params=None):
-        from repro_torch.core import adaptive as ad
+        from repro_torch.core import adaptive as ad, cache
         self.table, self.engine = fresh_ht(p, nslots, device)
         kw = {} if params is None else dict(params=params)
         self.auto = ad.AdaptiveEngine(p, am_engine=self.engine,
                                       policy="round_robin", **kw)
+        self.cached = arm == "cached"
+        if self.cached:
+            self.auto.attach_cache(cache.BucketCache(p, nslots, VW,
+                                                     **CACHE_KW))
+            arm = "rdma_fused"
         if arm != "auto":
             self.auto.policy = "cost"
             self.auto.force_arm = arm
@@ -2461,6 +2573,10 @@ class ChaosArm:
             torch.as_tensor(v, device=dev))
         self.table, found, got = self.auto.ht_find(
             self.table, torch.as_tensor(f, device=dev))
+        if self.cached:
+            self.table, f2, g2 = self.auto.ht_find(self.table, f)
+            if not (torch.equal(f2, found) and torch.equal(g2, got)):
+                raise AssertionError("phase 13: a cached re-read differs")
         return (ok, probes), (found, got)
 
 
@@ -2578,7 +2694,12 @@ def phase_faults(seed: int, device, sync, params, counts,
                 same_run(r, clean, what)
             rep[name] = dict(ms=statistics.median(r["per"]) * 1e3,
                              stats=r["stats"])
+            if arm == "cached":
+                rep[name]["cache"] = r["runner"].auto.cache.stats()
         del clean
+    counts()
+    report["txn"] = txn_chaos(seed, device, sync, params, p,
+                              nslots * (2 + VW))
     counts()
     for arm in ("rdma", "am"):
         clean = chaos_queue(arm, items, None, device, sync, p, qn)
@@ -2720,6 +2841,18 @@ def log_faults(rep: dict, card: str) -> None:
             for name, _ in CHAOS_SCHEDULES:
                 log(f"phase 13: {kind} {arm} {name}: plan.stats() "
                     f"{r[name]['stats']}")
+    for name, _ in CHAOS_SCHEDULES:
+        log(f"phase 13: ht cached {name}: cache stats "
+            f"{rep['ht']['cached'][name]['cache']}")
+    for arm, r in rep["txn"].items():
+        per = ", ".join(f"{name} {r[name]['ms']:.1f} ms "
+                        f"({r[name]['ms'] / r['clean_ms']:.1f}x, rounds "
+                        f"{r[name]['rounds']})" for name, _ in CHAOS_SCHEDULES)
+        log(f"phase 13: txn {arm}: median ms per batch of {P} txns: "
+            f"fault-free {r['clean_ms']:.3f}, {per} ({card})")
+        for name, _ in CHAOS_SCHEDULES:
+            log(f"phase 13: txn {arm} {name}: plan.stats() "
+                f"{r[name]['stats']}")
     d = rep["dead_owner"]
     log(f"phase 13: owner {d['owner']} dead forever under auto: "
         f"quarantined {d['quarantined']} after batch 1 "
@@ -2735,6 +2868,544 @@ def log_faults(rep: dict, card: str) -> None:
     log(f"phase 13: small pipelined chaos ({rep['small']['schedule']}, "
         f"{rep['small']['p']} ranks x {rep['small']['nslots']} slots) "
         f"equal on CPU and GPU, stats {rep['small']['stats']}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 14 and 15: the hot-bucket cache and the transaction engine
+# ---------------------------------------------------------------------------
+CACHE_FINDS = 16            # phase 14: find batches of P x N keys
+CACHE_INSERT_EVERY = 8      # an insert batch of fresh keys after as many
+CACHE_ALPHA = 1.1
+CACHE_KW = dict(capacity=4096, ways=4, max_probes=8)
+CACHE_PIPE_FINDS = 8        # the depth-2 cached stream counting syncs
+CACHE_SMALL = dict(p=8, nslots=4096, n=128, fill=4, finds=8)
+HOT_KEYS = 64               # the all-hit batch's keys
+TXN_NOPS, TXN_BATCHES, TXN_ALPHA, TXN_HOT = 4, 6, 1.1, 24
+TXN_WORDS = 64              # a hot key k addresses word k % 64 of rank k % P
+TXN_RUN_ARMS = ("rdma", "rdma_fused", "am", "am_pt", "auto")
+TXN_CHAOS_ARMS = ("rdma_fused", "am")
+TXN_CHAOS_BATCHES = 2       # phase 13: of TXN_BATCHES
+
+
+def zipf_draw(rng, universe: np.ndarray, shape, alpha: float) -> np.ndarray:
+    """Keys drawn from `universe` with p(index r) ∝ 1/(r+1)^alpha (the
+    caller shuffles the universe, so rank carries no other meaning)."""
+    probs = 1.0 / np.arange(1, universe.size + 1, dtype=np.float64) ** alpha
+    probs /= probs.sum()
+    return universe[rng.choice(universe.size, size=shape, p=probs)]
+
+
+class HostTimer:
+    """Host seconds and calls of one method of an object (wrapped in
+    place; a nested call counts in its caller's time too)."""
+
+    def __init__(self, obj, name: str):
+        self.s, self.calls = 0.0, 0
+        fn = getattr(obj, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.s += time.perf_counter() - t0
+                self.calls += 1
+        setattr(obj, name, timed)
+
+    def ms_per_call(self) -> float:
+        return self.s * 1e3 / max(1, self.calls)
+
+
+def cache_inputs(seed: int, p: int, n: int, fill_batches: int,
+                 finds: int) -> dict:
+    """Phase 14's stream from the seed: the fill (fill_batches x (p, n)
+    distinct keys), the fresh insert batches, and the find batches drawn
+    zipf(CACHE_ALPHA) from the filled keys (a shuffled universe)."""
+    n_fresh = finds // CACHE_INSERT_EVERY
+    keys = make_keys(seed + 1400, (fill_batches + n_fresh) * p * n)
+    fill = keys[:fill_batches * p * n].reshape(fill_batches, p, n)
+    fresh = keys[fill_batches * p * n:].reshape(n_fresh, p, n)
+    rng = np.random.default_rng(seed + 1401)
+    universe = fill.reshape(-1).copy()
+    rng.shuffle(universe)
+    return dict(fill=fill, fresh=fresh, universe=universe,
+                finds=[zipf_draw(rng, universe, (p, n), CACHE_ALPHA)
+                       for _ in range(finds)])
+
+
+def filled_table(fill: np.ndarray, device, nslots: int):
+    """A table filled with `fill` through the RPC insert (the quickest
+    arm), its AM engine, and the keys whose insert succeeded (sorted)."""
+    from repro_torch.core import hashtable as ht
+    p = fill.shape[1]
+    table, engine = fresh_ht(p, nslots, device)
+    present = []
+    for k in fill:
+        table, ok, _ = ht.insert_rpc(table, engine, k, val_of(k)[..., None])
+        present.append(k[ok.cpu().numpy()])
+    return table, engine, np.sort(np.concatenate(present))
+
+
+def is_in(keys: np.ndarray, sorted_keys: np.ndarray) -> np.ndarray:
+    """np.isin against a sorted array, without sorting it again."""
+    i = np.searchsorted(sorted_keys, keys).clip(0, sorted_keys.size - 1)
+    return sorted_keys[i] == keys
+
+
+def check_finds(what: str, found, got, keys, present: np.ndarray) -> None:
+    """found == the key is in `present` (sorted); its value val_of(key),
+    0 otherwise."""
+    want = is_in(keys, present)
+    found, got = found.cpu().numpy(), got.cpu().numpy()[..., 0]
+    if not np.array_equal(found, want):
+        raise AssertionError(f"{what}: {int((found != want).sum())} finds "
+                             f"disagree with the host oracle")
+    if not np.array_equal(got, np.where(want, val_of(keys), 0)):
+        raise AssertionError(f"{what}: found values differ from the "
+                             f"host oracle")
+
+
+def cache_arm(arm: str, table, engine, inputs: dict, present, device, sync,
+              params, cache=None) -> dict:
+    """Phase 14's stream on one arm from `table`: "plain" (the fused CR
+    find, coalesced, no cache; inserts fused), "cached" (the same with
+    `cache`, told of each insert first, the insert inside cache_scope) or
+    "auto" (the front doors with a chooser holding `cache`). Every find is
+    checked against the host oracle. Returns outputs, window, ms per find
+    batch and the chooser."""
+    from repro_torch.core import adaptive as ad, hashtable as ht, window
+    chooser = None
+    if arm == "auto":
+        kw = {} if params is None else dict(params=params)
+        chooser = ad.AdaptiveEngine(table.nranks, am_engine=engine,
+                                    cache=cache, **kw)
+    present = present.copy()
+    outs, per, ins = [], [], 0
+    for i, f in enumerate(inputs["finds"]):
+        sync()
+        t0 = time.perf_counter()
+        if chooser is not None:
+            table, found, got = ht.find(table, f, engine=engine,
+                                        adaptive=chooser)
+        else:
+            table, found, got = ht.find_rdma(table, f, coalesce=True,
+                                             cache=cache)
+        sync()
+        per.append(time.perf_counter() - t0)
+        check_finds(f"phase 14: {arm} find {i}", found, got, f, present)
+        outs.append((found, got))
+        if (i + 1) % CACHE_INSERT_EVERY == 0:
+            k = inputs["fresh"][ins]
+            ins += 1
+            v = val_of(k)[..., None]
+            if chooser is not None:
+                table, ok, _ = ht.insert(table, k, v, engine=engine,
+                                         adaptive=chooser)
+            else:
+                if cache is not None:
+                    cache.on_insert_keys(k, None, CACHE_KW["max_probes"])
+                with window.cache_scope(cache):
+                    table, ok, _ = ht.insert_rdma(table, k, v)
+            present = np.sort(np.concatenate([present, k[ok.cpu().numpy()]]))
+            outs.append(ok)
+    return dict(outs=outs, data=table.win.data, per=per, table=table,
+                chooser=chooser, present=present)
+
+
+def all_hit_batch(table, engine, universe, present, device, counts,
+                  p: int, n: int) -> dict:
+    """A batch of the HOT_KEYS hottest present keys through a chooser
+    forced to the cached fused arm, with a cache of its own: found until
+    the cache holds the batch (a fill may evict a line that hit in the
+    same batch), then once more, all-hit: that find must launch no kernel
+    and log only its cache_hit."""
+    import torch
+    from repro_torch.core import adaptive as ad, cache as cm_
+    from repro_torch.core import hashtable as ht, window
+    hot = universe[is_in(universe, present)][:HOT_KEYS]
+    keys = np.resize(hot, (p, n)).astype(np.int32)
+    cache = cm_.BucketCache(p, table.nslots, VW, **CACHE_KW)
+    chooser = ad.AdaptiveEngine(p, am_engine=engine, cache=cache)
+    chooser.force_arm = "rdma_fused"
+    for fills in range(1, 4):
+        table, _, _ = ht.find(table, keys, engine=engine, adaptive=chooser)
+        if cache.lookup(keys).all_hit:
+            break
+    torch.cuda.synchronize()
+    counts()
+    window.drain_phase_log()
+    _, found, got = ht.find(table, keys, engine=engine, adaptive=chooser)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts().items() if v}
+    roles = [(role, info) for role, _, info in window.drain_phase_log()]
+    check_finds("phase 14: all-hit batch", found, got, keys, present)
+    if launched or cache.last_hit_rate != 1.0 or [r for r, _ in roles] != [
+            "cache_hit"] or not roles[0][1].get("all_hit"):
+        raise AssertionError(f"phase 14: the all-hit batch launched "
+                             f"{launched}, hit rate {cache.last_hit_rate}, "
+                             f"logged {roles}")
+    return dict(keys=int(hot.size), filling_finds=fills, launched=launched,
+                logged=[r for r, _ in roles])
+
+
+def cache_pipe_syncs(table, engine, finds: list, device, cache) -> dict:
+    """The first CACHE_PIPE_FINDS find batches (host arrays) at depth 2
+    through find_async, the chooser forced to the fused arm, with or
+    without `cache`: the host syncs per submit and the outputs."""
+    from repro_torch.core import adaptive as ad, hashtable as ht
+    from repro_torch.core import pipeline as pl
+    chooser = ad.AdaptiveEngine(table.nranks, am_engine=engine, cache=cache)
+    chooser.force_arm = "rdma_fused"
+    pipe = pl.Pipeline(table, depth=2, am_engine=engine)
+    counter = SyncCounter()
+    hs = [counter(lambda: ht.find_async(pipe, f, engine=engine,
+                                        adaptive=chooser))
+          for f in finds[:CACHE_PIPE_FINDS]]
+    outs = [h.result() for h in hs]
+    pipe.flush()
+    return dict(syncs=counter.report(), outs=outs)
+
+
+def cache_small(seed: int, device) -> dict:
+    """Phase 14's cached and AUTO arms at CACHE_SMALL's size on `device`:
+    outputs and windows on the host, and cache.stats() of each."""
+    from repro_torch.core import cache as cm_
+    s = CACHE_SMALL
+    inputs = cache_inputs(seed + 7, s["p"], s["n"], s["fill"], s["finds"])
+    out = {}
+    for arm in ("cached", "auto"):
+        table, engine, present = filled_table(inputs["fill"], device,
+                                              s["nslots"])
+        c = cm_.BucketCache(s["p"], s["nslots"], VW, **CACHE_KW)
+        r = cache_arm(arm, table, engine, inputs, present, device,
+                      lambda: None, None, c)
+        out[arm] = dict(outs=[tuple(x.cpu() for x in o) if isinstance(o,
+                              tuple) else o.cpu() for o in r["outs"]],
+                        data=r["data"].cpu(), stats=c.stats())
+    return out
+
+
+def phase_cache(seed: int, device, sync, params, counts,
+                fill_batches: int) -> dict:
+    """Phase 14: the hot-bucket cache on phase 2's table (filled through
+    the RPC insert), the zipf find stream with an insert batch of fresh
+    keys after every CACHE_INSERT_EVERY finds, on the plain fused find, the
+    same with a cache, and AUTO with a cache; then the all-hit batch, the
+    depth-2 cached stream's syncs, and the small stream on both devices."""
+    import torch
+    from repro_torch.core import cache as cm_
+    inputs = cache_inputs(seed, P, N, fill_batches, CACHE_FINDS)
+    base, engine, present = filled_table(inputs["fill"], device, NSLOTS)
+    sync()
+    counts()
+    runs, caches, timers = {}, {}, {}
+    for arm in ("plain", "cached", "auto"):
+        table = state_copy(base)
+        c = None
+        if arm != "plain":
+            c = caches[arm] = cm_.BucketCache(P, NSLOTS, VW, **CACHE_KW)
+            timers[arm] = (HostTimer(c, "lookup"),
+                           HostTimer(c, "drain_fills"))
+        runs[arm] = cache_arm(arm, table, engine, inputs, present, device,
+                              sync, params, c)
+        runs[arm]["launches"] = {k: v for k, v in counts().items() if v}
+    plain, cached, auto = runs["plain"], runs["cached"], runs["auto"]
+    same_outs(cached["outs"], plain["outs"], "phase 14: cached == plain")
+    if not torch.equal(cached["data"], plain["data"]):
+        raise AssertionError("phase 14: the final windows differ with and "
+                             "without the cache")
+    finds_auto = [o for o in auto["outs"] if isinstance(o, tuple)]
+    finds_plain = [o for o in plain["outs"] if isinstance(o, tuple)]
+    if not np.array_equal(auto["present"], plain["present"]):
+        log("phase 14: AUTO's inserts succeeded on other keys than the "
+            "fused arm's (RDMA and RPC fill differently); its finds are "
+            "held to its own oracle")
+    else:
+        same_outs(finds_auto, finds_plain, "phase 14: auto == plain")
+    hit = all_hit_batch(cached["table"], engine, inputs["universe"],
+                        cached["present"], device, counts, P, N)
+    syncs = {}
+    for name, c in (("uncached", None), ("cached", cm_.BucketCache(
+            P, NSLOTS, VW, **CACHE_KW))):
+        syncs[name] = cache_pipe_syncs(base, engine, inputs["finds"],
+                                       device, c)
+    same_outs(syncs["cached"]["outs"], syncs["uncached"]["outs"],
+              "phase 14: depth-2 cached == uncached")
+    if syncs["cached"]["syncs"]["per_submit"] > \
+            syncs["uncached"]["syncs"]["per_submit"]:
+        raise AssertionError(f"phase 14: the cache adds host syncs at "
+                             f"depth 2: {syncs['cached']['syncs']} against "
+                             f"{syncs['uncached']['syncs']}")
+    small_g, small_c = cache_small(seed, device), cache_small(seed, "cpu")
+    for arm in small_c:
+        same_outs(small_g[arm]["outs"], small_c[arm]["outs"],
+                  f"phase 14: small {arm} GPU vs CPU")
+        if not torch.equal(small_g[arm]["data"], small_c[arm]["data"]) or \
+                small_g[arm]["stats"] != small_c[arm]["stats"]:
+            raise AssertionError(f"phase 14: small {arm}: window or cache "
+                                 f"stats differ GPU vs CPU")
+    med = {arm: statistics.median(r["per"]) * 1e3 for arm, r in runs.items()}
+    return dict(
+        table=cached["table"], engine=engine,
+        present_keys=cached["present"],
+        finds=CACHE_FINDS, insert_every=CACHE_INSERT_EVERY,
+        fill_batches=fill_batches, present=int(present.size), ms=med,
+        stats={arm: c.stats() for arm, c in caches.items()},
+        host_ms={arm: dict(lookup=t[0].ms_per_call(),
+                           drain_fills=t[1].ms_per_call(),
+                           lookups=t[0].calls)
+                 for arm, t in timers.items()},
+        launches={arm: r["launches"] for arm, r in runs.items()},
+        auto_arms=[d.arm for d in auto["chooser"].log],
+        auto_cached=sum(d.cached for d in auto["chooser"].log),
+        all_hit=hit,
+        depth2_syncs={k: v["syncs"] for k, v in syncs.items()},
+        small=dict(stats={a: small_c[a]["stats"] for a in small_c},
+                   **CACHE_SMALL))
+
+
+def log_cache(rep: dict, card: str) -> None:
+    ms = rep["ms"]
+    log(f"phase 14: median ms per find batch of {P} x {N}: plain fused "
+        f"{ms['plain']:.3f}, cached {ms['cached']:.3f} "
+        f"({ms['cached'] / ms['plain']:.3f}x), auto with the cache "
+        f"{ms['auto']:.3f} ({card})")
+    for arm, st in rep["stats"].items():
+        h = rep["host_ms"][arm]
+        log(f"phase 14: {arm}: hit rate {st['hit_rate']:.4f}; stats {st}; "
+            f"host ms per lookup {h['lookup']:.3f} (drain included), per "
+            f"drain_fills {h['drain_fills']:.3f}")
+    log(f"phase 14: launches by arm {rep['launches']}; AUTO's arms "
+        f"{rep['auto_arms']} ({rep['auto_cached']} cached)")
+    log(f"phase 14: all-hit batch of the {rep['all_hit']['keys']} hottest "
+        f"keys (after {rep['all_hit']['filling_finds']} filling finds): "
+        f"launched {rep['all_hit']['launched']}, logged "
+        f"{rep['all_hit']['logged']}")
+    log(f"phase 14: depth-2 finds, host syncs per submit: uncached "
+        f"{rep['depth2_syncs']['uncached']}, cached "
+        f"{rep['depth2_syncs']['cached']}")
+    log(f"phase 14: small stream ({rep['small']['p']} ranks x "
+        f"{rep['small']['nslots']} slots) equal on CPU and GPU, stats "
+        f"{rep['small']['stats']}")
+
+
+def txn_inputs(seed: int, p: int, batches: int = TXN_BATCHES) -> dict:
+    """Phase 15's stream after the JAX package's bench_txn: per batch and
+    op, a (p,) column of keys drawn zipf(TXN_ALPHA) from TXN_HOT hot keys,
+    each addressing word k % TXN_WORDS of rank k % p, an op kind and its
+    operands; and the hot words' initial values."""
+    rng = np.random.default_rng(seed + 1500)
+    universe = rng.choice(2 ** 30, TXN_HOT, replace=False) + 1
+    hot = zipf_draw(rng, universe, (p, TXN_NOPS * batches), TXN_ALPHA)
+    ops = []
+    for b in range(batches):
+        brng = np.random.default_rng(seed * 1000 + b)
+        for j in range(TXN_NOPS):
+            k = hot[:, b * TXN_NOPS + j]
+            kind = int(brng.integers(0, 4))
+            a = (brng.integers(-50, 50, p) if kind == 2 else
+                 brng.integers(-3, 4, p) if kind == 3 else None)
+            bb = (brng.integers(-9, 9, p) if kind in (0, 2) else None)
+            ops.append((b, kind, k % p, k % TXN_WORDS, a, bb))
+    return dict(ops=ops, batches=batches,
+                init=rng.integers(-50, 50, (p, TXN_WORDS)).astype(np.int32))
+
+
+def txn_stage(inputs: dict, b: int, p: int):
+    from repro_torch.core import txn
+    t = txn.Txn(p)
+    for bb, kind, dst, off, a, v in inputs["ops"]:
+        if bb != b:
+            continue
+        if kind == 0:
+            t.put(dst, off, v)
+        elif kind == 1:
+            t.get(dst, off)
+        elif kind == 2:
+            t.cas(dst, off, a, v)
+        else:
+            t.fao(dst, off, a)
+    return t
+
+
+def txn_window(inputs: dict, device, p: int, words: int):
+    """A window of `words` words a rank whose first TXN_WORDS hold the
+    hot words' initial values."""
+    import torch
+    from repro_torch.core import window
+    data = torch.zeros((p, words), dtype=torch.int32, device=device)
+    data[:, :TXN_WORDS] = torch.as_tensor(inputs["init"], device=device)
+    return window.Window(data=data)
+
+
+def txn_run(arm: str, inputs: dict, device, sync, params, p: int,
+            words: int, batches: int, cfg=None, counter=None,
+            mark=no_mark) -> dict:
+    """`batches` txn batches on `arm` (a fresh engine; "auto" prices with
+    `params`), under cfg's plan when given. Each batch is held to the
+    serial oracle: its committed order replayed through serial_apply on
+    the hot words gives its replies and window, and no other word moves."""
+    from repro_torch.core import adaptive as ad, am, faults as flt, txn
+    eng_am = am.AMEngine(p)
+    kw = {} if params is None else dict(params=params)
+    chooser = (ad.AdaptiveEngine(p, am_engine=eng_am, **kw)
+               if arm == "auto" else None)
+    eng = txn.TxnEngine(p, am_engine=eng_am, adaptive=chooser)
+    win = txn_window(inputs, device, p, words)
+    plan = None if cfg is None else flt.FaultPlan(p, **cfg)
+    wrap = counter or (lambda fn: fn())
+    res_all, per = [], []
+    with flt.fault_scope(plan):
+        for b in range(batches):
+            t = txn_stage(inputs, b, p)
+            st0 = {"ht": win.data[:, :TXN_WORDS].cpu().numpy()}
+            mark(f"txn {arm}" if cfg is None else None)
+            sync()
+            t0 = time.perf_counter()
+            res = wrap(lambda: eng.run(win, t, arm=arm))
+            sync()
+            per.append(time.perf_counter() - t0)
+            mark(None)
+            win = res.wins["ht"]
+            rep, st = txn.serial_apply(st0, t, [q for _, q in res.order])
+            hot_now = win.data[:, :TXN_WORDS].cpu().numpy()
+            if not (np.array_equal(rep, res.replies)
+                    and np.array_equal(st["ht"], hot_now)
+                    and not bool(win.data[:, TXN_WORDS:].any())):
+                raise AssertionError(f"phase 15: {arm} batch {b}"
+                                     f"{'' if cfg is None else ' ' + str(cfg)}"
+                                     f": the serial replay of its order "
+                                     f"differs")
+            res_all.append(res)
+    return dict(res=res_all, per=per, data=win.data,
+                stats=None if plan is None else plan.stats())
+
+
+def same_txn(a: dict, b: dict, what: str) -> None:
+    import torch
+    for i, (x, y) in enumerate(zip(a["res"], b["res"])):
+        if not (np.array_equal(x.replies, y.replies)
+                and np.array_equal(x.committed, y.committed)
+                and np.array_equal(x.chain_ok, y.chain_ok)):
+            raise AssertionError(f"{what}: batch {i} differs")
+    if not torch.equal(a["data"], b["data"]):
+        raise AssertionError(f"{what}: final windows differ")
+
+
+def phase_txn(seed: int, device, sync, params, counts, table, engine,
+              present: np.ndarray, mark=no_mark) -> dict:
+    """Phase 15: the txn stream on every arm over a window of phase 2's
+    shape, then `move` of P keys on phase 14's full table and
+    `pop_then_insert` of P items from a queue of phase 2's capacity into
+    it, each against a host oracle."""
+    import torch
+    from repro_torch.core import hashtable as ht, queue as dq, txn
+    words = NSLOTS * (2 + VW)
+    inputs = txn_inputs(seed, P)
+    report = dict(arms={}, batches=TXN_BATCHES, nops=TXN_NOPS,
+                  hot=TXN_HOT, alpha=TXN_ALPHA, words=words)
+    counts()
+    for arm in TXN_RUN_ARMS:
+        counter = SyncCounter()
+        r = txn_run(arm, inputs, device, sync, params, P, words,
+                    TXN_BATCHES, counter=counter, mark=mark)
+        launched = {k: v for k, v in counts().items() if v}
+        res = r["res"]
+        rounds = sorted(x.rounds for x in res)
+        attempts = sum(int(x.attempts.sum()) for x in res)
+        one_sided = {x.arm for x in res} <= {"rdma", "rdma_fused"}
+        if not launched.get("txn_group_apply") or (
+                one_sided and not launched.get("amo_apply")):
+            raise AssertionError(f"phase 15: {arm} launched {launched}")
+        report["arms"][arm] = dict(
+            us_per_txn=sum(r["per"]) / (TXN_BATCHES * P) * 1e6,
+            abort_rate=sum(x.aborts for x in res) / max(1, attempts),
+            rounds_median=rounds[len(rounds) // 2],
+            rounds=[x.rounds for x in res],
+            saved_reads=sum(x.saved_reads for x in res),
+            chain_aborts=sum(x.chain_aborts for x in res),
+            syncs_per_round=counter.total / max(1, sum(rounds)),
+            arms_run=sorted({x.arm for x in res}), launches=launched)
+    # move P present keys (one a rank) to fresh keys on the full table
+    rng = np.random.default_rng(seed + 1510)
+    k1 = rng.choice(present, P, replace=False).astype(np.int32)
+    k2 = make_keys(seed + 1511, 4 * P)
+    k2 = k2[~is_in(k2, present)][:P]
+    eng = txn.TxnEngine(P, am_engine=engine)
+    sync()
+    t0 = time.perf_counter()
+    table, moved, mvals = ht.move(table, k1, k2, eng, arm="rdma_fused")
+    sync()
+    move_s = time.perf_counter() - t0
+    _, f1, _ = ht.find_rdma(table, k1[:, None])
+    _, f2, v2 = ht.find_rdma(table, k2[:, None])
+    if not (moved.all() and np.array_equal(mvals[:, 0], val_of(k1))
+            and not bool(f1.any()) and bool(f2.all())
+            and np.array_equal(v2.cpu().numpy()[:, 0, 0], val_of(k1))):
+        raise AssertionError(f"phase 15: move: moved {int(moved.sum())} of "
+                             f"{P}, or the table disagrees with the oracle")
+    # pop P items from a queue of phase 2's capacity (payload cut to the
+    # table's one value word) into the table
+    q = dq.make_queue(P, Q_HOST, Q_CAP, VW, device=device)
+    items = make_keys(seed + 1512, 4 * P)
+    items = items[~is_in(items, present) & ~np.isin(items, k2)][:P]
+    q, pushed = dq.push_rdma(q, items.reshape(P, 1, 1))
+    if not bool(pushed.all()):
+        raise AssertionError("phase 15: the queue push failed")
+    counts()
+    sync()
+    t0 = time.perf_counter()
+    q, table, popped, pvals = dq.pop_then_insert(q, table, eng,
+                                                 arm="rdma_fused")
+    sync()
+    pop_s = time.perf_counter() - t0
+    pop_launches = {k: v for k, v in counts().items() if v}
+    _, f, got = ht.find_rdma(table, pvals[:, 0][:, None])
+    head = int(q.win.data[Q_HOST, dq.HEAD])
+    if not (popped.all() and sorted(pvals[:, 0]) == sorted(items)
+            and bool(f.all()) and head == P
+            and np.array_equal(got.cpu().numpy()[:, 0, 0], pvals[:, 0])):
+        raise AssertionError(f"phase 15: pop_then_insert: popped "
+                             f"{int(popped.sum())} of {P}, head {head}, or "
+                             f"the table disagrees with the oracle")
+    report.update(move=dict(keys=P, s=move_s), pop_then_insert=dict(
+        items=P, s=pop_s, launches=pop_launches))
+    return report
+
+
+def log_txn(rep: dict, card: str) -> None:
+    for arm, r in rep["arms"].items():
+        log(f"phase 15: txn {arm} (ran {r['arms_run']}): "
+            f"{r['us_per_txn']:.1f} us per txn, abort rate "
+            f"{r['abort_rate']:.4f}, rounds {r['rounds']} (median "
+            f"{r['rounds_median']}), saved reads {r['saved_reads']}, chain "
+            f"aborts {r['chain_aborts']}, host syncs per round "
+            f"{r['syncs_per_round']:.2f}; launches {r['launches']} ({card})")
+    log(f"phase 15: move of {rep['move']['keys']} keys on the full table "
+        f"{rep['move']['s'] * 1e3:.1f} ms; pop_then_insert of "
+        f"{rep['pop_then_insert']['items']} items "
+        f"{rep['pop_then_insert']['s']:.2f} s, launches "
+        f"{rep['pop_then_insert']['launches']} ({card})")
+
+
+def txn_chaos(seed: int, device, sync, params, p: int, words: int) -> dict:
+    """Phase 13's txn streams: TXN_CHAOS_BATCHES batches of phase 15's
+    stream on each of TXN_CHAOS_ARMS under each schedule, equal to the
+    fault-free run."""
+    inputs = txn_inputs(seed, p, TXN_CHAOS_BATCHES)
+    out = {}
+    for arm in TXN_CHAOS_ARMS:
+        clean = txn_run(arm, inputs, device, sync, params, p, words,
+                        TXN_CHAOS_BATCHES)
+        rep = out[arm] = dict(clean_ms=statistics.median(clean["per"]) * 1e3)
+        for name, cfg in CHAOS_SCHEDULES:
+            r = txn_run(arm, inputs, device, sync, params, p, words,
+                        TXN_CHAOS_BATCHES, cfg=cfg)
+            same_txn(r, clean, f"phase 13: txn {arm} under {name}")
+            rep[name] = dict(ms=statistics.median(r["per"]) * 1e3,
+                             stats=r["stats"],
+                             rounds=[x.rounds for x in r["res"]])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3400,11 +4071,13 @@ def main() -> int:
     auto["queue"] = phase_auto_queue(args.seed, device, sync, fitted,
                                      counter, arm_launches)
     forced_arms(device, sync, counter, arm_launches)
+    auto["hot_cached"] = phase_auto_hot_cached(args.seed, device, sync,
+                                               fitted, counter)
     counts = read_counts(DS_KERNELS)
     record("phase 11", counts, DS_KERNELS)
     check_arm_launches(arm_launches)
-    taken = {a for rep in auto.values() for per_op in rep["chosen"].values()
-             for a in per_op}
+    taken = {a for rep in auto.values() if "chosen" in rep
+             for per_op in rep["chosen"].values() for a in per_op}
     log_auto(auto, card)
     log(f"phase 11: arms the chooser took: {sorted(taken)}; each of "
         f"{list(AUTO_ARMS)} also ran forced through backend='auto'; "
@@ -3436,13 +4109,45 @@ def main() -> int:
         f"schedule instead of {CHAOS_FULL} (the plane simulates delivery "
         f"on the host)")
     chaos = phase_faults(args.seed, device, sync, fitted, launch_counter())
-    counts = read_counts(DS_KERNELS)
-    record("phase 13", counts, DS_KERNELS)
+    counts = read_counts(OWNER_KERNELS)
+    record("phase 13", counts, OWNER_KERNELS)
     log_faults(chaos, card)
     log(f"phase 13: every arm and the queue equal to their fault-free runs "
         f"and the host oracle under {[n for n, _ in CHAOS_SCHEDULES]}; "
         f"launches {counts} in {time.perf_counter() - t0:.1f} s")
     report["faults"] = chaos
+    log(f"phase 13: seconds {time.perf_counter() - t0:.1f}")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    cache_rep = phase_cache(args.seed, device, sync, fitted,
+                            launch_counter(), args.insert_batches)
+    counts = read_counts(("fused_apply",))
+    record("phase 14", counts, OWNER_KERNELS)
+    log_cache(cache_rep, card)
+    log(f"phase 14: every find equal to the uncached run's and the host "
+        f"oracle; windows equal with and without the cache; the all-hit "
+        f"batch launched nothing; no sync added at depth 2; the small "
+        f"stream equal on CPU and GPU; launches {counts} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    report["cache"] = cache_rep
+
+    with Capture(last=True) as capture:
+        zero_counts()
+        t0 = time.perf_counter()
+        txn_rep = phase_txn(args.seed, device, sync, fitted,
+                            launch_counter(), cache_rep.pop("table"),
+                            cache_rep.pop("engine"),
+                            cache_rep.pop("present_keys"), capture.mark)
+        counts = read_counts(("amo_apply", "txn_group_apply"))
+    record("phase 15", counts, OWNER_KERNELS)
+    log_txn(txn_rep, card)
+    log(f"phase 15: every batch of every arm equal to the serial replay of "
+        f"its order; move and pop_then_insert equal to the host oracle; "
+        f"launches {counts} in {time.perf_counter() - t0:.1f} s")
+    add_rows(phase_captured(capture.calls, ("txn_group_apply",), 15))
+    del capture
+    report["txn"] = txn_rep
 
     for arm in ARMS:
         r = report[arm]

@@ -24,12 +24,15 @@ Every choice is recorded as a `Decision`; the RDMA arms run inside
 kernels as the fixed backend it names (B1/B2 on the one-sided arms, B3/B4
 on the AM arms); an arm that fails raises.
 
+With a hot-bucket cache attached (core/cache.py), every insert bumps the
+probe-window versions of its keys before any arm runs and runs inside
+`window.cache_scope`; CR finds on the fused one-sided arm consult the
+cache while the stream is not write-heavy, priced with the hit-rate EWMA.
+
 Under a fault plane (core/faults.py) the AM arms fail the rows of a dead
 or stalled owner over to the one-sided lane, and the plane's per-owner
 pressure feeds the health EWMA and the quarantine. With a pipeline
 (core/pipeline.py) `auto_depth` lets the chooser set the window count.
-The hot-bucket cache waits for its module (ROADMAP A10) and raises
-NotImplementedError.
 """
 from __future__ import annotations
 
@@ -142,7 +145,14 @@ class AdaptiveEngine:
     hysteresis: relative margin under which a decision sticks with the
                 op's incumbent arm when both its and the winner's scores
                 are measured EWMAs (model scores never engage it).
-    cache:      the hot-bucket cache; not ported yet (ROADMAP A10).
+    cache:      optional core/cache.BucketCache, opt-in and never made
+                here: the default engines are shared across tables, and a
+                cache is coherent for exactly one table, whose writes go
+                through this engine's `ht_insert`. CR finds on the fused
+                one-sided arm consult it; the observed hit rate feeds
+                `hit_ewma` (priced via OpStats.hit_rate), and a
+                write-fraction EWMA suspends cache reads, not
+                invalidation, in write-heavy streams.
     """
 
     #: write-fraction EWMA above which cache reads are suspended
@@ -163,8 +173,6 @@ class AdaptiveEngine:
                 raise ValueError(f"arm {a!r} needs an am_engine")
         if policy not in ("cost", "round_robin"):
             raise ValueError(f"unknown policy {policy!r}")
-        if cache is not None:
-            self.attach_cache(cache)
         self.nranks = nranks
         self.am_engine = am_engine
         self.params = params
@@ -175,7 +183,7 @@ class AdaptiveEngine:
         self.explore_every = explore_every
         self.hysteresis = hysteresis
         self.force_arm: Optional[str] = None
-        self.cache = None
+        self.cache = cache
         self.hit_ewma = 0.0    # observed cache hit rate
         self.write_ewma = 0.0  # observed write fraction of the op stream
         # per-owner fault pressure in [0, 1] (0 = healthy); owners at or
@@ -228,8 +236,9 @@ class AdaptiveEngine:
                                 else prev + self.alpha * (us_per_op - prev))
 
     def attach_cache(self, cache) -> None:
-        raise NotImplementedError("the hot-bucket cache is not ported yet "
-                                  "(ROADMAP A10)")
+        """Attach a hot-bucket cache. One cache per table: coherence holds
+        only for writes issued through this engine."""
+        self.cache = cache
 
     def cache_reads_on(self) -> bool:
         """Whether CR finds consult the cache: one is attached, enabled,
@@ -565,8 +574,12 @@ class AdaptiveEngine:
                   stats: Optional[OpStats] = None):
         """Adaptive hash-table insert: returns (table', ok, probes).
         Duplicate-key batches (dedup < 1) run the fused/AM arms with
-        sender-side coalescing on."""
+        sender-side coalescing on. With a cache attached, every insert, on
+        any arm, bumps the probe-window versions of its keys before it
+        runs, so no stale record is served after this call returns (keys
+        given on the host are read there, without waiting for the card)."""
         dev = ht.win.data.device
+        keys_in, valid_in = keys, valid
         keys, vals = as_i32(keys, dev), as_i32(vals, dev)
         if valid is not None:
             valid = as_mask(valid, keys.shape, dev)
@@ -574,6 +587,10 @@ class AdaptiveEngine:
         dec = self.decide(DSOp.HT_INSERT, promise, dst, valid,
                           self._ht_stats(keys, valid, stats))
         self._observe_rw(is_write=True)
+        if self.cache is not None:
+            # authoritative invalidation: versions bump before any write
+            # lands, so a racing deferred fill tick-mismatches and drops
+            self.cache.on_insert_keys(keys_in, valid_in, max_probes)
         if dec.arm in ("am", "am_pt"):
             eng = self._need_am(
                 "ht_insert",
@@ -602,7 +619,8 @@ class AdaptiveEngine:
             return ht2, ok, probes
 
         def run():
-            with win_mod.decision_scope(dec):
+            with win_mod.decision_scope(dec), \
+                    win_mod.cache_scope(self.cache):
                 return ht_mod.insert_rdma(
                     ht, keys, vals, promise=promise, valid=valid,
                     max_probes=max_probes, fused=dec.arm == "rdma_fused",
@@ -613,9 +631,17 @@ class AdaptiveEngine:
 
     def ht_find(self, ht, keys, promise: Promise = Promise.CR,
                 valid=None, max_probes: int = 8,
-                stats: Optional[OpStats] = None):
-        """Adaptive hash-table find: returns (table', found, vals)."""
+                stats: Optional[OpStats] = None, max_stale: int = 0):
+        """Adaptive hash-table find: returns (table', found, vals).
+
+        With a cache attached and reads on (`cache_reads_on`), the
+        hit-rate EWMA is folded into the stats so the chooser prices the
+        cached fused arm with its discount, the executed CR fused find
+        consults the cache, and the batch's observed hit rate refreshes
+        the EWMA. max_stale: the cached arm's bounded-staleness tolerance
+        (0 = exact reads); wire reads are always authoritative."""
         dev = ht.win.data.device
+        keys_in, valid_in = keys, valid
         keys = as_i32(keys, dev)
         if valid is not None:
             valid = as_mask(valid, keys.shape, dev)
@@ -648,14 +674,23 @@ class AdaptiveEngine:
                 vals = torch.where(m[..., None], v2, vals)
             return ht, found, vals
 
+        cached = dec.cached
+
         def run():
             with win_mod.decision_scope(dec):
+                # the cache reads the keys where the caller keeps them
                 return ht_mod.find_rdma(
-                    ht, keys, promise=promise, valid=valid,
+                    ht, keys_in if cached else keys, promise=promise,
+                    valid=valid_in if cached else valid,
                     max_probes=max_probes, fused=dec.arm == "rdma_fused",
-                    coalesce=dec.coalesce)
+                    coalesce=dec.coalesce,
+                    cache=self.cache if cached else None,
+                    max_stale=max_stale)
         out = self._timed(dec, run)
         self._after_am()
+        if cached and self.cache.last_hit_rate is not None:
+            self.hit_ewma += self.alpha * (self.cache.last_hit_rate
+                                           - self.hit_ewma)
         return out
 
     def q_push(self, q, vals, promise: Promise = Promise.CRW, valid=None,

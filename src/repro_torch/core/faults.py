@@ -55,7 +55,7 @@ import torch
 from .types import to_host
 
 __all__ = ["RemoteTimeout", "RetryPolicy", "DedupIndex", "FaultPlan",
-           "fault_scope", "active_plane", "loop_scope"]
+           "fault_scope", "active_plane", "loop_scope", "in_traced_loop"]
 
 
 class RemoteTimeout(TimeoutError):
@@ -440,6 +440,7 @@ class FaultPlan:
 # Scope plumbing (the window.decision_scope idiom)
 # ---------------------------------------------------------------------------
 _CURRENT_PLAN: Optional[FaultPlan] = None
+_LOOP_DEPTH = 0     # open loop_scopes
 
 
 @contextlib.contextmanager
@@ -468,14 +469,28 @@ def loop_scope(dst: torch.Tensor, roles: Tuple[str, ...]):
     entry, with every row of `dst` taken as active, and the keep mask it
     draws holds in every round. So here one draw per role in `roles` (the
     body's phases, in order) is made on entry, and each round's hooks
-    replay them, whatever the trip count."""
+    replay them, whatever the trip count.
+
+    With or without a plan, the scope also marks the loop as one that JAX
+    traces (`in_traced_loop`): there its offsets are tracers, so a publish
+    issued inside it never reaches the hot-bucket cache."""
+    global _LOOP_DEPTH
     plane = _CURRENT_PLAN
-    if plane is None:
-        yield
-        return
-    draws = [plane.inject_phase(role, dst, None) for role in roles]
-    prev, plane._loop = plane._loop, [draws, 0]
+    _LOOP_DEPTH += 1
     try:
-        yield
+        if plane is None:
+            yield
+            return
+        draws = [plane.inject_phase(role, dst, None) for role in roles]
+        prev, plane._loop = plane._loop, [draws, 0]
+        try:
+            yield
+        finally:
+            plane._loop = prev
     finally:
-        plane._loop = prev
+        _LOOP_DEPTH -= 1
+
+
+def in_traced_loop() -> bool:
+    """True inside a `loop_scope`: a loop the JAX package traces."""
+    return _LOOP_DEPTH > 0

@@ -40,7 +40,7 @@ from . import routing
 from . import window as win_mod
 from .types import (FLAG_EMPTY, FLAG_READY, FLAG_RESERVED, READ_UNIT,
                     STATE_MASK, AmoKind, Backend, Promise, as_backend,
-                    as_i32, as_mask, to_host)
+                    as_i32, as_mask, to_device, to_host)
 from .window import (Window, rdma_cas, rdma_cas_put, rdma_cas_put_publish,
                      rdma_fao, rdma_fao_get, rdma_get, rdma_put)
 
@@ -202,7 +202,8 @@ def insert_rdma(ht: DHashTable, keys, vals, promise: Promise = Promise.CRW,
 
 def find_rdma(ht: DHashTable, keys, promise: Promise = Promise.CR,
               valid=None, max_probes: int = 8, fused: bool = True,
-              coalesce: bool = False, cache=None):
+              coalesce: bool = False, cache=None, return_slot: bool = False,
+              max_stale: int = 0):
     """Batched find. Returns (table', found (P,n), vals (P,n,vw)).
 
     C_R : one bare get per probe (flag+key+val in a single R).
@@ -211,24 +212,47 @@ def find_rdma(ht: DHashTable, keys, promise: Promise = Promise.CR,
     fused=True (default): one RoutePlan per batch; for C_RW the read-lock
     and record gather fuse into one A_FAO_GET request/reply pair. The probe
     loop stops once every op resolved. coalesce=True: duplicate-key rows
-    probe once and the reply fans out. The hot-bucket cache (`cache=`) is
-    not ported yet."""
+    probe once and the reply fans out.
+
+    cache: an optional core/cache.BucketCache, consulted before planning,
+    for the fused CR find only (CRW must reach the owner for its read
+    locks). Hits are answered at the origin: an all-hit batch issues no
+    exchange and launches nothing, a mixed batch plans only the miss
+    subset (`routing.miss_subset_plan`), and the probe loop's results are
+    handed back with `cache.note_fill`. Bit for bit, by the version
+    protocol. max_stale: the cache's bounded-staleness tolerance (0 is
+    exact). Keys as a host array keep the lookup off the card's queue.
+
+    return_slot=True (fused, no cache): also return each row's hit slot
+    (-1 for misses), for a caller that manages its own cache."""
     if promise not in (Promise.CRW, Promise.CR):
         raise ValueError(f"find promise must be CRW or CR, not {promise}")
-    if cache is not None:
-        raise NotImplementedError("find_rdma(cache=...): the hot-bucket "
-                                  "cache tier is not ported yet")
+    if return_slot and not (fused and cache is None):
+        raise ValueError("return_slot needs fused=True and no cache")
     dev = ht.win.data.device
+    look = None
+    if cache is not None and fused and promise == Promise.CR:
+        look = cache.lookup(keys, valid, max_stale=max_stale)
     keys = as_i32(keys, dev)
     valid = as_mask(valid, keys.shape, dev)
+    if look is not None and look.all_hit:
+        # every valid row served at the origin: no exchange
+        win_mod.log_cache_event("cache_hit", {
+            "hits": int(look.hit.sum()), "misses": 0, "all_hit": True})
+        return (ht, to_device(look.hit, torch.bool, dev),
+                to_device(look.vals, torch.int32, dev))
     dst, start = _place(ht, keys)
     rec_w, nslots, vw = ht.rec_w, ht.nslots, ht.val_words
+    eff_valid, hit = valid, None
+    if look is not None:
+        hit = to_device(look.hit, torch.bool, dev)
+        eff_valid = valid & ~hit
     if fused and coalesce:
-        plan = routing.coalesce_plan(dst, start, match=keys[..., None],
-                                     valid=valid, cap=keys.shape[1],
-                                     role="ht_find")
+        plan = routing.miss_subset_plan(dst, start, hit,
+                                        match=keys[..., None], valid=valid,
+                                        cap=keys.shape[1], role="ht_find")
     elif fused:
-        plan = routing.make_plan(dst, valid, cap=keys.shape[1],
+        plan = routing.make_plan(dst, eff_valid, cap=keys.shape[1],
                                  role="ht_find")
     else:
         plan = None
@@ -265,9 +289,12 @@ def find_rdma(ht: DHashTable, keys, promise: Promise = Promise.CR,
         out = torch.where(hit[..., None], rec[..., 2:2 + vw], out)
         return win, active & ~(hit | miss_end), found | hit, out
 
-    win, active = ht.win, valid
+    win, active = ht.win, eff_valid if fused else valid
     found = torch.zeros(keys.shape, dtype=torch.bool, device=dev)
     out = torch.zeros(keys.shape + (vw,), dtype=torch.int32, device=dev)
+    # the fill needs each hit's slot to stamp its version
+    track = fused and (look is not None or return_slot)
+    hslot = torch.full(keys.shape, -1, dtype=torch.int32, device=dev)
     if promise == Promise.CR:
         roles = ("get",)
     else:
@@ -277,8 +304,145 @@ def find_rdma(ht: DHashTable, keys, promise: Promise = Promise.CR,
             # fused: an all-inactive probe is an identity, so stop early
             if fused and not bool(active.any()):
                 break
+            prev = found
             win, active, found, out = probe_body(j, win, active, found, out)
+            if track:
+                hslot = torch.where(found & ~prev, (start + j) % nslots,
+                                    hslot)
+    if look is not None:
+        found = found | hit
+        out = torch.where(hit[..., None],
+                          to_device(look.vals, torch.int32, dev), out)
+        cache.note_fill(look, hslot, found, out)
+        win_mod.log_cache_event("cache_hit", {
+            "hits": int(look.hit.sum()), "misses": int(look.miss.sum())})
+    if return_slot:
+        return _with_win(ht, win), found, out, hslot
     return _with_win(ht, win), found, out
+
+
+# ---------------------------------------------------------------------------
+# Transactional composite: atomic key relocation
+# ---------------------------------------------------------------------------
+def _probe_words(data, nranks: int, nslots: int, rec_w: int, keys,
+                 max_probes: int, extra: int = 0):
+    """The probe windows of `keys` (n,) over a window image `data` (numpy
+    or a tensor on any device, read with one gather): (owner (n,), slots
+    (n, max_probes), words (n, max_probes, 2 + extra)) with each slot's
+    first 2 + extra words [flag, key, ...]."""
+    owner, start = place_np(nranks, nslots, np.asarray(keys, np.int32))
+    slots = (start[:, None].astype(np.int64)
+             + np.arange(max_probes)[None, :]) % nslots
+    idx = slots[..., None] * rec_w + np.arange(2 + extra)
+    rows = owner[:, None, None]
+    if isinstance(data, torch.Tensor):
+        dev = data.device
+        words = to_host(data[torch.as_tensor(rows, device=dev).long(),
+                             torch.as_tensor(idx, device=dev)])
+    else:
+        words = np.asarray(data)[rows, idx]
+    return owner, slots, words
+
+
+def _probe_walk(key: int, slots, words) -> Tuple[int, int]:
+    """(found_slot, empty_slot) of one key's window, -1 for absent:
+    RESERVED slots are probed past, the walk ends at the first EMPTY."""
+    for j in range(slots.shape[0]):
+        state = int(words[j, 0]) & STATE_MASK
+        if state == FLAG_READY and int(words[j, 1]) == int(key):
+            return int(slots[j]), -1
+        if state == FLAG_EMPTY:
+            return -1, int(slots[j])
+    return -1, -1
+
+
+def _probe_np(data, nranks: int, nslots: int, rec_w: int, key: int,
+              max_probes: int):
+    """Host-side probe mirror for txn staging: walk `key`'s probe window
+    over a window image. Returns (owner, found_slot, empty_slot) with -1
+    for absent. RESERVED (tombstone) slots are probed past, the
+    open-addressing delete convention `move` relies on, and the window
+    ends at the first EMPTY slot."""
+    owner, slots, words = _probe_words(data, nranks, nslots, rec_w, [key],
+                                       max_probes)
+    found, empty = _probe_walk(key, slots[0], words[0])
+    return int(owner[0]), found, empty
+
+
+def move(ht: DHashTable, k1, k2, engine, arm: str = "rdma_fused",
+         valid=None, max_probes: int = 8, max_retries: int = 8):
+    """Atomically relocate each rank's record from key k1 to key k2, the
+    multi-op composite a one-sided component API cannot express without
+    the transaction layer.
+
+    One (k1[p], k2[p]) pair per rank (scalars broadcast), staged as ONE
+    transaction per rank on `engine` (a core/txn.TxnEngine): chain guards
+    pin k1's slot (flag READY -> RESERVED tombstone, key identity, every
+    value word) and claim k2's slot (flag EMPTY -> READY), then puts land
+    the key and payload. A failed guard aborts the whole txn, both slots
+    untouched, and the rank re-probes against the fresh table for up to
+    `max_retries` attempts. Ranks whose k1 is absent or whose k2 already
+    exists fail with moved=False. The probes read only the probe windows
+    from the table (one gather a key set).
+
+    Returns (table', moved (P,) bool, vals (P, val_words) int32, the
+    relocated payloads). The source slot is left RESERVED: finds probe
+    past it and it is not reclaimed."""
+    from . import txn as txn_mod
+    P, vw, rec_w, nslots = ht.nranks, ht.val_words, ht.rec_w, ht.nslots
+    k1 = np.ascontiguousarray(np.broadcast_to(np.asarray(k1, np.int32),
+                                              (P,)))
+    k2 = np.ascontiguousarray(np.broadcast_to(np.asarray(k2, np.int32),
+                                              (P,)))
+    pending = (np.ones(P, dtype=bool) if valid is None
+               else np.asarray(to_host(valid), bool).copy())
+    moved = np.zeros(P, dtype=bool)
+    out_vals = np.zeros((P, vw), dtype=np.int32)
+    win = ht.win
+    for _ in range(max_retries):
+        if not pending.any():
+            break
+        ranks = np.nonzero(pending)[0]
+        o1w, sl1, w1 = _probe_words(win.data, P, nslots, rec_w, k1[ranks],
+                                    max_probes, extra=vw)
+        o2w, sl2, w2 = _probe_words(win.data, P, nslots, rec_w, k2[ranks],
+                                    max_probes)
+        o1 = np.zeros(P, np.int32)
+        o2 = np.zeros(P, np.int32)
+        s1 = np.full(P, -1, np.int32)
+        s2 = np.full(P, -1, np.int32)
+        vals = np.zeros((P, vw), np.int32)
+        for i, p in enumerate(ranks):
+            o1[p], o2[p] = o1w[i], o2w[i]
+            f1, _ = _probe_walk(k1[p], sl1[i], w1[i])
+            f2, e2 = _probe_walk(k2[p], sl2[i], w2[i])
+            if f1 < 0 or f2 >= 0 or e2 < 0:
+                continue  # k1 absent / k2 present / no room: final failure
+            s1[p], s2[p] = f1, e2
+            vals[p] = w1[i, list(sl1[i]).index(f1), 2:2 + vw]
+        stage = pending & (s1 >= 0) & (s2 >= 0)
+        pending = stage  # unstageable ranks are final failures
+        if not stage.any():
+            break
+        off1 = np.maximum(s1, 0) * rec_w
+        off2 = np.maximum(s2, 0) * rec_w
+        t = txn_mod.Txn(P)
+        t.cas(o1, off1, FLAG_READY, FLAG_RESERVED, chain=True, valid=stage)
+        t.cas(o1, off1 + 1, k1, k1, chain=True, valid=stage)
+        for w in range(vw):
+            t.cas(o1, off1 + 2 + w, vals[:, w], vals[:, w], chain=True,
+                  valid=stage)
+        t.cas(o2, off2, FLAG_EMPTY, FLAG_READY, chain=True, valid=stage)
+        t.put(o2, off2 + 1, k2, valid=stage)
+        for w in range(vw):
+            t.put(o2, off2 + 2 + w, vals[:, w], valid=stage)
+        res = engine.run(win, t, arm=arm)
+        win = res.wins[t.spaces[0]]
+        won = stage & res.committed & res.chain_ok
+        moved |= won
+        out_vals[won] = vals[won]
+        pending = stage & ~won  # chain-aborted: re-probe and retry
+    return _with_win(ht, win), moved, out_vals
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ Implementations and their best-case costs (paper Table III):
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -263,6 +263,90 @@ def pop_local(q: DQueue, n: int) -> Tuple[DQueue, Tensor, Tensor]:
     data[q.host, HEAD] = new_head
     data[q.host, HEAD_READY] = new_head
     return _with_win(q, Window(data=data)), got, vals
+
+
+# ---------------------------------------------------------------------------
+# Transactional composite: atomic pop -> hash-table insert
+# ---------------------------------------------------------------------------
+def pop_then_insert(q: DQueue, ht, engine, arm: str = "rdma_fused",
+                    valid=None, max_probes: int = 8,
+                    max_retries: Optional[int] = None):
+    """Each participating rank atomically pops ONE item from the hosted
+    queue and inserts it into the hash table keyed by its first payload
+    word, the cross-structure composite of the multi-space transaction
+    engine (`engine`, a core/txn.TxnEngine).
+
+    Staging: every pending rank snapshots (HEAD = h, the slot's payload v)
+    and guards the same hot HEAD word with a chain-CAS(h -> h+1), plus the
+    HEAD_READY release frontier, the slot's value words and the table's
+    claim CAS (flag EMPTY -> READY); then puts land key = v[0] and the
+    payload. One rank a round wins the head word (the serialized lock
+    phase hands it to the lowest stager); every loser aborts cleanly and
+    retries against a fresh snapshot. TAIL_READY is deliberately not
+    guarded: a concurrent transactional push extends the readable region
+    without invalidating a pop of an older slot.
+
+    Assumes txn-only pops (HEAD and HEAD_READY advance together), a queue
+    without checksums, and q.val_words == ht.val_words. A head item whose
+    key already sits in the table (or whose probe window is full) stalls
+    the composite: it stays at the head and the remaining ranks give up.
+    Each attempt reads the two control words, the head slot and the key's
+    probe window from the card, nothing more.
+
+    Returns (q', ht', popped (P,) bool, vals (P, val_words) int32)."""
+    import numpy as np
+
+    from . import hashtable as ht_mod
+    from . import txn as txn_mod
+    from .types import FLAG_EMPTY, FLAG_READY, to_host
+    P, vw = q.nranks, q.val_words
+    if q.checksum:
+        raise ValueError("pop_then_insert needs a queue without checksums")
+    if vw != ht.val_words:
+        raise ValueError("queue payload must match the table's record")
+    pending = (np.ones(P, dtype=bool) if valid is None
+               else np.asarray(to_host(valid), bool).copy())
+    popped = np.zeros(P, dtype=bool)
+    out_vals = np.zeros((P, vw), dtype=np.int32)
+    wins = {"q": q.win, "ht": ht.win}
+    if max_retries is None:
+        max_retries = 2 * P + 8
+    for _ in range(max_retries):
+        if not pending.any():
+            break
+        host_row = wins["q"].data[q.host]
+        h, tr = (int(x) for x in to_host(host_row[[HEAD, TAIL_READY]]))
+        if h >= tr:
+            break  # queue drained: remaining ranks fail
+        base = CTRL_WORDS + (h % q.capacity) * q.slot_w
+        v = to_host(host_row[base: base + vw]).astype(np.int32)
+        key = int(v[0])
+        o2, f2, e2 = ht_mod._probe_np(wins["ht"].data, P, ht.nslots,
+                                      ht.rec_w, key, max_probes)
+        if f2 >= 0 or e2 < 0:
+            break  # head item uninsertable: the composite cannot progress
+        off2 = e2 * ht.rec_w
+        t = txn_mod.Txn(P)
+        t.cas(q.host, HEAD, h, h + 1, space="q", chain=True, valid=pending)
+        t.cas(q.host, HEAD_READY, h, h + 1, space="q", chain=True,
+              valid=pending)
+        for w in range(vw):
+            t.cas(q.host, base + w, int(v[w]), int(v[w]), space="q",
+                  chain=True, valid=pending)
+        t.cas(o2, off2, FLAG_EMPTY, FLAG_READY, space="ht", chain=True,
+              valid=pending)
+        t.put(o2, off2 + 1, key, space="ht", valid=pending)
+        for w in range(vw):
+            t.put(o2, off2 + 2 + w, int(v[w]), space="ht", valid=pending)
+        res = engine.run(wins, t, arm=arm)
+        wins = res.wins
+        won = pending & res.committed & res.chain_ok
+        popped |= won
+        out_vals[won] = v
+        pending &= ~won  # losers chain-aborted: fresh snapshot next round
+    q2 = _with_win(q, wins["q"])
+    ht2 = ht_mod.DHashTable(win=wins["ht"], nslots=ht.nslots, val_words=vw)
+    return q2, ht2, popped, out_vals
 
 
 # ---------------------------------------------------------------------------

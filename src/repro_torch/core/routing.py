@@ -487,6 +487,26 @@ def coalesce_plan(dst: Tensor, off: Tensor, match: Optional[Tensor] = None,
     return CoalescedPlan(plan=plan, co=co)
 
 
+def miss_subset_plan(dst: Tensor, off: Tensor, hit: Optional[Tensor],
+                     match: Optional[Tensor] = None,
+                     valid: Optional[Tensor] = None,
+                     cap: Optional[int] = None,
+                     role: str = "plan") -> CoalescedPlan:
+    """`coalesce_plan` restricted to the cache-miss subset.
+
+    `hit` is the origin-local hot-bucket cache's hit mask for the batch
+    (None: no cache consulted, exactly `coalesce_plan`). The hits leave
+    the plan's validity before the occupancy exchange, so the plan is the
+    one built for a batch that never held the hit rows. Still ONE
+    occupancy exchange; an all-hit batch should build no plan at all (the
+    caller's job)."""
+    if hit is not None:
+        hit = torch.as_tensor(hit, dtype=torch.bool, device=dst.device)
+        valid = ~hit if valid is None else (valid & ~hit)
+    return coalesce_plan(dst, off, match=match, valid=valid, cap=cap,
+                         role=role)
+
+
 def flatten_owner_view(routed: Routed) -> Tuple[Tensor, Tensor]:
     """Flatten an owner's (P_src, cap) request grid into a serialized op
     list in (src_rank, slot) order: the deterministic order in which the

@@ -9,15 +9,18 @@ step and each op is ONE network phase:
     rdma_get   — 2 exchanges (request → owner gather → reply)
     rdma_cas   — 2 exchanges (request → serialized apply → old values back)
     rdma_fao   — 2 exchanges (FAA / FOR / FAND / FXOR)
+    rdma_txn_commit — 2 exchanges (groups of ops, all-or-nothing)
 
 Conflicting atomics at an owner are applied in deterministic (src_rank,
 slot) order, the analogue of NIC arrival-order serialization.
 
 Which owner lane runs is decided by the device of the window's tensor:
-on CUDA, `rdma_fao` and `rdma_cas` go through the `amo_apply` kernel and
+on CUDA, `rdma_fao` and `rdma_cas` go through the `amo_apply` kernel,
 every fused phase through the `fused_apply` kernel
-(kernels/csrc/owner_lane.cu); on the CPU the vectorized appliers below
-run, as the JAX package's default XLA lane does. `rdma_put` and `rdma_get`
+(kernels/csrc/owner_lane.cu) and a txn commit through `txn_group_apply`
+(kernels/csrc/txn_lane.cu); on the CPU the vectorized appliers below run,
+as the JAX package's default XLA lane does, and the commit the plain
+`txn_group_apply`. `rdma_put` and `rdma_get`
 are tensor code on both devices. Both lanes implement the same serialized
 contract; tests/test_torch_window.py holds the appliers against JAX's and
 chip_smoke.py holds the CUDA lane against the CPU lane.
@@ -49,6 +52,8 @@ Tensor = torch.Tensor
 # ---------------------------------------------------------------------------
 _CURRENT_DECISION = None
 _CURRENT_SLOT: Optional[Tuple[int, int]] = None
+# The hot-bucket cache of the table op in progress (`cache_scope`).
+_CURRENT_CACHE = None
 # Pipelines holding unforced in-flight batches (core/pipeline.py notes
 # every transition). A WeakSet, so an abandoned pipeline never counts.
 _INFLIGHT_PIPES: "weakref.WeakSet" = weakref.WeakSet()
@@ -96,13 +101,47 @@ def slot_scope(slot: int, seq: int):
 
 @contextlib.contextmanager
 def cache_scope(cache):
-    """Seam for the hot-bucket cache tier (not ported yet): a no-op."""
-    yield
+    """Make `cache` (core/cache.BucketCache) the active hot-bucket cache.
+
+    Inside the scope, publish-capable phases (`rdma_cas_put_publish`,
+    `rdma_cas_put`, FXOR `rdma_fao` / `rdma_fao_get`) forward their
+    (dst, off) flips to `cache.on_publish`, the precision invalidation
+    channel; the cache logs cache_fill / cache_hit / cache_invalidate
+    events into the phase log (`log_cache_event`). Cache hits issue no
+    phase."""
+    global _CURRENT_CACHE
+    prev = _CURRENT_CACHE
+    _CURRENT_CACHE = cache
+    try:
+        yield
+    finally:
+        _CURRENT_CACHE = prev
+
+
+def log_cache_event(role: str, info: Optional[dict] = None) -> None:
+    """Log one cache event into the phase log, with the tagging rules of
+    `_route_phase` (only inside a decision or slot scope). Cache events are
+    not network phases: exchanges are counted by the routing hook."""
+    if _CURRENT_DECISION is None and _CURRENT_SLOT is None:
+        return
+    merged = dict(info or {})
+    if _CURRENT_SLOT is not None:
+        merged["slot"], merged["seq"] = _CURRENT_SLOT
+    _PHASE_LOG.append((role, _CURRENT_DECISION, merged or None))
+    if len(_PHASE_LOG) > PHASE_LOG_MAX:
+        del _PHASE_LOG[:-PHASE_LOG_MAX]
 
 
 def _notify_publish(dst: Tensor, off: Tensor,
                     valid: Optional[Tensor]) -> None:
-    """Seam for the cache's publish invalidation (not ported yet)."""
+    """Forward a publish flip to the active cache (no-op without one).
+
+    A publish inside a probe or CAS loop (`faults.loop_scope`) is not
+    forwarded: the JAX package traces those loops, its offsets there are
+    tracers and its cache ignores them. The cache's authoritative channel
+    (`on_insert_keys`) covers those writes."""
+    if _CURRENT_CACHE is not None and not flt.in_traced_loop():
+        _CURRENT_CACHE.on_publish(dst, off, valid)
 
 
 def drain_phase_log() -> List[Tuple[str, object, Optional[dict]]]:
@@ -603,6 +642,35 @@ def rdma_cas_put_publish(win: Window, dst: Tensor, off: Tensor, cmp, new,
                              role="cas_put_pub",
                              cpu_apply=_cas_put_cpu_apply, co=co)
     return _cas_put_dup_fixup(old[..., 0], desc, co), win2
+
+
+def rdma_txn_commit(win: Window, dst: Tensor, desc: Tensor,
+                    valid: Optional[Tensor] = None,
+                    cap: Optional[int] = None,
+                    plan: Optional[routing.RoutePlan] = None
+                    ) -> Tuple[Tensor, Window]:
+    """Transactional commit phase: ship per-txn groups of primitive ops
+    and apply them all-or-nothing at the owners.
+
+    desc (P, n, 6) int32 rows [off | code | a | b | gid | chain]: codes
+    0-6 as in the AMO lane, gid the committing source rank (the
+    (src_rank, slot) order of `flatten_owner_view` keeps each group
+    contiguous at every owner), chain != 0 marks an OP_CAS row as a chain
+    guard whose failed compare aborts its whole group at the owner. TWO
+    exchanges: request + [old-at-apply | applied] replies, from the
+    serialized apply itself. The owner lane is `kops.txn_group_apply`
+    (the B9 kernel on CUDA, the plain version on the CPU).
+
+    Never coalesced: every commit row must apply exactly once."""
+    cap = plan.cap if plan is not None else _default_cap(dst, cap)
+    routed = _route_phase(dst, desc.to(torch.int32), cap, valid, plan,
+                          role="txn_commit")
+    flat, mask = routing.flatten_owner_view(routed)
+    reply_flat, new_data = kops.txn_group_apply(win.data, flat, mask,
+                                                ngroups=win.nranks)
+    replies = routing.unflatten_owner_view(reply_flat, win.nranks, cap)
+    out = routing.route_replies(routed, replies, dst, role="txn_commit_rep")
+    return out, Window(data=new_data)
 
 
 def rdma_fao_get(win: Window, dst: Tensor, off: Tensor, operand,

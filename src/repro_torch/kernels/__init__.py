@@ -2,6 +2,7 @@
 # (csrc/*.cu, bound with ctypes), their plain PyTorch versions (ref.py) and
 # the device dispatch (ops.py):
 #   amo_apply / fused_apply — serialized AMO batch at the owner (the NIC lane)
+#   txn_group_apply — the transactional owner lane (all-or-nothing groups)
 #   hash_find / hash_insert — open-addressing probe loops (AM handler bodies)
 #   flash_attention — causal / local-window GQA attention (prefill)
 #   flash_decode — one-token GQA decode attention over the serving KV cache

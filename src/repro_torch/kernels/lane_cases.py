@@ -1,5 +1,6 @@
 """Edge cases of the owner-list kernels B1 `amo_apply`, B2 `fused_apply`
-(`owner_lane_cases`) and B4 `hash_insert` (`hash_insert_cases`), made from
+(`owner_lane_cases`), B9 `txn_group_apply` (`txn_group_apply_cases`) and
+B4 `hash_insert` (`hash_insert_cases`), made from
 a seed with numpy. The card tests (tests/test_torch_cuda.py) and
 chip_smoke.py's phase 1 hold each kernel to its plain version in
 kernels/ref.py on them, bit for bit.
@@ -199,6 +200,127 @@ def owner_lane_cases(seed: int = 0) -> List[Case]:
                       rng.integers(1, 8, (P, m)),
                       rng.integers(100, 999, (P, m, 3))), mask),
                   {"reply_width": 4}))
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# B9 txn_group_apply
+# ---------------------------------------------------------------------------
+OP_PUT, OP_GET, OP_FXOR = 0, 1, 6
+TXN_ROWS = 1024       # rows the kernel stages in shared memory (kRows)
+
+
+def _txn(off, code, a, b, gid, chain) -> np.ndarray:
+    return np.stack([off, code, a, b, gid, chain], -1).astype(np.int32)
+
+
+def _txn_random(rng, P: int, L: int, ngroups: int, per: int, span: int,
+                chain_p: float, live_p: float):
+    """(local, ops, mask) laid out as a commit phase is at its owners: each
+    owner's list holds `per` rows of each group in turn (the (src, slot)
+    order), on words [0, span), every code 0-6 and an unknown one, chain
+    guards on some rows (on CAS rows and others), some rows masked."""
+    m = ngroups * per
+    local = rng.integers(-4, 4, (P, L)).astype(np.int32)
+    gid = np.broadcast_to(np.repeat(np.arange(ngroups), per), (P, m))
+    code = rng.choice([0, 1, 2, 2, 2, 3, 4, 5, 6, 11], (P, m))
+    ops = _txn(rng.integers(0, span, (P, m)), code, _small(rng, (P, m)),
+               _small(rng, (P, m)), gid, rng.random((P, m)) < chain_p)
+    return local, ops, rng.random((P, m)) < live_p
+
+
+def txn_group_apply_cases(seed: int = 0) -> List[Case]:
+    """[(label, "txn_group_apply", (local, ops, mask), {"ngroups": G})],
+    numpy. The cases aim at what csrc/txn_lane.cu's walk has to get right:
+    the undo log of a group's current run (a group split into two runs
+    with its guard failing in the second; a failing guard after earlier
+    writes of the same word, its own and another group's), the dead flags
+    (rows after the failure, `gid` outside [0, ngroups) clipped onto the
+    first and last group), what a guard is (chain != 0 on rows that are
+    not CAS), an all-masked owner, offsets outside [0, L) written and
+    undone, and lists longer than the rows staged at once."""
+    rng = np.random.default_rng(seed)
+    cases: List[Case] = []
+
+    def add(label, local, ops, mask, ngroups):
+        cases.append((label, "txn_group_apply",
+                      (np.asarray(local, np.int32), ops,
+                       np.asarray(mask, bool)), {"ngroups": ngroups}))
+
+    # group 0 in two runs around group 1's; its guard fails in the second
+    # run (owner 0) or the first (owner 1), after writes in both runs; on
+    # owner 0 a guard of group 1 after it holds only if the undo stopped
+    # at the run's start (word 5 keeps group 1's 7)
+    L = 16
+    local = np.arange(2 * L, dtype=np.int32).reshape(2, L)
+    rows0 = [[3, OP_PUT, 0, 50, 0, 0], [4, OP_FAA, 5, 0, 0, 0],
+             [3, OP_FAA, 1, 0, 1, 0], [5, OP_PUT, 0, 7, 1, 0],
+             [4, OP_PUT, 0, 60, 0, 0], [5, OP_CAS, -1, 9, 0, 1],
+             [5, OP_CAS, 7, 8, 1, 1]]
+    rows1 = [[3, OP_PUT, 0, 50, 0, 0], [3, OP_CAS, 0, 9, 0, 1],
+             [3, OP_FAA, 1, 0, 1, 0], [4, OP_PUT, 0, 70, 0, 0],
+             [4, OP_FAA, 1, 0, 1, 0], [5, OP_GET, 0, 0, 0, 0],
+             [6, OP_FAA, 2, 0, 1, 0]]
+    add("a group split into two runs", local,
+        np.array([rows0, rows1], np.int32), np.ones((2, 7), bool), 2)
+
+    # a failing guard after earlier writes to the word it guards: the group
+    # puts, adds and xors word 2, then guards it with a stale compare; the
+    # next group reads and adds to it
+    local = np.full((2, 8), 4, np.int32)
+    rows = [[2, OP_PUT, 0, 11, 0, 0], [2, OP_FAA, 3, 0, 0, 0],
+            [2, OP_FXOR, 6, 0, 0, 0], [2, OP_CAS, 11, 1, 0, 1],
+            [2, OP_FAA, 1, 0, 0, 0], [2, OP_GET, 0, 0, 1, 0],
+            [2, OP_FAA, 5, 0, 1, 0], [2, OP_CAS, 9, 3, 1, 1]]
+    ops = np.array([rows, rows], np.int32)
+    ops[1, 3, 2] = 8      # owner 1: the guard holds (11 + 3 ^ 6 = 8)
+    add("a failing guard after writes to its word", local, ops,
+        np.ones((2, 8), bool), 2)
+
+    # gid outside [0, ngroups): clipped, so -3 joins group 0's run and 7
+    # and 4 join group 2's (a failure there kills the rows of all three)
+    local = rng.integers(-3, 4, (2, 12)).astype(np.int32)
+    rows = [[1, OP_PUT, 0, 5, -3, 0], [2, OP_FAA, 1, 0, 0, 0],
+            [1, OP_CAS, 5, 6, 1, 1], [3, OP_PUT, 0, 8, 7, 0],
+            [3, OP_FAA, 1, 0, 2, 0], [3, OP_CAS, 99, 0, 4, 1],
+            [4, OP_PUT, 0, 1, 1, 0]]
+    ops = np.array([rows, rows], np.int32)
+    ops[1, 5, 2] = 9      # owner 1: the clipped group's guard holds
+    add("gid >= ngroups and < 0", local, ops, np.ones((2, 7), bool), 3)
+
+    # chain != 0 on rows that are not CAS: no guard, whatever their value
+    local = rng.integers(-3, 4, (2, 8)).astype(np.int32)
+    rows = [[0, OP_FAA, 3, 0, 0, 1], [1, OP_PUT, 0, 4, 0, 5],
+            [2, OP_GET, 0, 0, 0, 1], [0, OP_FXOR, 7, 0, 1, -1],
+            [0, OP_CAS, 99, 1, 1, 0], [1, 11, 2, 3, 1, 1]]
+    add("chain != 0 on rows that are not CAS", local,
+        np.array([rows, rows], np.int32), np.array([[1] * 6, [1, 0] * 3],
+                                                   bool), 2)
+
+    # an all-masked owner beside two busy ones
+    local, ops, _ = _txn_random(rng, 3, 24, 4, 5, 24, 0.3, 1.0)
+    mask = rng.random((3, 20)) < 0.8
+    mask[1] = False
+    add("an all-masked owner", local, ops, mask, 4)
+
+    # offsets outside [0, L): negative ones wrap onto the shard once (and
+    # are written and undone there), the rest read a clamped word and write
+    # nothing
+    P, L, ng, per = 2, 16, 4, 6
+    local, ops, mask = _txn_random(rng, P, L, ng, per, L, 0.35, 0.9)
+    ops[..., 0] = np.where(rng.random((P, ng * per)) < 0.4,
+                           rng.choice([-L - 3, -2 * L, -L, -2, -1, L, L + 5],
+                                      (P, ng * per)), ops[..., 0])
+    add("offsets outside [0, L)", local, ops, mask, ng)
+
+    # a commit phase of 64 ranks: 4 rows each, hot words, every owner
+    local, ops, mask = _txn_random(rng, 8, 64, 64, 4, 24, 0.3, 0.6)
+    add("64 groups of 4 rows on 24 words", local, ops, mask, 64)
+
+    # lists longer than the staged rows: runs crossing each staging chunk
+    local, ops, mask = _txn_random(rng, 3, 128, 7, 500, 40, 0.02, 0.9)
+    assert ops.shape[1] > 3 * TXN_ROWS
+    add("3500 rows: runs across staging chunks", local, ops, mask, 7)
     return cases
 
 

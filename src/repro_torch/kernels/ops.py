@@ -1,6 +1,6 @@
-"""Device dispatch for the kernels: the owner lanes and handler bodies of
-the data structures, and attention, decode attention, expert dispatch and
-the RG-LRU scan of the model.
+"""Device dispatch for the kernels: the owner lanes (the transactional one
+included) and handler bodies of the data structures, and attention,
+decode attention, expert dispatch and the RG-LRU scan of the model.
 
 A CUDA tensor launches the hand-written kernel (inputs are made
 contiguous first, except flash_attention's q, k and v and flash_decode's
@@ -21,6 +21,7 @@ from . import hash_probe as _hp
 from . import moe_dispatch as _md
 from . import rg_lru as _rg
 from . import ref
+from . import txn_lane as _tx
 
 Tensor = torch.Tensor
 
@@ -43,6 +44,17 @@ def fused_apply(local: Tensor, ops: Tensor, mask: Tensor, *,
         return _amo.fused_apply(local.contiguous(), ops.contiguous(),
                                 mask.contiguous(), reply_width=reply_width)
     return ref.fused_apply(local, ops, mask, reply_width=reply_width)
+
+
+def txn_group_apply(local: Tensor, ops: Tensor, mask: Tensor, *,
+                    ngroups: int) -> Tuple[Tensor, Tensor]:
+    """Transactional owner lane with the group abort mask. local (P, L);
+    ops (P, m, 6) rows [off|code|a|b|gid|chain]; mask (P, m). Returns
+    (reply (P, m, 2) [old, applied], local')."""
+    if local.is_cuda:
+        return _tx.txn_group_apply(local.contiguous(), ops.contiguous(),
+                                   mask.contiguous(), ngroups=ngroups)
+    return ref.txn_group_apply(local, ops, mask, ngroups=ngroups)
 
 
 def hash_find(table, starts, keys, mask, *, nslots, rec_w, max_probes=8):

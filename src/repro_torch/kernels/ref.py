@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the kernels (ports of `repro.kernels.ref`):
 the four owner-lane kernels amo_apply, fused_apply, hash_find and
-hash_insert, and the model kernels mha (flash attention's function),
-decode_attention (with combine_decode_stats), moe_dispatch and
-rg_lru_scan. Beside amo_apply, the JAX package's duplicate-run pre-pass
-of the owner lane (combine_runs, reconstruct_runs) and the oracle built
-on it, amo_apply_combined.
+hash_insert, the transactional owner lane txn_group_apply with its
+serial whole-window oracle txn_apply, and the model kernels mha (flash
+attention's function), decode_attention (with combine_decode_stats),
+moe_dispatch and rg_lru_scan. Beside amo_apply, the JAX package's
+duplicate-run pre-pass of the owner lane (combine_runs, reconstruct_runs)
+and the oracle built on it, amo_apply_combined.
 
 They take all owners at once (the leading P axis JAX vmaps over) and keep
 the JAX oracles' semantics word for word, including what happens at an
@@ -243,6 +244,109 @@ def fused_apply(local: Tensor, ops: Tensor, mask: Tensor, *,
         g = torch.gather(out, 1, idx.reshape(P, -1)).reshape(P, m, G)
         reply[..., 1:] = torch.where(is_get[..., None], g, 0)
     return reply, out
+
+
+# ---------------------------------------------------------------------------
+# txn_group_apply: the transactional owner lane with a group abort mask
+# ---------------------------------------------------------------------------
+def txn_group_apply(local: Tensor, ops: Tensor, mask: Tensor, *,
+                    ngroups: int) -> Tuple[Tensor, Tensor]:
+    """Apply groups of ops all-or-nothing against each owner's shard.
+
+    local (P, L) int32; ops (P, m, 6) int32 rows [off, opcode, a, b, gid,
+    chain]; mask (P, m) bool. Codes 0-6 act as in `amo_apply`; gid is
+    clipped to [0, ngroups). A row with chain != 0 and opcode OP_CAS is a
+    chain guard: if its compare fails, the whole group aborts, none of its
+    ops take effect and its replies are zero. Returns (reply (P, m, 2)
+    [old, applied], local').
+
+    Two passes in op order, as the JAX oracle runs them:
+      1. trial: run every live group; on a chain failure restore the shard
+         to the snapshot taken at the first unmasked row of the group's
+         current run (groups form contiguous runs in the layout
+         `routing.flatten_owner_view` gives) and mark the group dead;
+      2. apply: from the original shard, every row of a group that is not
+         dead applies and replies [old-at-apply, 1]."""
+    P, L = local.shape
+    m = ops.shape[1]
+    dev = local.device
+    rows = torch.arange(P, device=dev)
+    gid = ops[..., 4].clamp(0, ngroups - 1).to(torch.int64)
+    is_chain = (ops[..., 5] != 0) & (ops[..., 1] == OP_CAS)
+    live = _live(mask)
+    loc, saved = local.clone(), local.clone()
+    prev = torch.full((P,), -1, dtype=torch.int64, device=dev)
+    gfail = torch.zeros((P, ngroups), dtype=torch.bool, device=dev)
+    for j in live:
+        off, code, a, b = ops[:, j, :4].unbind(-1)
+        ok, g = mask[:, j], gid[:, j]
+        newgrp = ok & (g != prev)
+        saved[newgrp] = loc[newgrp]
+        prev = torch.where(ok, g, prev)
+        cur = loc[rows, intops.clip_index(off, L)]
+        dead = gfail[rows, g]
+        fail_now = ok & is_chain[:, j] & ~dead & (cur != a)
+        gfail[rows, g] = dead | fail_now
+        _word_rmw(loc, off, ok & ~dead & ~fail_now,
+                  lambda c: _amo_new(c, code, a, b))
+        loc[fail_now] = saved[fail_now]
+    out = local.clone()
+    old = torch.zeros((P, m), dtype=torch.int32, device=dev)
+    applied = torch.zeros((P, m), dtype=torch.bool, device=dev)
+    for j in live:
+        off, code, a, b = ops[:, j, :4].unbind(-1)
+        do = mask[:, j] & ~gfail[rows, gid[:, j]]
+        cur = _word_rmw(out, off, do, lambda c: _amo_new(c, code, a, b))
+        old[:, j] = torch.where(do, cur, 0)
+        applied[:, j] = do
+    return torch.stack([old, applied.to(torch.int32)], dim=-1), out
+
+
+def txn_apply(data: Tensor, dst: Tensor, ops: Tensor, mask: Tensor,
+              chain: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Serial whole-window transaction oracle.
+
+    data (P, L) int32, the whole window; dst (T, m) int32 owner rank of
+    each op; ops (T, m, 4) int32 rows [off, opcode, a, b]; mask (T, m)
+    bool; chain (T, m) chain-guard flags. Returns (reply (T, m) old
+    values, ok (T,) committed flags, data').
+
+    Transaction t applies atomically after transactions < t: its ops run
+    in order (op j sees ops < j of the same txn), and a chain-flagged
+    OP_CAS whose compare fails aborts the whole txn: the window is left
+    untouched and its replies are zero. Words are addressed in the
+    flattened window (dst * L + off), read as a plain `jnp` gather reads
+    them and written only inside it."""
+    P, L = data.shape
+    T, m = mask.shape
+    flat = data.reshape(-1).clone()
+    n = flat.numel()
+    reply = torch.zeros((T, m), dtype=torch.int32, device=data.device)
+    okt = torch.ones(T, dtype=torch.bool, device=data.device)
+    for t in range(T):
+        trial = flat.clone()
+        old = torch.zeros(m, dtype=torch.int32, device=data.device)
+        failed = False
+        for j in range(m):
+            if not bool(mask[t, j]):
+                continue
+            go = int(dst[t, j]) * L + int(ops[t, j, 0])
+            w = go + n if go < 0 else go
+            cur = trial[min(max(w, 0), n - 1)].clone()
+            code, a, b = ops[t, j, 1], ops[t, j, 2], ops[t, j, 3]
+            if int(chain[t, j]) != 0 and int(code) == OP_CAS and \
+                    int(cur) != int(a):
+                failed = True
+                break
+            if 0 <= w < n:
+                trial[w] = _amo_new(cur, code, a, b)
+            old[j] = cur
+        if failed:
+            okt[t] = False
+        else:
+            flat = trial
+            reply[t] = old
+    return reply, okt, flat.reshape(P, L)
 
 
 def hash_find(table: Tensor, starts: Tensor, keys: Tensor, mask: Tensor, *,

@@ -251,11 +251,15 @@ def test_batch_statistics_match_jax():
 
 
 def test_seams_raise_naming_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="A10"):
-        ad.AdaptiveEngine(P, cache=object())
+    # the cache seams (ROADMAP A10) run: the constructor and attach_cache
+    # both attach the cache
+    from repro_torch.core import cache
+    c = cache.BucketCache(P, 64, 1, capacity=64)
+    assert ad.AdaptiveEngine(P, cache=c).cache is c
+    cached = ad.AdaptiveEngine(P)
+    cached.attach_cache(c)
+    assert cached.cache is c and cached.cache_reads_on()
     eng = ad.AdaptiveEngine(P)
-    with pytest.raises(NotImplementedError, match="A10"):
-        eng.attach_cache(object())
     # auto_depth retargets a pipeline that opted in (capped at its
     # constructor depth) and passes a fixed-depth one through
     from repro_torch.core import faults, pipeline

@@ -755,3 +755,161 @@ def test_chaos_stream_on_cuda_equals_cpu(cuda_device):
     same(res_g[2], res[2], "queue window")
     assert res_g[3] == res[3] and res_g[4] == res[4]
     assert res[3]["dropped"] > 0 and res[3]["dup_filtered"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The transactional owner lane (csrc/txn_lane.cu, B9) on kernels/
+# lane_cases.py's edge cases, bit for bit, and two planted faults
+# ---------------------------------------------------------------------------
+TXN_CASES = lane_cases.txn_group_apply_cases()
+
+
+def _txn_differs(i, dev) -> bool:
+    _, _, args, kw = TXN_CASES[i]
+    got = kops.txn_group_apply(*_on(dev, *args), **kw)
+    want = kref.txn_group_apply(*_on("cpu", *args), **kw)
+    return not all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("i", range(len(TXN_CASES)),
+                         ids=[c[0] for c in TXN_CASES])
+def test_txn_group_apply_kernel_on_edge_case(cuda_device, i):
+    assert not _txn_differs(i, cuda_device)
+
+
+def test_txn_group_apply_counts_one_launch_a_call(cuda_device):
+    """A wrapper call launches a copy and a walk and counts one; a CPU
+    tensor takes the plain version and counts nothing."""
+    from repro_torch.kernels import txn_lane
+    _, _, args, kw = TXN_CASES[0]
+    before = txn_lane.txn_group_apply.launches
+    kops.txn_group_apply(*_on(cuda_device, *args), **kw)
+    kops.txn_group_apply(*_on("cpu", *args), **kw)
+    assert txn_lane.txn_group_apply.launches == before + 1
+
+
+# planted faults of csrc/txn_lane.cu: (its text, the faulty text, the edge
+# case aimed at it)
+TXN_FAULTS = {
+    "run undone in list order": (
+        "        for (long long i = nlog - 1; i >= run_start; --i)\n",
+        "        for (long long i = run_start; i < nlog; ++i)\n",
+        "a failing guard after writes to its word"),
+    "undo log kept across runs": (
+        "      if (g != prev) run_start = nlog;   // the plain version's "
+        "snapshot\n",
+        "      if (prev < 0) run_start = nlog;\n",
+        "a group split into two runs"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(TXN_FAULTS))
+def test_txn_group_apply_cases_reject_planted_faults(cuda_device, fault,
+                                                     tmp_path):
+    """With the fault built in, the kernel must differ from its plain
+    version on the edge case aimed at it (the cases that differ are
+    printed)."""
+    old, new, label = TXN_FAULTS[fault]
+
+    def differing():
+        return [TXN_CASES[i][0] for i in range(len(TXN_CASES))
+                if _txn_differs(i, cuda_device)]
+    bad = _with_planted_fault("txn_lane", old, new, tmp_path, differing)
+    print(f"{fault}: differs on " + "; ".join(bad))
+    assert label in bad
+
+
+def _cached_stream(dev):
+    """A read-heavy cached stream (AUTO with a BucketCache, the fused arm
+    forced for finds): zipf-drawn finds of inserted keys between fresh
+    inserts. Returns the outputs and window on the host, cache.stats()
+    and the Decisions' cached flags."""
+    from repro_torch.core import adaptive as ad, cache
+    rng = np.random.default_rng(33)
+    P, n = 4, 16
+    table = ht.make_hashtable(P, 256, 1, device=dev)
+    chooser = ad.AdaptiveEngine(P, am_engine=am.AMEngine(P))
+    chooser.attach_cache(cache.BucketCache(P, 256, 1, capacity=64))
+    keys = rng.choice(2 ** 20, size=(3, P, n), replace=False).astype(
+        np.int32) + 1
+    outs = []
+    for b, k in enumerate(keys):
+        chooser.force_arm = ("am", "rdma", "rdma_fused")[b]
+        table, ok, _ = chooser.ht_insert(table, k, (k * 3)[..., None])
+        chooser.force_arm = "rdma_fused"
+        pool = keys[:b + 1].reshape(-1)
+        for _ in range(3):
+            q = pool[np.minimum(rng.zipf(1.5, (P, n)) - 1,
+                                pool.size - 1)].astype(np.int32)
+            table, found, got = chooser.ht_find(table, q)
+            outs += [found, got]
+        outs.append(ok)
+    return ([x.cpu() for x in outs], table.win.data.cpu(),
+            chooser.cache.stats(), [d.cached for d in chooser.log])
+
+
+def test_cached_stream_on_cuda_equals_cpu(cuda_device):
+    """The card gives the CPU's results, window, cache counters and
+    cached decisions for a cached stream."""
+    res, res_g = _cached_stream("cpu"), _cached_stream(cuda_device)
+    for i, (x, y) in enumerate(zip(res_g[0], res[0])):
+        same(x, y, f"output {i}")
+    same(res_g[1], res[1], "window")
+    assert res_g[2] == res[2] and res_g[3] == res[3]
+    assert res[2]["hits"] > 0
+
+
+def _txn_batches(dev):
+    """Two contending txn batches on every arm, one engine an arm, and a
+    move: replies, flags, order, counters and windows on the host."""
+    from repro_torch.core import txn
+    rng = np.random.default_rng(34)
+    P, L = 8, 64
+    init = rng.integers(-50, 50, (P, L)).astype(np.int32)
+    out = []
+    for arm in ("rdma", "rdma_fused", "am", "am_pt", "auto"):
+        eng = txn.TxnEngine(P, am_engine=am.AMEngine(P))
+        win = ht.Window(data=torch.as_tensor(init, device=dev))
+        brng = np.random.default_rng(35)
+        for _ in range(2):
+            t = txn.Txn(P)
+            for _ in range(4):
+                dst, off = brng.integers(0, P, P), brng.integers(0, 6, P)
+                kind = int(brng.integers(0, 4))
+                if kind == 0:
+                    t.put(dst, off, brng.integers(-9, 9, P))
+                elif kind == 1:
+                    t.get(dst, off)
+                elif kind == 2:
+                    t.cas(dst, off, brng.integers(-50, 50, P),
+                          brng.integers(-9, 9, P), chain=brng.random() < .3)
+                else:
+                    t.fao(dst, off, brng.integers(-3, 4, P))
+            r = eng.run(win, t, arm=arm)
+            win = r.wins["ht"]
+            out.append((arm, r.replies, r.committed, r.chain_ok, r.order,
+                        r.rounds, r.aborts, r.saved_reads, r.arm,
+                        win.data.cpu()))
+    table = ht.make_hashtable(P, 64, 1, device=dev)
+    k = np.arange(1, 1 + 2 * P, dtype=np.int32).reshape(P, 2)
+    table, _, _ = ht.insert_rdma(table, k, (k * 7)[..., None])
+    table, moved, vals = ht.move(table, k[:, 0], k[:, 0] + 1000,
+                                 txn.TxnEngine(P, am_engine=am.AMEngine(P)))
+    out.append(("move", moved, vals, table.win.data.cpu()))
+    return out
+
+
+def test_txn_batches_on_cuda_equal_cpu(cuda_device):
+    """Every txn arm (B1 in the one-sided lock phases, B9 in every commit)
+    and a move give the CPU's results bit for bit on the card."""
+    from repro_torch.kernels import txn_lane
+    before = txn_lane.txn_group_apply.launches
+    got = _txn_batches(cuda_device)
+    assert txn_lane.txn_group_apply.launches > before
+    for a, b in zip(got, _txn_batches("cpu")):
+        assert a[0] == b[0]
+        for x, y in zip(a[1:], b[1:]):
+            if isinstance(x, (list, int, str)):
+                assert x == y, a[0]
+            else:
+                same(x, y, a[0])

@@ -27,18 +27,24 @@ import torch
 
 from repro.core import adaptive as jad
 from repro.core import am as jam
+from repro.core import cache as jcache
 from repro.core import faults as jflt
 from repro.core import hashtable as jht
 from repro.core import pipeline as jpl
 from repro.core import queue as jq
+from repro.core import txn as jtxn
+from repro.core import window as jwin
 from repro.core.types import Promise as JPromise
 from repro_torch.core import adaptive as ad_mod
 from repro_torch.core import am as am_mod
+from repro_torch.core import cache as cache_mod
 from repro_torch.core import costmodel as cm
 from repro_torch.core import faults as flt
 from repro_torch.core import hashtable as ht_mod
 from repro_torch.core import pipeline as pl_mod
 from repro_torch.core import queue as q_mod
+from repro_torch.core import txn as txn_mod
+from repro_torch.core import window as win_mod
 from repro_torch.core.costmodel import DSOp
 from repro_torch.core.types import OpStats, Promise
 from torch_parity import jit, npy, same, torch_one_thread  # noqa: F401
@@ -276,9 +282,10 @@ def test_loop_draws_match_jax(name):
 # ---------------------------------------------------------------------------
 class _ArmRunner:
     """A mixed insert/find stream on one arm through the chooser's
-    wrappers (forced, or round robin for "auto"), optionally under a plan;
-    the fault-free instance is the oracle. jax=True runs it in the JAX
-    package, eagerly (its plane needs concrete batches)."""
+    wrappers (forced, or round robin for "auto"; "cached" is rdma_fused
+    with a hot-bucket cache), optionally under a plan; the fault-free
+    instance is the oracle. jax=True runs it in the JAX package, eagerly
+    (its plane needs concrete batches)."""
 
     def __init__(self, arm, jax=False):
         if jax:
@@ -286,11 +293,17 @@ class _ArmRunner:
             self.auto = jad.AdaptiveEngine(P, am_engine=jam.AMEngine(P),
                                            policy="round_robin")
             self.arr = jnp.asarray
+            cache_cls = jcache.BucketCache
         else:
             self.ht = ht_mod.make_hashtable(P, NSLOTS, VW, device="cpu")
             self.auto = ad_mod.AdaptiveEngine(P, am_engine=am_mod.AMEngine(P),
                                               policy="round_robin")
             self.arr = torch.as_tensor
+            cache_cls = cache_mod.BucketCache
+        if arm == "cached":
+            self.auto.attach_cache(cache_cls(P, NSLOTS, VW, capacity=256,
+                                             max_probes=8))
+            arm = "rdma_fused"
         if arm != "auto":
             self.auto.policy = "cost"
             self.auto.force_arm = arm
@@ -341,15 +354,17 @@ def _jax_reference(arm, batches, kseed):
     return _JAX_REFS[key]
 
 
-@pytest.mark.parametrize("arm", ["rdma", "rdma_fused", "am", "auto"])
+@pytest.mark.parametrize("arm", ["rdma", "rdma_fused", "am", "auto",
+                                 "cached"])
 @pytest.mark.parametrize("name,kseed,cfg", _schedules())
 def test_chaos_conformance(arm, name, kseed, cfg):
     batches = _batches(seed=kseed, nbatches=4)
     oracle = _ArmRunner(arm)
     chaos = _ArmRunner(arm)
     plan = flt.FaultPlan(P, **cfg)
-    ref = None if arm == "auto" else _jax_reference(arm, batches, kseed)
-    if arm == "auto":   # JAX's AUTO under the same plan
+    live = arm in ("auto", "cached")
+    ref = None if live else _jax_reference(arm, batches, kseed)
+    if live:   # JAX's AUTO / cached engine under the same plan
         jchaos, jplan = _ArmRunner(arm, jax=True), jflt.FaultPlan(P, **cfg)
     for i, keys in enumerate(batches):
         ok_o = oracle.insert(keys)
@@ -377,6 +392,22 @@ def test_chaos_conformance(arm, name, kseed, cfg):
             f_c, v_c = chaos.find(keys)
             same(f_o, f_c, (arm, name, "final-found"))
             same(v_o, v_c, (arm, name, "final-vals"))
+    elif arm == "cached":
+        # the first batch once more: served from the cache under the plan
+        f_o, v_o = oracle.find(batches[0])
+        with flt.fault_scope(plan):
+            f_c, v_c = chaos.find(batches[0])
+        with jflt.fault_scope(jplan):
+            jf, jv = jchaos.find(batches[0])
+        for a, b in ((f_o, f_c), (v_o, v_c), (f_c, jf), (v_c, jv)):
+            same(a, b, (arm, name, "cached re-read"))
+        same(oracle.ht.win.data, chaos.ht.win.data, (arm, name))
+        same(chaos.ht.win.data, jchaos.ht.win.data, (arm, name, "jax"))
+        _same_engines(chaos.auto, jchaos.auto, plan, jplan, (arm, name))
+        stats = chaos.auto.cache.stats()
+        assert stats == jchaos.auto.cache.stats(), (name, stats)
+        assert stats == oracle.auto.cache.stats(), (name, stats)
+        assert stats["hits"] > 0, stats
     else:
         same(oracle.ht.win.data, chaos.ht.win.data, (arm, name))
         same(chaos.ht.win.data, ref[1], (arm, name, "jax window"))
@@ -528,6 +559,218 @@ def test_chaos_conformance_pipelined():
         same(a, b, "jax")
     same(ht_c.win.data, jht_c.win.data, "jax window")
     assert plan.stats() == jplan.stats()
+
+
+# ---------------------------------------------------------------------------
+# Chaos conformance for transactions: every seeded schedule x every txn
+# arm replays bit for bit as the fault-free run (aborts simply retry until
+# exactly-once delivery wins through), and as the JAX engine under the
+# same plan
+# ---------------------------------------------------------------------------
+def _txn_stream(plan, arm, win0, jax=False, batches=3, valid=None):
+    """Contending txn batches (hot FAA word, per-rank CAS, a chain guard
+    that may abort, cross-rank gets) on a fresh engine of either package:
+    (final window, per batch (replies, committed, chain_ok), plan stats
+    after each batch)."""
+    if jax:
+        tm, win = jtxn, jwin.Window(data=jnp.asarray(win0))
+        eng, scope = jtxn.TxnEngine(P, am_engine=jam.AMEngine(P)), \
+            jflt.fault_scope
+    else:
+        tm, win = txn_mod, win_mod.Window(data=torch.as_tensor(win0))
+        eng, scope = txn_mod.TxnEngine(P, am_engine=am_mod.AMEngine(P)), \
+            flt.fault_scope
+    outs, stats = [], []
+    with scope(plan):
+        for i in range(batches):
+            t = tm.Txn(P)
+            t.fao(i % P, 0, np.arange(P) + i, valid=valid)     # hot word
+            t.cas(np.arange(P), 2 + i, 0, 7, valid=valid)      # per rank
+            t.cas((np.arange(P) + 2) % P, 8, -1, 5, chain=True,
+                  valid=valid)                                 # may abort
+            t.get((np.arange(P) + 1) % P, 5, valid=valid)
+            r = eng.run(win, t, arm=arm)
+            win = r.wins["ht"]
+            outs.append((r.replies.copy(), r.committed.copy(),
+                         r.chain_ok.copy()))
+            stats.append(None if plan is None else plan.stats())
+    return npy(win.data), outs, stats
+
+
+def _same_txn_runs(a, b, what):
+    same(a[0], b[0], (what, "window"))
+    for i, (x, y) in enumerate(zip(a[1], b[1])):
+        for u, v in zip(x, y):
+            same(u, v, (what, i))
+
+
+@pytest.mark.parametrize("arm", ["rdma", "rdma_fused", "am", "am_pt"])
+@pytest.mark.parametrize("name,kseed,cfg", _schedules())
+def test_chaos_txn_conformance(arm, name, kseed, cfg):
+    """Three batches under each schedule == fault-free; the first batch
+    == the JAX engine's under the same plan (replies, flags, window and
+    plan stats)."""
+    rng = np.random.default_rng(kseed)
+    win0 = rng.integers(-50, 50, size=(P, 16)).astype(np.int32)
+    base = _txn_stream(None, arm, win0)
+    plan = flt.FaultPlan(P, **cfg)
+    faulty = _txn_stream(plan, arm, win0)
+    _same_txn_runs(base, faulty, (arm, name))
+    s = plan.stats()
+    assert s["dropped"] + s["dup_filtered"] > 0 or plan.dead_owners, \
+        (name, s)
+    jplan = jflt.FaultPlan(P, **cfg)
+    jfaulty = _txn_stream(jplan, arm, win0, jax=True, batches=1)
+    one = _txn_stream(flt.FaultPlan(P, **cfg), arm, win0, batches=1)
+    _same_txn_runs(one, jfaulty, (arm, name, "jax"))
+    assert faulty[2][0] == one[2][0] == jplan.stats(), (arm, name)
+
+
+def test_chaos_txn_dead_owner_times_out():
+    """A permanently dead owner starves every AM lock/read row aimed at
+    it: after `deadline` undelivered rounds the engine raises the typed
+    RemoteTimeout, in both packages, after the same plan history."""
+    rng = np.random.default_rng(71)
+    data = rng.integers(-50, 50, size=(P, 16)).astype(np.int32)
+    for jax in (False, True):
+        f = jflt if jax else flt
+        tm = jtxn if jax else txn_mod
+        win = (jwin.Window(data=jnp.asarray(data)) if jax
+               else win_mod.Window(data=torch.as_tensor(data)))
+        eng = tm.TxnEngine(P, am_engine=(jam if jax else am_mod).AMEngine(P))
+        plan = f.FaultPlan(P, seed=72, dead_owners={2: None},
+                           retry=f.RetryPolicy(deadline=6))
+        t = tm.Txn(P)
+        t.put(2, 0, 5)                   # every rank writes the dead owner
+        with f.fault_scope(plan):
+            with pytest.raises(f.RemoteTimeout):
+                eng.run(win, t, arm="am")
+        if jax:
+            assert plan.stats() == stats
+        stats = plan.stats()
+
+
+def test_chaos_txn_temporary_dead_owner_recovers():
+    """An owner dead for 3 rounds, then revived: aborted rounds retry and
+    the stream converges to the fault-free result, as the JAX engine's
+    does under the same plan."""
+    rng = np.random.default_rng(73)
+    win0 = rng.integers(-50, 50, size=(P, 16)).astype(np.int32)
+    base = _txn_stream(None, "am", win0)
+    cfg = dict(seed=74, dead_owners={1: 3})
+    faulty = _txn_stream(flt.FaultPlan(P, **cfg), "am", win0)
+    _same_txn_runs(base, faulty, "dead 3")
+    jplan = jflt.FaultPlan(P, **cfg)
+    jfaulty = _txn_stream(jplan, "am", win0, jax=True, batches=1)
+    one = _txn_stream(flt.FaultPlan(P, **cfg), "am", win0, batches=1)
+    _same_txn_runs(one, jfaulty, "dead 3 jax")
+    assert one[2][0] == jplan.stats()
+
+
+def _pop_then_insert(plan, pv, jax=False, arm="rdma_fused", valid=None):
+    if jax:
+        q = jq.make_queue(P, host=1, capacity=32, val_words=VW)
+        ht = jht.make_hashtable(P, nslots=64, val_words=VW)
+        q, pushed = jq.push_rdma(q, jnp.asarray(pv))
+        eng = jtxn.TxnEngine(P, am_engine=jam.AMEngine(P))
+        qm, scope = jq, jflt.fault_scope
+    else:
+        q = q_mod.make_queue(P, host=1, capacity=32, val_words=VW,
+                             device="cpu")
+        ht = ht_mod.make_hashtable(P, nslots=64, val_words=VW, device="cpu")
+        q, pushed = q_mod.push_rdma(q, pv)
+        eng = txn_mod.TxnEngine(P, am_engine=am_mod.AMEngine(P))
+        qm, scope = q_mod, flt.fault_scope
+    assert npy(pushed).all()
+    with scope(plan):
+        q2, ht2, popped, vals = qm.pop_then_insert(q, ht, eng, arm=arm,
+                                                   valid=valid)
+    return npy(q2.win.data), npy(ht2.win.data), popped, vals
+
+
+def test_chaos_pop_then_insert_conformant():
+    """The cross-space composite under wire chaos: popped items, the final
+    queue and the destination table equal the fault-free run (every rank,
+    fused arm) and, on the am arm with two ranks contending, the JAX
+    composite's under the same plan."""
+    rng = np.random.default_rng(75)
+    pv = rng.choice(3000, size=(P, 2, VW), replace=False).astype(np.int32)
+    cfg = dict(seed=76, drop_rate=0.25, dup_rate=0.25)
+    base = _pop_then_insert(None, pv)
+    plan = flt.FaultPlan(P, **cfg)
+    faulty = _pop_then_insert(plan, pv)
+    for a, b in zip(base, faulty):
+        same(a, b)
+    assert plan.stats()["dropped"] > 0
+    two = np.arange(P) % 2 == 0
+    plan, jplan = flt.FaultPlan(P, **cfg), jflt.FaultPlan(P, **cfg)
+    got = _pop_then_insert(plan, pv, arm="am", valid=two)
+    want = _pop_then_insert(jplan, pv, jax=True, arm="am", valid=two)
+    for a, b in zip(got, want):
+        same(a, b, "jax")
+    assert got[2].sum() == 2 and plan.stats() == jplan.stats()
+
+
+# ---------------------------------------------------------------------------
+# Bounded staleness: cached reads within `max_stale` bumps, in both
+# packages
+# ---------------------------------------------------------------------------
+class TestBoundedStaleness:
+    def _filled(self, seed, jax=False):
+        keys = _batches(seed, 1, n=4)[0]
+        if jax:
+            c = jcache.BucketCache(P, NSLOTS, VW, capacity=256, max_probes=8)
+            ht = jht.make_hashtable(P, NSLOTS, VW)
+            k = jnp.asarray(keys)
+            ht, _, _ = jht.insert_rdma(ht, k, jnp.asarray(_val_of(keys)))
+            jht.find_rdma(ht, k, cache=c)                   # fill
+        else:
+            c = cache_mod.BucketCache(P, NSLOTS, VW, capacity=256,
+                                      max_probes=8)
+            ht = ht_mod.make_hashtable(P, NSLOTS, VW, device="cpu")
+            ht, _, _ = ht_mod.insert_rdma(ht, keys, _val_of(keys))
+            ht_mod.find_rdma(ht, keys, cache=c)             # fill
+        return c, keys
+
+    def test_max_stale_serves_lagging_entries(self):
+        for jax in (False, True):
+            c, keys = self._filled(12, jax)
+            assert c.lookup(keys).all_hit
+            # one invalidation round: overlapping probe windows may bump a
+            # bucket several times, so tolerate the largest lag
+            c.on_insert_keys(keys, None, 8)
+            assert c.lookup(keys, max_stale=16).all_hit     # tolerated
+            assert not c.lookup(keys, max_stale=0).hit.any()  # evicted
+            if jax:
+                assert c.stats() == stats
+            stats = c.stats()
+
+    def test_stale_past_tolerance_evicted(self):
+        for jax in (False, True):
+            c, keys = self._filled(13, jax)
+            for _ in range(3):
+                c.on_insert_keys(keys, None, 8)             # lag >= 3
+            assert not c.lookup(keys, max_stale=1).hit.any()
+            assert c.counters["stale_evicted"] > 0
+            if jax:
+                assert c.stats() == stats
+            stats = c.stats()
+
+    def test_ht_find_threads_max_stale(self):
+        keys = _batches(14, 1, n=4)[0]
+        outs = []
+        for jax in (False, True):
+            r = _ArmRunner("cached", jax=jax)
+            r.insert(keys)
+            f0, v0 = r.find(keys)                           # fills
+            r.auto.cache.on_insert_keys(keys, None, 8)      # age entries
+            r.ht, f1, v1 = r.auto.ht_find(r.ht, r.arr(keys), max_stale=1)
+            same(f0, f1)
+            same(v0, v1)
+            outs.append((npy(f1), npy(v1), r.auto.cache.stats()))
+        same(outs[0][0], outs[1][0])
+        same(outs[0][1], outs[1][1])
+        assert outs[0][2] == outs[1][2]
 
 
 # ---------------------------------------------------------------------------

@@ -198,8 +198,16 @@ def test_front_doors_and_valid_masks():
             lambda r: r[1:] + (r[0].win.data,))(tht.insert_rdma(
                 htt, tt(ks[0]), tt(vals[0]), fused=arm == "rdma_fused"))):
         same(x, y)
-    with pytest.raises(NotImplementedError):
-        tht.find_rdma(htt, tt(ks[1]), cache=object())
+    # the cache seam runs: a cached find (filling, then from the cache)
+    # equals the uncached one
+    from repro_torch.core import cache
+    c = cache.BucketCache(P, NSLOTS, vw, capacity=64)
+    want = tht.find_rdma(htt, tt(ks[1]), valid=tt(valid))[1:]
+    for _ in range(2):
+        for x, y in zip(tht.find_rdma(htt, tt(ks[1]), valid=tt(valid),
+                                      cache=c)[1:], want):
+            same(x, y)
+    assert c.counters["hits"] > 0
 
 
 def test_to_numpy_round_trip_and_devices():
