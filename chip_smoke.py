@@ -25,7 +25,17 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    mha_tol in float32 and bfloat16 with 1, 4 and 16 query heads per kv
    head, head dims 16, 64, 128 and 256, S == Skv and end-aligned S < Skv,
    windows 0 and > 0, non-causal, and S and Skv that are not multiples of
-   its tiles. Then the owner-lane cases of kernels/lane_cases.py, the
+   its tiles. The train path's kernels on kernels/lane_cases.py's
+   FLASH_BWD_CASES (1, 3 and 16 query heads per kv head; d 64, 128, 256;
+   S == Skv and end-aligned S < Skv; windows 0 and shorter than S;
+   non-causal; S and Skv off the 32-row tiles; rows without a key), in
+   float32 and bfloat16: flash_attention with its lse (the output within
+   mha_tol, the lse within LSE_TOL) and flash_attention_bwd (dq, dk, dv
+   within kernels/ref.py's flash_bwd_tol, a limit that must also reject
+   the plain version with the causal frontier, or the window, one key
+   short); rg_lru_scan_bwd bit for bit on RG_LRU_BWD_CASES (S = 1, S off
+   its unroll, D off a warp, B > 1, h0 given and None).
+   Then the owner-lane cases of kernels/lane_cases.py, the
    inputs tests/test_torch_cuda.py holds amo_apply and fused_apply to: every
    op on one word (16,384 FAAs, mixed codes with offsets outside [0, L) in
    the chain, a CAS chain), live counts below, at and past the kernels'
@@ -258,10 +268,43 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    capacity (one value word, the table's) into it, each held to a host
    oracle. Printed per arm: µs per txn, abort rate, rounds, saved reads,
    host syncs per round; the composites' times.
+16. Training smollm-135m at full width and depth (30 layers, d_model 576,
+   9 heads of 64, 3 kv heads, d_ff 1,536, vocab 49,152, bf16, 135 M
+   seeded random weights) through repro_torch.launch.steps
+   .make_train_step (AdamW, remat per layer) fed by data.SyntheticLM at
+   the train_4k shape (seq 4,096, accum 2) with the global batch cut from
+   256 to 8, 4 a microbatch (printed): one warm-up step under a Capture
+   keeping the first call of flash_attention (with its lse) and of
+   flash_attention_bwd, held against the plain versions (B10's limit
+   must also reject the causal frontier one key short there) and timed
+   as in phase 3; then TRAIN_STEPS timed steps and one traced. Every step
+   zeroes the counts before and reads them after: flash_attention must
+   launch twice (forward and remat recompute) and flash_attention_bwd once
+   for each of min(8, 4096 // 1024) = 4 query chunks of each of the 30
+   layers in each microbatch (expected_train_launches), nothing else;
+   loss and grad norm finite. The state after the last step is written
+   through runtime.AsyncCheckpointer and restored into a fresh model and
+   optimizer state, equal bit for bit. Printed: the step's median ms,
+   tokens/s, peak memory, the traced step's device busy time, idle share
+   and time by kernel, the losses, and the bound (the model's flops over
+   the bf16 peak).
+17. The same for recurrentgemma-9b at full width with its depth cut from
+   38 to the first three layers of its pattern (RG-LRU + MLP twice, local
+   attention + MLP; 1.67 B weights; printed with the reason), seq 4,096
+   (the 2048 window binds), accum 2 of 1 sequence: also rg_lru_scan twice
+   and rg_lru_scan_bwd once a RG-LRU layer a microbatch, their first
+   calls held bit for bit, and flash_attention_bwd at d = 256.
+18. CPU against GPU for the train step: reduced smollm-135m and
+   recurrentgemma-9b in float32, the same seeded weights built once and
+   moved, TF32 off, two steps of make_train_step on the same batches:
+   loss and grad norm within 1e-5, the weights within 1e-4 (relative, and
+   of max(1, each leaf's largest magnitude) absolute); the train kernels
+   must launch on the card.
 
 Before the last line it prints the card's name and power limit, the
 median time per batch of each data-structure arm and per decode step, the
-prefills' times, one JSON line with the report, and one JSON line with
+prefills' and train steps' times, one JSON line with the report, and one
+JSON line with
 every kernel's launches, error, times and bound. The last line is
 {"ok": true, "device": {...}}. It needs one card and exits non-zero where
 torch sees none.
@@ -313,6 +356,32 @@ MHA_SCORE_BYTES = 2 ** 31
 SPLIT_LEN = 2304        # > 2 x 1024: chunked_flash's causal-skip split
 # phase 9: the port's decode against its own forward (f32, 38 layers)
 DECODE_VS_PREFILL_TOL = dict(rtol=1e-4, atol=1e-4)
+# phases 16-18: the train path. Phase 16 trains smollm-135m at full width
+# and depth at its train_4k shape (configs/base.std_shapes: seq 4,096,
+# accum 2) with the global batch cut from 256 to 8, 4 a microbatch (at 256
+# the f32 logits alone are 103 GB a microbatch); phase 17
+# recurrentgemma-9b at full width with its depth cut from 38 to the first
+# three layers of its pattern (at 38 its 8.96 B weights, their f32
+# gradient sums and AdamW's two f32 moments need about 125 GB), seq 4,096
+# (the 2048 window binds), accum 2 of 1; phase 18 both reduced models in
+# f32, CPU against GPU
+SMOLLM = "smollm-135m"
+SMOLLM_TRAIN = dict(shape="train_4k", seq_len=4096, accum=2, batch=8,
+                    shape_batch=256)
+RGEMMA_TRAIN = dict(layers=3, seq_len=4096, accum=2, batch=2,
+                    shape_batch=256)
+TRAIN_STEPS = 4          # timed, after one warm-up step (captured)
+TRAIN_LR = dict(lr=3e-4, warmup=2, total_steps=100)
+TRAIN_CHECK = dict(batch=4, seq_len=64, accum=2, steps=2,
+                   lr=dict(lr=1e-3, warmup=1, total_steps=4))
+# phase 18: loss and grad norm CPU against GPU (f32 sums in other orders);
+# the weights within 1e-4 relative and 1e-4 of max(1, the leaf's largest
+# magnitude) absolute. AdamW's step lr m / (sqrt(v) + eps) moves a weight
+# by about lr whatever its gradient's size, so where a gradient is near
+# eps = 1e-8 the two devices' f32 sums can move it by a fraction of lr
+# (a zero-initialized norm leaf has a scale of about lr after two steps);
+# a gradient of the other sign would move it by 2 lr = 2e-3
+TRAIN_CHECK_TOL = dict(loss_rtol=1e-5, weight_rtol=1e-4)
 # written before each timed call: > the 50 MB L2, and about 0.3 ms of
 # work, so the host has launched the timed call before the card reaches it
 L2_FLUSH_BYTES = 2 ** 30
@@ -592,6 +661,13 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:94"),
     "rg_lru_scan": ("src/repro_torch/kernels/csrc/rg_lru.cu",
                     "src/repro/kernels/rg_lru.py:53"),
+    # no TPU kernel: the JAX model's custom backward of flash_train (jnp)
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/models/lm.py:138"),
+    # no TPU kernel: JAX differentiates the oracle's scan
+    "rg_lru_scan_bwd": ("src/repro_torch/kernels/csrc/rg_lru.cu",
+                        "src/repro/kernels/ref.py:428"),
     # no TPU counterpart: the JAX package's lane is jnp only (no
     # pallas_call); `replaces` names it
     "txn_group_apply": ("src/repro_torch/kernels/csrc/txn_lane.cu",
@@ -604,9 +680,12 @@ DS_KERNELS = ("amo_apply", "fused_apply", "hash_find", "hash_insert")
 OWNER_KERNELS = DS_KERNELS + ("txn_group_apply",)
 MODEL_KERNELS = ("flash_decode", "moe_dispatch")
 RGEMMA_DECODE_KERNELS = ("rg_lru_scan",)
+# the train path's kernels (phases 16 and 17)
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
+RGEMMA_TRAIN_KERNELS = TRAIN_KERNELS + ("rg_lru_scan", "rg_lru_scan_bwd")
 # the model kernels: their plain versions are timed as the kernels are
 # (cold, 10 calls); the data structures' serial walks once
-FLOAT_KERNELS = MODEL_KERNELS + ("flash_attention", "rg_lru_scan")
+FLOAT_KERNELS = MODEL_KERNELS + RGEMMA_TRAIN_KERNELS
 # why a kernel's row has no library time
 NO_LIBRARY = {
     "amo_apply": "no single PyTorch call",
@@ -615,12 +694,15 @@ NO_LIBRARY = {
     "hash_insert": "no single PyTorch call",
     "moe_dispatch": "bincount gives counts, not positions",
     "rg_lru_scan": "PyTorch has no eager linear-recurrence scan",
+    "rg_lru_scan_bwd": "PyTorch has no eager reverse linear-recurrence "
+                       "scan",
     "txn_group_apply": "no TPU counterpart; no single PyTorch call",
 }
 
 
 def wrappers():
     from repro_torch.kernels import (amo_apply as kamo, flash_attention as kfa,
+                                     flash_attention_bwd as kfab,
                                      flash_decode as kfd, hash_probe as khp,
                                      moe_dispatch as kmd, rg_lru as krg,
                                      txn_lane as ktx)
@@ -630,7 +712,9 @@ def wrappers():
             "flash_decode": kfd.flash_decode,
             "moe_dispatch": kmd.moe_dispatch,
             "flash_attention": kfa.flash_attention,
-            "rg_lru_scan": krg.rg_lru_scan}
+            "flash_attention_bwd": kfab.flash_attention_bwd,
+            "rg_lru_scan": krg.rg_lru_scan,
+            "rg_lru_scan_bwd": krg.rg_lru_scan_bwd}
 
 
 def plain_versions():
@@ -639,29 +723,35 @@ def plain_versions():
         "flash_decode": kref.decode_attention,
         "moe_dispatch": kref.moe_dispatch,
         "flash_attention": plain_mha,
-        "rg_lru_scan": kref.rg_lru_scan}
+        "flash_attention_bwd": kref.flash_bwd,
+        "rg_lru_scan": kref.rg_lru_scan,
+        "rg_lru_scan_bwd": kref.rg_lru_scan_bwd}
 
 
-def plain_mha(q, k, v, **kw):
-    """kernels/ref.py mha, over slices of query heads whose f32 scores
-    stay within MHA_SCORE_BYTES, concatenated (heads are independent; a
-    slice holds whole groups of query heads sharing a kv head, or a
-    divisor of one group)."""
+def plain_mha(q, k, v, return_lse=False, **kw):
+    """kernels/ref.py mha (flash_fwd_lse with return_lse), over slices of
+    query heads whose f32 scores stay within MHA_SCORE_BYTES, concatenated
+    (heads are independent; a slice holds whole groups of query heads
+    sharing a kv head, or a divisor of one group)."""
     import torch
     from repro_torch.kernels import ref as kref
+    fn = kref.flash_fwd_lse if return_lse else kref.mha
     B, H, S, _ = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     g = H // Hkv
     per = max(1, MHA_SCORE_BYTES // (4 * B * S * max(Skv, 1)))
     if per >= H:
-        return kref.mha(q, k, v, **kw)
+        return fn(q, k, v, **kw)
     per = (g * (per // g) if per >= g else
            max(d for d in range(1, per + 1) if g % d == 0))
     outs = []
     for h0 in range(0, H, per):
         kv0, kv1 = h0 // g, (h0 + per - 1) // g + 1
-        outs.append(kref.mha(q[:, h0:h0 + per], k[:, kv0:kv1],
-                             v[:, kv0:kv1], **kw))
+        outs.append(fn(q[:, h0:h0 + per], k[:, kv0:kv1], v[:, kv0:kv1],
+                       **kw))
+    if return_lse:
+        return torch.cat([o for o, _ in outs], 1), torch.cat(
+            [lse for _, lse in outs], 1)
     return torch.cat(outs, 1)
 
 
@@ -716,7 +806,8 @@ class Capture:
 
         def hook(name, fn):
             fmt = (torch.preserve_format
-                   if name in ("flash_decode", "flash_attention")
+                   if name in ("flash_decode", "flash_attention",
+                               "flash_attention_bwd")
                    else torch.contiguous_format)
 
             def call(*args, **kw):
@@ -800,13 +891,48 @@ def decode_err(got, want, what: str) -> float:
     return float((out - out_r).abs().max()) if out.numel() else 0.0
 
 
+# flash_attention's log-sum-exp against the plain version's: f32 sums of
+# the same scores in another order (+inf on rows without a key)
+LSE_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
 def kernel_err(name: str, got, want, what: str):
-    """Bit for bit for the integer kernels and rg_lru_scan; DECODE_TOL for
-    flash_decode, kernels/ref.py's mha_tol for flash_attention."""
+    """Bit for bit for the integer kernels, rg_lru_scan and
+    rg_lru_scan_bwd; DECODE_TOL for flash_decode, kernels/ref.py's mha_tol
+    for flash_attention (LSE_TOL for its lse) and flash_bwd_tol for each
+    of flash_attention_bwd's outputs."""
     import torch
     from repro_torch.kernels import ref as kref
     if name == "flash_decode":
         return decode_err(got, want, what)
+    if name == "flash_attention" and isinstance(got, tuple):
+        try:
+            torch.testing.assert_close(got[1], want[1], **LSE_TOL)
+        except AssertionError as e:
+            raise AssertionError(f"flash_attention lse at {what}: kernel != "
+                                 f"plain version: {e}") from None
+        return kernel_err(name, got[0], want[0], what)
+    if name in ("flash_attention_bwd", "rg_lru_scan_bwd"):
+        errs = []
+        for part, g, w in zip(("d0", "d1", "d2"), got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"{name} at {what}: {g.dtype} "
+                                     f"{tuple(g.shape)} against {w.dtype} "
+                                     f"{tuple(w.shape)}")
+            errs.append(float((g.float() - w.float()).abs().max())
+                        if g.numel() else 0.0)
+            if name == "rg_lru_scan_bwd" and not torch.equal(g, w):
+                raise AssertionError(f"rg_lru_scan_bwd at {what}: output "
+                                     f"{part} != plain version (max abs err "
+                                     f"{errs[-1]})")
+            if name == "flash_attention_bwd":
+                try:
+                    torch.testing.assert_close(g, w, **kref.flash_bwd_tol(w))
+                except AssertionError as e:
+                    raise AssertionError(f"flash_attention_bwd at {what}: "
+                                         f"output {part} != plain version: "
+                                         f"{e}") from None
+        return max(errs)
     if name in ("flash_attention", "rg_lru_scan"):
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"{name} at {what}: {got.dtype} "
@@ -850,8 +976,8 @@ def find_probes(table, starts, keys, mask, nslots, rec_w, max_probes=8):
 
 
 def live_pairs(args, kw) -> int:
-    """flash_attention: the (query row, key) pairs of one head that the
-    end-aligned causal / window mask keeps, times B x H."""
+    """flash_attention and its backward: the (query row, key) pairs of one
+    head that the end-aligned causal / window mask keeps, times B x H."""
     q, k = args[0], args[1]
     B, H, S, _ = q.shape
     Skv = k.shape[2]
@@ -866,13 +992,17 @@ def live_pairs(args, kw) -> int:
 def bound_flops(name: str, args, kw) -> tuple:
     """(operations the function must do on these inputs, the card's peak
     rate for their type): 4 d per live (q, k) pair and head for
-    flash_attention (q . k and p v), 2 per element for rg_lru_scan; the
+    flash_attention (q . k and p v), 10 d for its backward (q . k again,
+    dO . v, and the three products of dv, dk and dq: 2.5 times the
+    forward), 2 per element for rg_lru_scan and 3 for its backward; the
     other kernels do next to no arithmetic (0)."""
-    if name == "flash_attention":
-        return (4 * args[0].shape[-1] * live_pairs(args, kw),
+    if name in ("flash_attention", "flash_attention_bwd"):
+        per = 4 if name == "flash_attention" else 10
+        return (per * args[0].shape[-1] * live_pairs(args, kw),
                 PEAK_FLOPS[str(args[0].dtype)])
-    if name == "rg_lru_scan":
-        return 2 * args[0].numel(), PEAK_FLOPS["torch.float32"]
+    if name in ("rg_lru_scan", "rg_lru_scan_bwd"):
+        per = 2 if name == "rg_lru_scan" else 3
+        return per * args[0].numel(), PEAK_FLOPS["torch.float32"]
     return 0, PEAK_FLOPS["torch.float32"]
 
 
@@ -889,8 +1019,9 @@ def bound_bytes(name: str, args, kw, out) -> float:
     """Bytes the function must move on these inputs, each once: every
     output in full. flash_decode reads q, the lengths, and K and V of each
     row's valid prefix only; moe_dispatch reads the ids; flash_attention
-    q, K and V (already cut to the chunk's live keys by chunked_flash) and
-    rg_lru_scan a, b and h0, in full. Of the owner-lane
+    q, K and V (already cut to the chunk's live keys by chunked_flash),
+    its backward q, K, V, o, lse and dO, rg_lru_scan a, b and h0 and its
+    backward a, h, h0 and dh, in full. Of the owner-lane
     and handler kernels' inputs: the mask in full; of the request inputs
     (descriptors, starts, keys, vals) only the live rows, since a masked
     row is decided by its mask byte; the shard in full where the function
@@ -906,8 +1037,9 @@ def bound_bytes(name: str, args, kw, out) -> float:
         return kv + nbytes([q, length, *out])
     if name == "moe_dispatch":
         return nbytes([args[0], *out])
-    if name in ("flash_attention", "rg_lru_scan"):
-        return nbytes([a for a in args if a is not None] + [out])
+    if name in FLOAT_KERNELS:
+        outs = list(out) if isinstance(out, tuple) else [out]
+        return nbytes([a for a in args if a is not None] + outs)
     mask = args[-1]
     n_live = int(mask.sum())
 
@@ -968,11 +1100,13 @@ def library_call(name: str, args, kw):
     none: NO_LIBRARY says why). flash_decode: scaled_dot_product_attention
     of the one query over the masked cache, normalized output instead of
     the partials; flash_attention: scaled_dot_product_attention with the
-    end-aligned causal / window mask."""
+    end-aligned causal / window mask; flash_attention_bwd: the backward of
+    that call (torch.autograd.grad of its output, the forward run once
+    before timing)."""
     import torch
     import torch.nn.functional as F
-    if name == "flash_attention":
-        q, k, v = args
+    if name in ("flash_attention", "flash_attention_bwd"):
+        q, k, v = args[:3]
         S, Skv = q.shape[2], k.shape[2]
         qpos = torch.arange(S, device=q.device)[:, None] + (Skv - S)
         kpos = torch.arange(Skv, device=q.device)[None, :]
@@ -982,8 +1116,15 @@ def library_call(name: str, args, kw):
         if kw.get("window", 0) > 0:
             mask &= kpos > qpos - kw["window"]
         gqa = q.shape[1] != k.shape[1]      # else any backend may take it
-        return lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=gqa)
+        if name == "flash_attention":
+            return lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=gqa)
+        qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(*qkv, attn_mask=mask,
+                                                 enable_gqa=gqa)
+        return lambda: torch.autograd.grad(out, qkv, args[5],
+                                           retain_graph=True)
     if name != "flash_decode":
         return None
     q, k, v, length = args
@@ -1100,9 +1241,41 @@ def edge_cases(device) -> None:
             args = tuple(x.to(dtype).transpose(1, 2) for x in (q, k, v))
             cases.append(("flash_attention", kops.flash_attention, kref.mha,
                           args, dict(causal=causal, window=window)))
+    # the train path's kernels on kernels/lane_cases.py's cases: B5 with
+    # its lse and B10 in float32 and bfloat16, B11 bit for bit
+    from repro_torch.kernels import lane_cases as lc
+    edge_checks = []     # B10 cases whose limit must reject a key off
+    for i, case in enumerate(lc.FLASH_BWD_CASES):
+        kw = dict(causal=case[6], window=case[7])
+        q, k, v, do = (t(x, torch.float32) for x in lc.flash_bwd_inputs(case))
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = tuple(x.to(dtype).transpose(1, 2) for x in (q, k, v))
+            cases.append(("flash_attention", kops.flash_attention, plain_mha,
+                          qkv, dict(kw, return_lse=True)))
+            o, lse = kref.flash_fwd_lse(*qkv, **kw)
+            args = qkv + (o, lse, do.to(dtype).transpose(1, 2))
+            cases.append(("flash_attention_bwd", kops.flash_attention_bwd,
+                          kref.flash_bwd, args, kw))
+            if i in (1, 3) and dtype == torch.bfloat16:
+                edge_checks.append((args, kw))
+    for case in lc.RG_LRU_BWD_CASES:
+        a, b, h0, dh = (None if x is None else t(x, torch.float32)
+                        for x in lc.rg_lru_bwd_inputs(case))
+        cases.append(("rg_lru_scan_bwd", kops.rg_lru_scan_bwd,
+                      kref.rg_lru_scan_bwd,
+                      (a, kref.rg_lru_scan(a, b, h0), h0, dh), {}))
     for name, kernel, plain, args, kw in cases:
         kernel_err(name, kernel(*args, **kw), plain(*args, **kw),
                    "edge cases")
+    # B10's limit must reject a backward whose mask edge is one key off
+    # (the frontier of a causal case; the window of a windowed one)
+    for args, kw in edge_checks:
+        r = bwd_edge_fault_rejected(args, kw, "1")
+        log(f"phase 1: the flash_attention_bwd limit rejects the "
+            f"{r['edge']} one key short on {r['output']} of "
+            f"{tuple(args[0].shape)} {args[0].dtype} (max abs err "
+            f"{r['max_abs_err']:.6g}, rtol {r['rtol']:.6g}, atol "
+            f"{r['atol']:.6g})")
     # the owner lanes' cases of the card tests: the plain version on the
     # CPU, where its op-by-op loop is quicker
     from repro_torch.kernels import lane_cases
@@ -1131,19 +1304,22 @@ HEADLINE = {"amo_apply": "ht rdma_unfused insert last",
             "flash_decode": "serve last step",
             "moe_dispatch": "serve last step",
             "flash_attention": "prefill",
+            "flash_attention_bwd": "smollm train",
             "rg_lru_scan": "prefill",
+            "rg_lru_scan_bwd": "rgemma train",
             "txn_group_apply": "txn rdma_fused"}
 
 
 def live_count(name: str, args, kw) -> int:
     """What a call works on: live ops (data structures), valid cache rows
     (flash_decode), tokens (moe_dispatch), live (q, k) pairs x heads
-    (flash_attention), (B, S, D) elements (rg_lru_scan)."""
+    (flash_attention and its backward), (B, S, D) elements (rg_lru_scan
+    and its backward)."""
     if name in OWNER_KERNELS:
         return int(args[-1].sum())
     if name == "flash_decode":
         return int(args[3].sum())
-    if name == "flash_attention":
+    if name in ("flash_attention", "flash_attention_bwd"):
         return live_pairs(args, kw)
     return int(args[0].numel())
 
@@ -1155,7 +1331,8 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
     caches and weights cold); warm_ms is the mean of calls back to back;
     read_ms is one torch reduction over as many bytes as the bound counts,
     timed as ms is (the floor this timing shows for moving those bytes).
-    Returns the rows of each kernel, one per captured call."""
+    A flash_attention call made without its lse is timed with it too
+    (lse_ms). Returns the rows of each kernel, one per captured call."""
     import torch
     wrap, plain_fns = wrappers(), plain_versions()
     rows = {name: [] for name in names}
@@ -1184,6 +1361,10 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
         reps = 20 if serial_chain(name, args) is not None else 100
         ms = cuda_ms_cold(lambda: kernel(*args, **kw), reps, flush)
         warm_ms = cuda_ms(lambda: kernel(*args, **kw), reps)
+        lse_ms = None
+        if name == "flash_attention" and not kw.get("return_lse"):
+            lse_ms = cuda_ms_cold(
+                lambda: kernel(*args, return_lse=True, **kw), reps, flush)
         lib = library_call(name, args, kw)
         library_ms = None
         if lib is not None:
@@ -1202,7 +1383,7 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
         out_rms = (float(out_p.float().square().mean().sqrt())
                    if torch.is_tensor(out_p) and out_p.is_floating_point()
                    and out_p.numel() else None)
-        rows[name].append(dict(at=tag, ms=ms, warm_ms=warm_ms,
+        rows[name].append(dict(at=tag, ms=ms, warm_ms=warm_ms, lse_ms=lse_ms,
                                plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by, read_ms=read_ms,
                                library_ms=library_ms,
@@ -1213,7 +1394,8 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
                                component_chain=component_chain(name, args,
                                                                kw)))
         lib_txt = ("" if library_ms is None
-                   else f", library {library_ms:.4f} ms")
+                   else f", library {library_ms:.4f} ms") + (
+            "" if lse_ms is None else f", with lse {lse_ms:.4f} ms")
         log(f"phase {phase}: {name} == plain at {tag} on {shapes} {kw} "
             f"({live} live): kernel {ms:.4f} ms (back to back "
             f"{warm_ms:.4f}), plain {plain_ms:.1f} ms{lib_txt}, bound "
@@ -1254,7 +1436,8 @@ def kernel_row(name: str, calls: list, launches: dict) -> dict:
         library_note=NO_LIBRARY.get(name), at=head["at"],
         serial_chain=head["serial_chain"], word_chain=head["word_chain"],
         component_chain=head["component_chain"],
-        calls=[{k: r[k] for k in ("at", "live", "ms", "warm_ms", "plain_ms",
+        calls=[{k: r[k] for k in ("at", "live", "ms", "warm_ms", "lse_ms",
+                                  "plain_ms",
                                   "library_ms", "bound_ms", "bound_by",
                                   "read_ms",
                                   "max_abs_err", "out_rms",
@@ -3568,6 +3751,38 @@ def edge_fault_rejected(args, kw, phase: str) -> dict:
                          f"accepts the {edge} one key short")
 
 
+def bwd_edge_fault_rejected(args, kw, phase: str) -> dict:
+    """The limit flash_attention_bwd is held to (kernels/ref.py
+    flash_bwd_tol) must reject a backward whose mask edge is one key off:
+    the plain version with the window one key short or, without a
+    window, the causal frontier one key short (the last key dropped, so
+    each row loses its newest key; its dk and dv rows stay 0), on the
+    same inputs. Returns the first output it rejects, that output's max
+    abs error, the limit and which edge moved."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref as kref
+    q, k, v, o, lse, do = args
+    want = kref.flash_bwd(*args, **kw)
+    if kw.get("window", 0) > 0:
+        edge = "window"
+        short = kref.flash_bwd(*args, **{**kw, "window": kw["window"] - 1})
+    else:
+        edge = "causal frontier"
+        dq, dk, dv = kref.flash_bwd(q, k[:, :, :-1], v[:, :, :-1], o, lse,
+                                    do, **kw)
+        short = (dq, F.pad(dk, (0, 0, 0, 1)), F.pad(dv, (0, 0, 0, 1)))
+    for part, got, w in zip(("dq", "dk", "dv"), short, want):
+        tol = kref.flash_bwd_tol(w)
+        try:
+            torch.testing.assert_close(got, w, **tol)
+        except AssertionError:
+            return dict(edge=edge, output=part, max_abs_err=float(
+                (got.float() - w.float()).abs().max()), **tol)
+    raise AssertionError(f"phase {phase}: the flash_attention_bwd limit "
+                         f"accepts the {edge} one key short")
+
+
 def prefill_flops(model, B: int, S: int) -> tuple:
     """(matrix-product flops, attention flops) a prefill must do: 2 per
     weight and token in the products (each token through its top_k
@@ -3868,6 +4083,253 @@ def phase_model_cpu_vs_gpu(seed: int, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 16 to 18: the train path
+# ---------------------------------------------------------------------------
+def expected_train_launches(cfg, S: int, accum: int) -> dict:
+    """The kernels a train step over accum microbatches of S tokens
+    launches: each attention layer calls attention min(8, S // 1024) times
+    a microbatch past 2 x 1024 tokens (chunked_flash's split), else once,
+    and each call launches flash_attention twice (the forward and its
+    recompute under remat) and flash_attention_bwd once; each RG-LRU
+    layer rg_lru_scan twice and rg_lru_scan_bwd once; each MoE layer
+    moe_dispatch twice (once each without remat)."""
+    kinds = [k for ks in cfg.layer_pattern() for k in ks] * cfg.n_groups
+    chunks = min(8, S // 1024) if S > 2 * 1024 else 1
+    fwd = 2 if cfg.remat else 1
+    n_attn = sum(k in ("attn", "lattn") for k in kinds)
+    want = {"flash_attention": fwd * chunks * n_attn * accum,
+            "flash_attention_bwd": chunks * n_attn * accum,
+            "rg_lru_scan": fwd * kinds.count("rglru") * accum,
+            "rg_lru_scan_bwd": kinds.count("rglru") * accum,
+            "moe_dispatch": fwd * kinds.count("moe") * accum}
+    return {name: n for name, n in want.items() if n}
+
+
+def train_flops(model, B: int, S: int) -> tuple:
+    """(matrix-product flops, attention flops) of one train step over B x S
+    tokens, the model's own (no remat recompute): 6 per weight and token
+    in the products (2 forward, 4 backward; the tied table as the logits'
+    product; each token through its top_k experts) and 3.5 times the
+    forward's 4 d per live (q, k) pair and head (the backward 2.5 times
+    the forward)."""
+    cfg = model.cfg
+    n_mat = sum(p.numel() for p in model.parameters() if p.dim() == 2)
+    n_expert = sum(p[0].numel() for p in model.parameters() if p.dim() == 3)
+    _, attn = prefill_flops(model, B, S)
+    return 6 * (n_mat + cfg.top_k * n_expert) * B * S, 3.5 * attn
+
+
+def rgemma_train_cfg():
+    """recurrentgemma-9b at full width, its depth cut to the first three
+    layers of its pattern (one group)."""
+    from repro_torch.configs import registry
+    cfg = registry.get(RGEMMA)
+    n = RGEMMA_TRAIN["layers"]
+    return dataclasses.replace(cfg, n_layers=n, pattern=cfg.pattern[:n])
+
+
+def phase_train(cfg, seed: int, device, phase: int, tag: str, batch: int,
+                seq: int, accum: int, cut: str):
+    """make_train_step (AdamW) on `batch` sequences of `seq` tokens of
+    SyntheticLM data in `accum` microbatches: one warm-up step under a
+    Capture keeping the first call of each kernel (marked `tag`; held
+    against the plain versions and timed right after; B10's limit must
+    reject its mask edge one key off there), TRAIN_STEPS timed steps (peak
+    memory), one traced step. Every step zeroes the counts before and
+    reads them after: each kernel must launch as expected_train_launches
+    says and no other, and loss and grad norm must be finite. Then the
+    state goes through AsyncCheckpointer and is restored into a fresh
+    model and optimizer state, equal bit for bit. Returns (report, kernel
+    rows)."""
+    import math
+    import shutil
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import steps, train as train_mod
+    from repro_torch.models import lm
+    from repro_torch.runtime import AsyncCheckpointer
+    from repro_torch.runtime import checkpoint as ckpt_mod
+    log(f"cut: phase {phase} trains {cfg.name}: {cut}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = lm.init_lm(cfg, seed, device)
+    init_fn, train_step = steps.make_train_step(cfg, **TRAIN_LR)
+    opt = init_fn(model)
+    torch.cuda.synchronize()
+    text, w_bytes = describe(cfg, model)
+    log(f"phase {phase}: {text}, built with its optimizer state in "
+        f"{time.perf_counter() - t0:.2f} s")
+    want = expected_train_launches(cfg, seq, accum)
+    names = tuple(want)
+    shape = ShapeSpec("train", seq, batch, "train", grad_accum=accum)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=seed)
+    sync = torch.cuda.synchronize
+    losses, gnorms, total = [], [], dict.fromkeys(names, 0)
+
+    def run(step: int) -> float:
+        nonlocal model, opt
+        batch_ = data.train_batch(cfg, shape, step, device=device)
+        zero_counts()
+        sync()
+        t0 = time.perf_counter()
+        model, opt, m = train_step(model, opt, batch_, step)
+        sync()
+        dt = time.perf_counter() - t0
+        counts = read_counts(names)
+        got = {name: counts[name] for name in names}
+        if got != want or any(counts[n] for n in counts if n not in want):
+            raise AssertionError(f"phase {phase} step {step}: launches "
+                                 f"{counts}, want {want}")
+        for name in names:
+            total[name] += counts[name]
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            raise AssertionError(f"phase {phase} step {step}: loss {loss} "
+                                 f"grad norm {gn}")
+        losses.append(loss)
+        gnorms.append(gn)
+        return dt
+
+    with Capture() as capture:
+        capture.mark(tag)
+        first_s = run(0)
+    rows = phase_captured(capture.calls, names, phase)
+    edge = bwd_edge_fault_rejected(
+        *capture.calls[("flash_attention_bwd", tag)], str(phase))
+    log(f"phase {phase}: the flash_attention_bwd limit rejects the "
+        f"{edge['edge']} one key short at the first call (on "
+        f"{edge['output']}, max abs err {edge['max_abs_err']:.6g})")
+    del capture
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    times = [run(step) for step in range(1, 1 + TRAIN_STEPS)]
+    max_mem = torch.cuda.max_memory_allocated(device)
+    step_ms = statistics.median(times) * 1e3
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        traced_s = run(1 + TRAIN_STEPS)
+    profile = profile_summary(prof, [traced_s], step_ms, phase)
+    # the state after the last step, written behind and restored
+    t0 = time.perf_counter()
+    ckdir = ROOT / "build" / f"chip_smoke_ckpt_{phase}"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    writer = AsyncCheckpointer(str(ckdir), keep=1)
+    writer.submit(len(losses), train_mod.state_tree(model, opt))
+    writer.wait()
+    writer.close()
+    fresh = lm.init_lm(cfg, seed + 1, device)
+    fresh_opt = init_fn(fresh)
+    train_mod.restore_state(str(ckdir), ckpt_mod.latest_step(str(ckdir)),
+                            fresh, fresh_opt)
+    pairs = list(zip(*(
+        ckpt_mod.tree_flatten(train_mod.state_tree(m, o))[0]
+        for m, o in ((model, opt), (fresh, fresh_opt)))))
+    if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"phase {phase}: the restored state differs")
+    ckpt_bytes = sum(a.numel() * a.element_size() for a, _ in pairs)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ckpt_s = time.perf_counter() - t0
+    del fresh, fresh_opt
+    mat_flops, attn_flops = train_flops(model, batch, seq)
+    report = dict(arch=cfg.name, layers=cfg.n_layers, batch=batch,
+                  seq_len=seq, accum=accum, cut=cut,
+                  params=sum(p.numel() for p in model.parameters()),
+                  launches_per_step=want, launches=total, losses=losses,
+                  grad_norms=gnorms, first_s=first_s, step_ms=times,
+                  step_ms_median=step_ms,
+                  tok_per_s=batch * seq / (step_ms / 1e3),
+                  max_memory_allocated=max_mem, traced_s=traced_s,
+                  matmul_flops=mat_flops, attention_flops=attn_flops,
+                  bound_ms=(mat_flops + attn_flops)
+                  / PEAK_FLOPS["torch.bfloat16"] * 1e3,
+                  profile=profile, limit_check=edge,
+                  checkpoint=dict(leaves=len(pairs), bytes=ckpt_bytes,
+                                  seconds=ckpt_s))
+    del model, opt
+    torch.cuda.empty_cache()
+    return report, rows
+
+
+def phase_train_cpu_vs_gpu(seed: int, device) -> dict:
+    """Reduced smollm-135m and recurrentgemma-9b in float32, weights built
+    once on the CPU and moved, TF32 off: TRAIN_CHECK["steps"] steps of
+    make_train_step on each device on the same batches. Loss and grad norm
+    of every step within TRAIN_CHECK_TOL's loss_rtol, the weights after
+    the last within its weight_rtol (relative, and of max(1, each leaf's
+    largest magnitude) absolute); on the card the train kernels must
+    launch."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c, tol = TRAIN_CHECK, TRAIN_CHECK_TOL
+    out = {}
+    for name, names in ((SMOLLM, TRAIN_KERNELS),
+                        (RGEMMA, RGEMMA_TRAIN_KERNELS)):
+        cfg = registry.get(name).reduced()
+        cpu = lm.init_lm(cfg, seed, "cpu")
+        gpu = copy.deepcopy(cpu).to(device)
+        rng = np.random.default_rng(seed + 18)
+        toks = [torch.as_tensor(rng.integers(0, cfg.vocab, (
+            c["accum"], c["batch"] // c["accum"], c["seq_len"])).astype(
+                np.int32)) for _ in range(c["steps"])]
+        metrics = {}
+        for dev, model in (("cpu", cpu), ("gpu", gpu)):
+            init_fn, train_step = steps.make_train_step(cfg, **c["lr"])
+            opt = init_fn(model)
+            zero_counts()
+            metrics[dev] = [
+                [float(x) for x in train_step(
+                    model, opt, {"tokens": t.to(model.embed.device)},
+                    i)[2].values()] for i, t in enumerate(toks)]
+            if dev == "gpu":
+                read_counts(names)
+        if not np.allclose(metrics["gpu"], metrics["cpu"], atol=0,
+                           rtol=tol["loss_rtol"]):
+            raise AssertionError(f"phase 18: {name} loss / grad norm CPU "
+                                 f"{metrics['cpu']} GPU {metrics['gpu']}")
+        worst = 0.0
+        for a, b in zip(cpu.parameters(), gpu.parameters()):
+            a, b = a.detach(), b.detach().cpu()
+            scale = max(float(a.abs().max()), 1.0)
+            try:
+                torch.testing.assert_close(b, a, rtol=tol["weight_rtol"],
+                                           atol=tol["weight_rtol"] * scale)
+            except AssertionError as e:
+                raise AssertionError(f"phase 18: {name} weights differ CPU "
+                                     f"vs GPU: {e}") from None
+            worst = max(worst, float((a - b).abs().max()) / scale)
+        out[name] = dict(loss_gnorm_cpu=metrics["cpu"],
+                         loss_gnorm_gpu=metrics["gpu"],
+                         worst_weight_err_of_scale=worst)
+    return out
+
+
+def log_train(v: dict, card: str) -> None:
+    log(f"train {v['arch']} ({v['layers']} layers): {v['batch']} x "
+        f"{v['seq_len']} tokens a step in {v['accum']} microbatches: median "
+        f"{v['step_ms_median']:.1f} ms a step ({v['tok_per_s']:.0f} tok/s; "
+        f"steps {', '.join(f'{t * 1e3:.1f}' for t in v['step_ms'])} ms; "
+        f"first step {v['first_s']:.2f} s captured), bound "
+        f"{v['bound_ms']:.1f} ms ({v['matmul_flops'] / 1e12:.2f} TFLOP of "
+        f"matrix products + {v['attention_flops'] / 1e12:.2f} of attention "
+        f"at the bf16 peak); peak memory "
+        f"{v['max_memory_allocated'] / 1e9:.2f} GB ({card})")
+    log(f"train {v['arch']}: losses {[round(x, 4) for x in v['losses']]}, "
+        f"grad norms {[round(x, 4) for x in v['grad_norms']]}; launches a "
+        f"step {v['launches_per_step']} (the formula); checkpoint of "
+        f"{v['checkpoint']['leaves']} leaves, "
+        f"{v['checkpoint']['bytes'] / 1e9:.2f} GB, written, restored and "
+        f"compared in {v['checkpoint']['seconds']:.1f} s")
+    log_profile(f"train {v['arch']}", v["profile"], "step")
+
+
+# ---------------------------------------------------------------------------
 def log_profile(what: str, pr: dict, unit: str) -> None:
     if pr.get("device_ms_per_step") is None:
         return
@@ -3927,6 +4389,11 @@ def main() -> int:
         smem = getattr(_build.load(lib), fn)
         smem.restype = ctypes.c_longlong
         log(f"{lib}: {smem()} bytes of dynamic shared memory {what}")
+    smem = _build.load("flash_attention_bwd"
+                       ).repro_flash_attention_bwd_smem_bytes
+    smem.restype = ctypes.c_longlong
+    log("flash_attention_bwd: dynamic shared memory of a dK/dV or dQ block "
+        + ", ".join(f"{smem(d)} bytes at d = {d}" for d in (64, 128, 256)))
 
     edge_cases(device)
     log(f"phase 1: edge cases equal on all {len(KERNELS)} kernels")
@@ -4149,6 +4616,61 @@ def main() -> int:
     del capture
     report["txn"] = txn_rep
 
+    from repro_torch.configs import registry
+    t0 = time.perf_counter()
+    st = SMOLLM_TRAIN
+    cfg = registry.get(SMOLLM)
+    micro = st["shape_batch"] // st["accum"]
+    cut = (f"global batch {st['shape_batch']} -> {st['batch']} "
+           f"({st['batch'] // st['accum']} a microbatch) of the "
+           f"{st['shape']} shape (seq {st['seq_len']}, accum {st['accum']}):"
+           f" at {st['shape_batch']} the f32 logits alone are "
+           f"{micro * st['seq_len'] * cfg.vocab_padded * 4 / 1e9:.0f} GB a "
+           f"microbatch")
+    tr16, train_rows = phase_train(cfg, args.seed, device, 16,
+                                   "smollm train", st["batch"],
+                                   st["seq_len"], st["accum"], cut)
+    add_rows(train_rows)
+    record("phase 16", tr16["launches"], tuple(tr16["launches"]))
+    log(f"phase 16: launches {tr16['launches_per_step']} a step (the "
+        f"formula) in each of {len(tr16['losses'])} steps; losses and grad "
+        f"norms finite; the checkpoint restored bit for bit; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rt = RGEMMA_TRAIN
+    cfg = rgemma_train_cfg()
+    full = registry.get(RGEMMA)
+    cut = (f"depth {full.n_layers} -> {cfg.n_layers} (the first layers of "
+           f"its pattern: {[list(k) for k in cfg.pattern]}): at "
+           f"{full.n_layers} layers its {full.params_count() / 1e9:.2f} B "
+           f"weights, their f32 gradient sums and AdamW's two f32 moments "
+           f"need {full.params_count() * 14 / 1e9:.0f} GB; global batch "
+           f"{rt['shape_batch']} -> {rt['batch']} "
+           f"({rt['batch'] // rt['accum']} a microbatch), seq "
+           f"{rt['seq_len']}, accum {rt['accum']}")
+    tr17, train_rows = phase_train(cfg, args.seed, device, 17,
+                                   "rgemma train", rt["batch"],
+                                   rt["seq_len"], rt["accum"], cut)
+    add_rows(train_rows)
+    record("phase 17", tr17["launches"], tuple(tr17["launches"]))
+    log(f"phase 17: launches {tr17['launches_per_step']} a step (the "
+        f"formula) in each of {len(tr17['losses'])} steps; losses and grad "
+        f"norms finite; the checkpoint restored bit for bit; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    train_check = phase_train_cpu_vs_gpu(args.seed, device)
+    log(f"phase 18: {TRAIN_CHECK['steps']} train steps of reduced "
+        f"{SMOLLM} and {RGEMMA} (f32) equal CPU vs GPU within "
+        f"{TRAIN_CHECK_TOL}: " + "; ".join(
+            f"{n}: loss, grad norm CPU {v['loss_gnorm_cpu']} GPU "
+            f"{v['loss_gnorm_gpu']}, worst weight error "
+            f"{v['worst_weight_err_of_scale']:.3e} of max(1, its leaf's "
+            f"scale)"
+            for n, v in train_check.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+
     for arm in ARMS:
         r = report[arm]
         log(f"median ms per batch, hash table {arm}: insert "
@@ -4186,6 +4708,11 @@ def main() -> int:
     report["serve_rgemma"] = rv
     report["prefill"] = pf
     report["rgemma_cpu_vs_gpu"] = rg_check
+    for v in (tr16, tr17):
+        log_train(v, card)
+    report["train_smollm"] = tr16
+    report["train_rgemma"] = tr17
+    report["train_cpu_vs_gpu"] = train_check
     kernels = [kernel_row(name, rows[name], launches[name])
                for name in KERNELS]
     shapes = {f"{name} at {r['at']}": r["shapes"]

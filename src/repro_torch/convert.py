@@ -5,7 +5,9 @@ The tests build a structure in JAX, carry `np.asarray(win.data)` across
 with these functions, and continue the same op stream in both packages;
 `to_numpy` brings the port's state back for comparison (or for a JAX
 structure built from it). A model's state is its parameter tree:
-`lm_from_numpy` builds the port's model from the JAX package's. The cost
+`lm_from_numpy` builds the port's model from the JAX package's and
+`lm_to_numpy` gives its parameters (or their gradients) back in that tree.
+The cost
 model's parameters are its constants: `component_costs` carries a
 `ComponentCosts` across as the dict `dataclasses.asdict` gives.
 """
@@ -94,3 +96,33 @@ def lm_from_numpy(cfg, params, device="cuda") -> lm.LM:
             layers.append(lm.Layer(kinds, blocks))
     return lm.LM(cfg, _param(params["embed"], device), layers,
                  _param(params["final_norm"], device))
+
+
+def lm_to_numpy(model: lm.LM, which: str = "param") -> dict:
+    """The inverse of lm_from_numpy: JAX's `init_params` tree (`embed`,
+    `final_norm`, `groups` with every leaf stacked over n_groups) holding
+    the model's parameters (which="param") or their `.grad` (which="grad")
+    as numpy arrays; bfloat16 leaves come back as float32 (exactly)."""
+    if which not in ("param", "grad"):
+        raise ValueError(f"which must be 'param' or 'grad', got {which!r}")
+
+    def arr(p) -> np.ndarray:
+        t = p if which == "param" else p.grad
+        if t is None:
+            raise ValueError("a parameter has no gradient")
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+    cfg = model.cfg
+    pattern = cfg.layer_pattern()
+    n = len(pattern)
+    groups = tuple(
+        tuple({name: np.stack([arr(getattr(model.layers[g * n + i].blocks[b],
+                                           name))
+                               for g in range(cfg.n_groups)])
+               for name, _ in model.layers[i].blocks[b].named_parameters(
+                   recurse=False)}
+              for b in range(len(kinds)))
+        for i, kinds in enumerate(pattern))
+    return {"embed": arr(model.embed), "groups": groups,
+            "final_norm": arr(model.final_norm)}

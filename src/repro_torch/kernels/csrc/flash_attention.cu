@@ -14,7 +14,12 @@
 //   o_i = sum_j p_ij v_j / sum_j p_ij,  p_ij = exp(s_ij - m_i),
 //   s_ij = (q_i . k_j) * d**-0.5,
 // with f32 scores, online softmax and accumulator. A row with no live key
-// gives 0 (l = 0), as the model's flash forward does.
+// gives 0 (l = 0), as the model's flash forward does. Given an `lse`
+// pointer, each row's log-sum-exp of its live scores, m + log(l), is also
+// written to lse (B, H, S) f32 (+inf for a row with no live key): the
+// statistic the backward (flash_attention_bwd.cu) recomputes the
+// probabilities from. It comes from the running max and sum each row
+// already keeps, so asking for it adds one store a row.
 //
 // Bound: operations at the prefill shapes (4 d flops per live (q, k) pair
 // and head against 2 d bytes of K and V per key, reused by 64 query rows
@@ -103,7 +108,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32(const float* __restrict__ q,
                     const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o, int S,
+                    const float* __restrict__ v, float* __restrict__ o,
+                    float* __restrict__ lse, int S,
                     int Skv, int H, int Hkv, long long qsb, long long qss,
                     long long qsh, long long ksb, long long kss,
                     long long ksh, long long vsb, long long vss,
@@ -249,6 +255,8 @@ flash_attention_f32(const float* __restrict__ q,
     float* orow = o + ((b * S + row) * H + h) * static_cast<long long>(D);
 #pragma unroll
     for (int c = 0; c < kNC; ++c) orow[tx + 16 * c] = acc[i][c] * inv_l;
+    if (lse != nullptr && tx == 0)
+      lse[(b * H + h) * S + row] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
   }
 }
 
@@ -345,7 +353,8 @@ __device__ __forceinline__ void live_keys(int row, int S, int Skv, int shift,
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int S,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int S,
                      int Skv, int H, int Hkv, long long qsb, long long qss,
                      long long qsh, long long ksb, long long kss,
                      long long ksh, long long vsb, long long vss,
@@ -539,6 +548,11 @@ flash_attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         *reinterpret_cast<__nv_bfloat162*>(orow + c * 8 + 2 * tq) =
             __floats2bfloat162_rn(acc[c][2 * ri] * inv_l,
                                   acc[c][2 * ri + 1] * inv_l);
+      // m_run is in base-2 units (scores times log2(e))
+      if (lse != nullptr && tq == 0)
+        lse[(b * H + h) * S + row] =
+            l > 0.f ? (m_run[ri] + log2f(l)) * 0.6931471805599453f
+                    : INFINITY;
     }
   }
 }
@@ -547,9 +561,10 @@ flash_attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // strides: q (batch, seq, head), k (batch, seq, head), v (batch, seq, head)
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int Skv, int H, int Hkv, const long long* st,
-               int causal, int window, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int S, int Skv, int H, int Hkv,
+               const long long* st, int causal, int window,
+               cudaStream_t stream) {
   constexpr size_t smem = simt::smem_bytes<D>();
   auto kernel = simt::flash_attention_f32<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -560,16 +575,17 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
   kernel<<<grid, simt::kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, Skv, H, Hkv,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
-      window, static_cast<float>(1.0 / sqrt(static_cast<double>(D))));
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, Skv, H,
+      Hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      causal, window, static_cast<float>(1.0 / sqrt(static_cast<double>(D))));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int Skv, int H, int Hkv, const long long* st,
-                int causal, int window, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int S, int Skv, int H, int Hkv,
+                const long long* st, int causal, int window,
+                cudaStream_t stream) {
   constexpr size_t smem = tc::smem_bytes<D>();
   auto kernel = tc::flash_attention_bf16<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -580,55 +596,57 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
   kernel<<<grid, tc::kThreads, smem, stream>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(o), S, Skv, H,
-      Hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(o), lse, S, Skv,
+      H, Hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       causal, window,
       static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D))));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int Skv, int H, int Hkv, const long long* st, int causal,
-           int window, int bf16, cudaStream_t stream) {
-  return bf16 ? launch_bf16<D>(q, k, v, o, B, S, Skv, H, Hkv, st, causal,
-                               window, stream)
-              : launch_f32<D>(q, k, v, o, B, S, Skv, H, Hkv, st, causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Skv, int H, int Hkv, const long long* st,
+           int causal, int window, int bf16, cudaStream_t stream) {
+  return bf16 ? launch_bf16<D>(q, k, v, o, lse, B, S, Skv, H, Hkv, st,
+                               causal, window, stream)
+              : launch_f32<D>(q, k, v, o, lse, B, S, Skv, H, Hkv, st, causal,
                               window, stream);
 }
 
 }  // namespace
 
+// lse: null, or (B, H, S) f32 for each row's log-sum-exp.
 // bf16 != 0: q, k, v and o are __nv_bfloat16 (the tensor-core kernel;
 // q, k and v 16-byte aligned with strides that are multiples of 8), else
 // float. Strides in elements: q (batch, seq, head), k (batch, seq, head),
 // v (batch, seq, head); d has stride 1. d in {16, 32, 64, 128, 256};
 // H % Hkv == 0.
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int B, int S,
-    int Skv, int H, int Hkv, int d, long long qsb, long long qss,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int S, int Skv, int H, int Hkv, int d, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, int causal, int window,
     int bf16, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lsef = static_cast<float*>(lse);
   switch (d) {
     case 16:
-      return launch<16>(q, k, v, o, B, S, Skv, H, Hkv, st, causal, window,
-                        bf16, s);
+      return launch<16>(q, k, v, o, lsef, B, S, Skv, H, Hkv, st, causal,
+                         window, bf16, s);
     case 32:
-      return launch<32>(q, k, v, o, B, S, Skv, H, Hkv, st, causal, window,
-                        bf16, s);
+      return launch<32>(q, k, v, o, lsef, B, S, Skv, H, Hkv, st, causal,
+                         window, bf16, s);
     case 64:
-      return launch<64>(q, k, v, o, B, S, Skv, H, Hkv, st, causal, window,
-                        bf16, s);
+      return launch<64>(q, k, v, o, lsef, B, S, Skv, H, Hkv, st, causal,
+                         window, bf16, s);
     case 128:
-      return launch<128>(q, k, v, o, B, S, Skv, H, Hkv, st, causal, window,
-                         bf16, s);
+      return launch<128>(q, k, v, o, lsef, B, S, Skv, H, Hkv, st, causal,
+                         window, bf16, s);
     case 256:
-      return launch<256>(q, k, v, o, B, S, Skv, H, Hkv, st, causal, window,
-                         bf16, s);
+      return launch<256>(q, k, v, o, lsef, B, S, Skv, H, Hkv, st, causal,
+                         window, bf16, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

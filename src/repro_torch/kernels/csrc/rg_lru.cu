@@ -41,6 +41,19 @@
 // the unrolled walk became a branch of its own a step, 2.8x slower.
 // For S < kShortS (decode, S = 1): one thread per column, 128 columns a
 // block, each thread issuing its steps' loads before their multiply-adds.
+//
+// The backward (repro_rg_lru_scan_bwd, kernel B11) replaces no Pallas
+// kernel: JAX differentiates ref.rg_lru_scan's scan. Its contract is
+// kernels/ref.py rg_lru_scan_bwd: given a, the forward's h and dh (B, S,
+// D) f32 and h0 (B, D) or null, it walks each column from t = S - 1 down,
+//   g_t = dh_t + a_{t+1} * g_{t+1}   (g_{S-1} = dh_{S-1}),
+//   db_t = g_t,   da_t = g_t * h_{t-1}   (h_{-1} = h0, or 0),
+// and writes dh0 = a_0 * g_0 (B, D), each product and sum rounded on its
+// own (__fmul_rn, __fadd_rn), bit for bit with the plain version. Bound:
+// bytes (a, h and dh read once, da and db written once). Design, simple:
+// the forward's column walk run backwards, one thread per (b, d) column,
+// 128 a block, each thread issuing kUnroll steps' loads before their
+// dependent multiply-adds.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -88,6 +101,52 @@ rg_lru_column_kernel(const float* __restrict__ a, const float* __restrict__ b,
     hv = __fadd_rn(__fmul_rn(ap[t * D], hv), bp[t * D]);
     hp[t * D] = hv;
   }
+}
+
+__global__ void __launch_bounds__(kColThreads)
+rg_lru_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
+                  const float* __restrict__ h0, const float* __restrict__ dh,
+                  float* __restrict__ da, float* __restrict__ db,
+                  float* __restrict__ dh0, long long S, int D) {
+  const int d = blockIdx.x * kColThreads + threadIdx.x;
+  if (d >= D) return;
+  const long long row = blockIdx.y;
+  const long long base = row * S * D + d;
+  const float* ap = a + base;
+  const float* hp = h + base;
+  const float* gp = dh + base;
+  float* dap = da + base;
+  float* dbp = db + base;
+  const float h_init = h0 != nullptr ? h0[row * D + d] : 0.f;
+  long long t = S - 1;
+  float g = gp[t * D];                      // g_{S-1} = dh_{S-1}
+  dbp[t * D] = g;
+  dap[t * D] = __fmul_rn(g, t > 0 ? hp[(t - 1) * D] : h_init);
+  float a_next = ap[t * D];                 // a_{t+1} of the next step
+  for (--t; t + 1 >= kUnroll; t -= kUnroll) {
+    float av[kUnroll], gv[kUnroll], hv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long tt = t - u;
+      av[u] = ap[tt * D];
+      gv[u] = gp[tt * D];
+      hv[u] = tt > 0 ? hp[(tt - 1) * D] : h_init;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      g = __fadd_rn(gv[u], __fmul_rn(a_next, g));
+      dbp[(t - u) * D] = g;
+      dap[(t - u) * D] = __fmul_rn(g, hv[u]);
+      a_next = av[u];
+    }
+  }
+  for (; t >= 0; --t) {
+    g = __fadd_rn(gp[t * D], __fmul_rn(a_next, g));
+    dbp[t * D] = g;
+    dap[t * D] = __fmul_rn(g, t > 0 ? hp[(t - 1) * D] : h_init);
+    a_next = ap[t * D];
+  }
+  dh0[row * D + d] = __fmul_rn(a_next, g);  // a_0 * g_0
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -274,4 +333,23 @@ extern "C" int repro_rg_lru_scan(const void* a, const void* b, const void* h0,
   return static_cast<int>(vec ? launch_ring<true>(af, bf, h0f, hf, B, S, D, st)
                               : launch_ring<false>(af, bf, h0f, hf, B, S, D,
                                                    st));
+}
+
+// The backward: a, h, dh (B, S, D) f32 contiguous; h0 (B, D) or null
+// (zeros). Writes da, db (B, S, D) and dh0 (B, D).
+extern "C" int repro_rg_lru_scan_bwd(const void* a, const void* h,
+                                     const void* h0, const void* dh,
+                                     void* da, void* db, void* dh0,
+                                     long long B, long long S, int D,
+                                     void* stream) {
+  if (B <= 0 || S <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid(static_cast<unsigned>((D + kColThreads - 1) / kColThreads),
+                  static_cast<unsigned>(B));
+  rg_lru_bwd_kernel<<<grid, kColThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(h),
+      static_cast<const float*>(h0), static_cast<const float*>(dh),
+      static_cast<float*>(da), static_cast<float*>(db),
+      static_cast<float*>(dh0), S, D);
+  return static_cast<int>(cudaGetLastError());
 }

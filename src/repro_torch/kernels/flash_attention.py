@@ -9,9 +9,12 @@ activations are passed as `x.transpose(1, 2)` and read in place; the
 result is written contiguous in (B, S, H, d) and returned as its
 (B, H, S, d) view. bfloat16 runs on the tensor cores and copies q, k and
 v in 16-byte pieces, so it needs 16-byte aligned tensors whose strides are
-multiples of 8; float32 runs the scalar kernel. CUDA tensors only
-(kernels/ops.py routes CPU tensors to kernels/ref.py); launches are
-counted in `flash_attention.launches`.
+multiples of 8; float32 runs the scalar kernel. With return_lse, each
+row's log-sum-exp of its live scores comes back too, (B, H, S) float32
+(+inf for a row with no live key), for the backward
+(kernels/flash_attention_bwd.py). CUDA tensors only (kernels/ops.py
+routes CPU tensors to kernels/ref.py); launches are counted in
+`flash_attention.launches`.
 """
 from __future__ import annotations
 
@@ -25,10 +28,11 @@ HEAD_DIMS = (16, 32, 64, 128, 256)    # csrc instantiations
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
-                    window: int = 0) -> Tensor:
+                    window: int = 0, return_lse: bool = False):
     """q (B, H, S, d); k/v (B, Hkv, Skv, d); views with stride 1 on d, all
     float32 or all bfloat16. Returns (B, H, S, d) in q's dtype (a view of
-    a contiguous (B, S, H, d) tensor)."""
+    a contiguous (B, S, H, d) tensor), and with return_lse also lse (B, H,
+    S) float32."""
     if q.dim() != 4:
         raise ValueError(f"flash_attention: q must be (B, H, S, d), got "
                          f"{tuple(q.shape)}")
@@ -60,16 +64,21 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                                  f"aligned base and strides that are "
                                  f"multiples of 8, got {x.stride()}")
     o = torch.empty((B, S, H, d), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+           if return_lse else None)
     fn = function("flash_attention", "repro_flash_attention",
-                  (PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32, I32, I64,
-                   I64, I64, I64, I64, I64, I64, I64, I64, I32, I32, I32,
-                   PTR))
+                  (PTR, PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32, I32,
+                   I64, I64, I64, I64, I64, I64, I64, I64, I64, I32, I32,
+                   I32, PTR))
     qs, ks, vs = q.stride(), k.stride(), v.stride()
     launch(fn, "flash_attention", dev, q.data_ptr(), k.data_ptr(),
-           v.data_ptr(), o.data_ptr(), B, S, Skv, H, Hkv, d, qs[0], qs[2],
-           qs[1], ks[0], ks[2], ks[1], vs[0], vs[2], vs[1], int(causal),
-           int(window), int(q.dtype == torch.bfloat16))
+           v.data_ptr(), o.data_ptr(),
+           None if lse is None else lse.data_ptr(), B, S, Skv, H, Hkv, d,
+           qs[0], qs[2], qs[1], ks[0], ks[2], ks[1], vs[0], vs[2], vs[1],
+           int(causal), int(window), int(q.dtype == torch.bfloat16))
     flash_attention.launches += 1
+    if return_lse:
+        return o.transpose(1, 2), lse
     return o.transpose(1, 2)
 
 

@@ -25,6 +25,11 @@ inside a component, full windows, starts outside [0, nslots), max_probes
 past nslots, shards longer than the records and shorter (clamped slices
 share words: one component a chunk), a routed batch with 1.6% live, live
 counts past a chunk, and an all-masked list.
+
+The backward kernels B10 `flash_attention_bwd` and B11 `rg_lru_scan_bwd`
+take their cases from `FLASH_BWD_CASES` and `RG_LRU_BWD_CASES` (inputs by
+`flash_bwd_inputs` / `rg_lru_bwd_inputs`): B10 within
+kernels/ref.py's flash_bwd_tol, B11 bit for bit.
 """
 from __future__ import annotations
 
@@ -677,3 +682,51 @@ def moe_dispatch_cases(seed: int = 0) -> List[MoeCase]:
     add(f"E = {E + 52} (serial kernel)", rng.integers(-2200, 2200, 3000),
         E + 52)
     return cases
+
+
+# ---------------------------------------------------------------------------
+# B10 flash_attention_bwd and B11 rg_lru_scan_bwd
+# ---------------------------------------------------------------------------
+# (B, H, Hkv, S, Skv, d, causal, window): 1, 3 and 16 query heads a kv head;
+# d 64, 128 and 256; S == Skv and end-aligned S < Skv; windows 0 and
+# shorter than S; non-causal; S and Skv off the kernel's 32-row tiles; S >
+# Skv (causal rows without a key)
+FLASH_BWD_CASES = [
+    (2, 4, 4, 64, 64, 64, True, 0),
+    (1, 9, 3, 100, 100, 64, True, 0),
+    (1, 6, 2, 40, 97, 128, True, 0),
+    (1, 16, 1, 70, 150, 256, True, 48),
+    (1, 16, 1, 130, 130, 256, True, 64),
+    (1, 8, 2, 96, 160, 128, True, 40),
+    (2, 4, 1, 33, 33, 64, False, 0),
+    (1, 3, 1, 65, 97, 128, False, 20),
+    (1, 2, 1, 12, 5, 64, True, 0),
+]
+# (B, S, D, h0 given): S = 1; S off the kernel's unroll of 8; D off a warp;
+# B > 1; h0 given and None
+RG_LRU_BWD_CASES = [(3, 1, 64, True), (2, 37, 50, True), (1, 1000, 33, False),
+                    (4, 300, 4096, False), (2, 20, 96, True)]
+
+
+def flash_bwd_inputs(case, seed: int = 0):
+    """q, do (B, S, H, d) and k, v (B, Skv, Hkv, d) f32 for a case of
+    FLASH_BWD_CASES, unit normal (the model's layout; the kernels read
+    them through (B, H, S, d) views)."""
+    B, H, Hkv, S, Skv, d, _, _ = case
+    rng = np.random.default_rng([seed, S, Skv, d, H])
+    q, do = (rng.normal(size=(B, S, H, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.normal(size=(B, Skv, Hkv, d)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def rg_lru_bwd_inputs(case, seed: int = 0):
+    """a in [0.7, 1), the forward's input b, h0 (or None) and dh, f32, for
+    a case of RG_LRU_BWD_CASES."""
+    B, S, D, given_h0 = case
+    rng = np.random.default_rng([seed, B, S, D])
+    a = rng.uniform(0.7, 1.0, (B, S, D)).astype(np.float32)
+    b, dh = (rng.normal(size=(B, S, D)).astype(np.float32) for _ in range(2))
+    h0 = rng.normal(size=(B, D)).astype(np.float32) if given_h0 else None
+    return a, b, h0, dh

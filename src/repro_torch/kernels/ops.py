@@ -1,10 +1,12 @@
 """Device dispatch for the kernels: the owner lanes (the transactional one
 included) and handler bodies of the data structures, and attention,
-decode attention, expert dispatch and the RG-LRU scan of the model.
+decode attention, expert dispatch and the RG-LRU scan of the model, and
+the backwards of attention and of the scan.
 
 A CUDA tensor launches the hand-written kernel (inputs are made
-contiguous first, except flash_attention's q, k and v and flash_decode's
-K and V, which the kernels read through their strides); a CPU tensor takes
+contiguous first, except the attention kernels' q, k, v, o and do and
+flash_decode's K and V, which the kernels read through their strides); a
+CPU tensor takes
 the plain PyTorch version in kernels/ref.py. There is no fallback: a
 kernel that fails to build or to launch raises.
 """
@@ -16,6 +18,7 @@ import torch
 
 from . import amo_apply as _amo
 from . import flash_attention as _fa
+from . import flash_attention_bwd as _fab
 from . import flash_decode as _fd
 from . import hash_probe as _hp
 from . import moe_dispatch as _md
@@ -82,13 +85,30 @@ def hash_insert(table, starts, keys, vals, mask, *, nslots, rec_w,
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
-                    window: int = 0) -> Tensor:
+                    window: int = 0, return_lse: bool = False):
     """Forward GQA attention, queries aligned to the end of the kv
     sequence: q (B, H, S, d); k/v (B, Hkv, Skv, d), any strides (a CUDA
-    view needs a unit stride on d). Returns (B, H, S, d) in q's dtype."""
+    view needs a unit stride on d). Returns (B, H, S, d) in q's dtype;
+    with return_lse also each row's log-sum-exp (B, H, S) float32."""
     if q.is_cuda:
-        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=return_lse)
+    if return_lse:
+        return ref.flash_fwd_lse(q, k, v, causal=causal, window=window)
     return ref.mha(q, k, v, causal=causal, window=window)
+
+
+def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                        lse: Tensor, do: Tensor, *, causal: bool = True,
+                        window: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
+    """The backward of flash_attention: q, o, do (B, H, S, d); k/v (B,
+    Hkv, Skv, d), any strides (a CUDA view needs a unit stride on d); lse
+    (B, H, S) float32 from the forward. Returns (dq, dk, dv) in the
+    inputs' types."""
+    if q.is_cuda:
+        return _fab.flash_attention_bwd(q, k, v, o, lse.contiguous(), do,
+                                        causal=causal, window=window)
+    return ref.flash_bwd(q, k, v, o, lse, do, causal=causal, window=window)
 
 
 def flash_decode(q: Tensor, k: Tensor, v: Tensor, length: Tensor
@@ -122,3 +142,14 @@ def rg_lru_scan(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:
         return _rg.rg_lru_scan(a.contiguous(), b.contiguous(),
                                None if h0 is None else h0.contiguous())
     return ref.rg_lru_scan(a, b, h0)
+
+
+def rg_lru_scan_bwd(a: Tensor, h: Tensor, h0: Optional[Tensor], dh: Tensor
+                    ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The backward of rg_lru_scan: a, h (its output), dh (B, S, D)
+    float32; h0 (B, D) or None. Returns (da, db, dh0)."""
+    if a.is_cuda:
+        return _rg.rg_lru_scan_bwd(a.contiguous(), h.contiguous(),
+                                   None if h0 is None else h0.contiguous(),
+                                   dh.contiguous())
+    return ref.rg_lru_scan_bwd(a, h, h0, dh)

@@ -496,6 +496,31 @@ def moe_dispatch(expert_ids: Tensor, n_experts: int
 # ---------------------------------------------------------------------------
 # flash attention (fwd): causal / local-window GQA attention
 # ---------------------------------------------------------------------------
+def _live_keys(S: int, Skv: int, causal: bool, window: int,
+               device) -> Tensor:
+    """(S, Skv) bool: key j is live for query row i (queries end-aligned:
+    row i sits at position i + Skv - S)."""
+    qpos = torch.arange(S, device=device)[:, None] + (Skv - S)
+    kpos = torch.arange(Skv, device=device)[None, :]
+    ok = torch.ones((S, Skv), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= kpos > qpos - window
+    return ok
+
+
+def _scores(q: Tensor, k: Tensor, causal: bool, window: int):
+    """f32 scores (B, H, S, Skv) = q . k * d**-0.5 of each query head with
+    its kv head, -inf where the key is not live; and the live mask."""
+    B, H, S, d = q.shape
+    g = H // k.shape[1]
+    kf = k.float().repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * d ** -0.5
+    ok = _live_keys(S, k.shape[2], causal, window, q.device)
+    return logits.masked_fill(~ok, float("-inf")), ok
+
+
 def mha(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         window: int = 0) -> Tensor:
     """q (B, H, S, d); k/v (B, Hkv, Skv, d) (any strides) -> (B, H, S, d)
@@ -504,25 +529,72 @@ def mha(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     position i + Skv - S); window > 0 keeps the last `window` positions
     (inclusive). A row with no key left (causal, S > Skv) gives 0, as the
     flash forward's l = 0 does, where the JAX oracle's softmax gives NaN."""
+    return flash_fwd_lse(q, k, v, causal=causal, window=window)[0]
+
+
+def flash_fwd_lse(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                  window: int = 0) -> Tuple[Tensor, Tensor]:
+    """mha's output and the log-sum-exp of each row's live scores, (B, H,
+    S) f32: the statistic the backward recomputes the probabilities from
+    (p = exp(s - lse)). A row with no live key has lse = +inf, so every
+    probability it recomputes is 0."""
+    g = q.shape[1] // k.shape[1]
+    vf = v.float().repeat_interleave(g, dim=1)
+    logits, ok = _scores(q, k, causal, window)
+    m = logits.amax(-1, keepdim=True)
+    msafe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(logits - msafe)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", p / l.clamp(min=1e-30), vf)
+    lse = torch.where(ok.any(-1), (msafe + torch.log(l))[..., 0],
+                      float("inf"))
+    return out.to(q.dtype), lse
+
+
+def flash_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
+              do: Tensor, *, causal: bool = True, window: int = 0
+              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The backward of flash attention (the math of the JAX model's
+    _flash_train_bwd, lm.py:138-175): q, o, do (B, H, S, d); k, v (B, Hkv,
+    Skv, d); lse (B, H, S) f32 from flash_fwd_lse. With s = q . k *
+    scale and p = exp(s - lse) on live keys (0 elsewhere), delta = sum(do
+    * o), dp = do . v and ds = p * (dp - delta) * scale: dq = ds k, dk =
+    ds^T q and dv = p^T do, dk and dv summed over the g query heads of a
+    kv head. f32 math; returns (dq, dk, dv) in the types of q, k, v."""
     B, H, S, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     g = H // Hkv
+    scale = d ** -0.5
     kf = k.float().repeat_interleave(g, dim=1)
     vf = v.float().repeat_interleave(g, dim=1)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * d ** -0.5
-    qpos = torch.arange(S, device=q.device)[:, None] + (Skv - S)
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    ok = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= kpos <= qpos
-    if window > 0:
-        ok &= kpos > qpos - window
-    logits = logits.masked_fill(~ok, float("-inf"))
-    m = logits.amax(-1, keepdim=True)
-    p = torch.exp(logits - torch.where(torch.isfinite(m), m,
-                                       torch.zeros_like(m)))
-    p = p / p.sum(-1, keepdim=True).clamp(min=1e-30)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    qf, dof = q.float(), do.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    ok = _live_keys(S, Skv, causal, window, q.device)
+    p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    delta = (dof * o.float()).sum(-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dk = dk.reshape(B, Hkv, g, Skv, d).sum(2)
+    dv = dv.reshape(B, Hkv, g, Skv, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_tol(want: Tensor) -> dict:
+    """The limit (assert_close keywords) to which the backward kernel is
+    held against flash_bwd's gradient `want`. Both sum the same f32
+    products in another order (the kernel over key and query tiles, the
+    plain version in one product each); over unit-scale inputs a gradient
+    element sums S or Skv terms, so f32 gets a relative 1e-5 of the
+    gradient's RMS as well as 1e-5 of the value. In bf16 each side rounds
+    its f32 result once: one output step (2**-7 of the value) plus 2**-8
+    of the RMS, as mha_tol."""
+    rms = float(want.float().square().mean().sqrt()) if want.numel() else 0.0
+    if want.dtype == torch.float32:
+        return dict(rtol=1e-5, atol=1e-5 * max(rms, 1.0))
+    return dict(rtol=2.0 ** -7, atol=2.0 ** -8 * rms)
 
 
 def mha_tol(want: Tensor) -> dict:
@@ -556,3 +628,23 @@ def rg_lru_scan(a: Tensor, b: Tensor, h0: Tensor | None = None) -> Tensor:
         h = a[:, t] * h + b[:, t]
         out[:, t] = h
     return out
+
+
+def rg_lru_scan_bwd(a: Tensor, h: Tensor, h0: Tensor | None, dh: Tensor
+                    ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The backward of rg_lru_scan: a, h (its output), dh (B, S, D) f32;
+    h0 (B, D) or None (zeros). Walks t from S - 1 down with g_t = dh_t +
+    a_{t+1} * g_{t+1} (g_{S-1} = dh_{S-1}) and returns (da, db, dh0) with
+    db_t = g_t, da_t = g_t * h_{t-1} (h_{-1} = h0) and dh0 = a_0 * g_0.
+    Product and sum are two torch ops, each rounded on its own, which the
+    CUDA kernel repeats bit for bit."""
+    B, S, D = a.shape
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    zero = torch.zeros((B, D), dtype=a.dtype, device=a.device)
+    g = None
+    for t in range(S - 1, -1, -1):
+        g = dh[:, t] if g is None else dh[:, t] + a[:, t + 1] * g
+        db[:, t] = g
+        prev = h[:, t - 1] if t > 0 else (zero if h0 is None else h0)
+        da[:, t] = g * prev
+    return da, db, a[:, 0] * g

@@ -1,2 +1,2 @@
-# Entry points (port of `repro.launch`): the serving loop and the serve
-# and prefill step functions.
+# Entry points (port of `repro.launch`): the serving loop, the training
+# driver and the train, serve and prefill step functions.

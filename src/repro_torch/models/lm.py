@@ -1,7 +1,8 @@
-"""The model zoo's serving and prefill paths: `repro.models.lm` for the
-ATTN, LATTN, RGLRU, MLP and MOE blocks of decoder-only models (dense GQA,
-fine-grained MoE and the RG-LRU hybrid recurrentgemma), in decode mode and
-in the forward of train mode (prefill).
+"""The model zoo's serving, prefill and training paths: `repro.models.lm`
+for the ATTN, LATTN, RGLRU, MLP and MOE blocks of decoder-only models
+(dense GQA, fine-grained MoE and the RG-LRU hybrid recurrentgemma), in
+decode mode and in train mode (the prefill's forward, and `loss_fn` with
+its gradients).
 
 The paper's technique enters at two irregular-access points, each with a
 backend chosen by the cost model exactly as the JAX model chooses it
@@ -20,7 +21,13 @@ and logged by `launch/serve.py`. The path's kernels are
 `kops.moe_dispatch` (the batched FAA ticket of expert dispatch),
 `kops.rg_lru_scan` (the RG-LRU recurrence, in both modes) and
 `kops.flash_attention` (full-sequence attention; a CPU tensor takes its
-plain version, `kernels/ref.py` `mha`).
+plain version, `kernels/ref.py` `mha`). With grad enabled, attention and
+the scan run as autograd Functions (`FlashTrain`, JAX's flash_train
+custom_vjp, and `RgLruScan`) whose backwards are the kernels
+`kops.flash_attention_bwd` and `kops.rg_lru_scan_bwd`; the MoE block's
+gradient flows through the torch gathers and scatters around its integer
+tickets. With cfg.remat each layer runs under torch.utils.checkpoint (JAX
+remats per group: the same values).
 
 Weights live in `nn.Module`s under the JAX package's parameter names and
 layouts (`LM`: `embed`, `layers`, `final_norm`; `Attention`,
@@ -29,11 +36,11 @@ functions on tensors, as in JAX. Layers are held one by one (JAX stacks
 each pattern position over n_groups). KV caches are per layer,
 (B, W, Hkv, hd), and are written in place at slot = pos (pos % W for the
 local-attention ring), where JAX returns new caches: that keeps one cache
-in memory. The RG-LRU state is (B, R) float32 per layer.
+in memory. The RG-LRU state is (B, R) float32 per layer. Weights are
+built with requires_grad False (serving); `set_trainable` turns it on.
 
 Not ported yet (each raises NotImplementedError): the MLSTM, SLSTM, CROSS
-and EATTN blocks, the encdec and vlm families, and the backward of train
-mode (loss and gradients).
+and EATTN blocks and the encdec and vlm families.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ATTN, LATTN, MLP, MOE, RGLRU, ArchConfig
 from ..core import costmodel
@@ -137,8 +145,8 @@ def init_block(cfg: ArchConfig, kind: str, gen: torch.Generator,
 
 
 class Block(nn.Module):
-    """One block's weights as parameters under the JAX names (no
-    gradients: the port serves)."""
+    """One block's weights as parameters under the JAX names (built with
+    requires_grad False; see `set_trainable`)."""
 
     kind = ""
 
@@ -216,6 +224,15 @@ class LM(nn.Module):
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
 
 
+def set_trainable(model: LM, on: bool = True) -> LM:
+    """Give every parameter requires_grad = `on` (the train step's
+    optimizer init turns it on; serving and the prefill run without
+    gradients either way)."""
+    for p in model.parameters():
+        p.requires_grad_(on)
+    return model
+
+
 def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError unless the port serves and prefills this
     config."""
@@ -225,6 +242,25 @@ def check_supported(cfg: ArchConfig) -> None:
         for kind in kinds:
             if kind not in BLOCKS:
                 _not_ported(f"block kind {kind!r} ({cfg.name})")
+
+
+def param_leaves(model: LM) -> List[List[nn.Parameter]]:
+    """The parameters grouped as the leaves of JAX's init_params tree, in
+    jax.tree's flatten order (dict keys sorted: embed, final_norm, then
+    each pattern layer's blocks in order, each block's names sorted); a
+    leaf is the list of the n_groups parameters it stacks (layer
+    g * len(pattern) + i for group g of pattern layer i)."""
+    cfg = model.cfg
+    n = len(cfg.layer_pattern())
+    leaves = [[model.embed], [model.final_norm]]
+    for i, kinds in enumerate(cfg.layer_pattern()):
+        for b in range(len(kinds)):
+            names = sorted(name for name, _ in
+                           model.layers[i].blocks[b].named_parameters(
+                               recurse=False))
+            leaves += [[getattr(model.layers[g * n + i].blocks[b], name)
+                        for g in range(cfg.n_groups)] for name in names]
+    return leaves
 
 
 def layer_kinds(cfg: ArchConfig) -> List[Tuple[str, ...]]:
@@ -311,12 +347,41 @@ def _flash_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
     return out.to(q.dtype), m, l
 
 
+class FlashTrain(torch.autograd.Function):
+    """JAX's flash_train (custom_vjp) on the port's kernels: the forward is
+    kops.flash_attention with return_lse (B5), saving q, k, v, o and each
+    row's log-sum-exp; the backward is kops.flash_attention_bwd (B10),
+    which recomputes the probabilities from them: O(S d) residuals, never
+    the S x Skv scores. q (B, S, H, hd); k/v (B, Skv, Hkv, hd), read
+    through (B, H, S, hd) views."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        o, lse = kops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = kops.flash_attention_bwd(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), o, lse,
+            do.transpose(1, 2), causal=ctx.causal, window=ctx.window)
+        return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
+                None, None)
+
+
 def _flash(q: Tensor, k: Tensor, v: Tensor, causal: bool,
            window: int) -> Tensor:
-    """The forward of JAX's flash_train: kops.flash_attention (the kernel
-    on the card, its plain version on the CPU), reading the (B, S, H, hd)
-    activations through (B, H, S, hd) views. q (B, S, H, hd); k/v
-    (B, Skv, Hkv, hd) -> (B, S, H, hd)."""
+    """JAX's flash_train: kops.flash_attention (the kernel on the card,
+    its plain version on the CPU), reading the (B, S, H, hd) activations
+    through (B, H, S, hd) views; with grad enabled, through FlashTrain.
+    q (B, S, H, hd); k/v (B, Skv, Hkv, hd) -> (B, S, H, hd)."""
+    if torch.is_grad_enabled():
+        return FlashTrain.apply(q, k, v, causal, window)
     return kops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=causal, window=window).transpose(1, 2)
@@ -329,8 +394,9 @@ def chunked_flash(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     with kv_len, the plain chunked forward; a causal self-attention longer
     than 2 * block_k runs as min(8, S // block_k) query chunks, each over
     keys from the window's lower bound (0 without a window) to its causal
-    frontier only (end-aligned S < Skv slices); anything else is one
-    flash call."""
+    frontier only (end-aligned S < Skv slices; in the backward autograd
+    sums each chunk's k / v slice gradients); anything else is one flash
+    call."""
     if kv_len is not None:
         return _flash_fwd(q, k, v, causal, window, kv_len, block_k)[0]
     S, Skv = q.shape[1], k.shape[1]
@@ -457,6 +523,24 @@ def _decode_attn_masked(q: Tensor, k: Tensor, v: Tensor, valid: Tensor
 # ===========================================================================
 # RG-LRU block
 # ===========================================================================
+class RgLruScan(torch.autograd.Function):
+    """kops.rg_lru_scan (B8) with kops.rg_lru_scan_bwd (B11) as its
+    backward: the gradient JAX gets from autodiff of the scan. a, b
+    (B, S, D) float32; h0 (B, D) float32 or None."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = kops.rg_lru_scan(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        da, db, dh0 = kops.rg_lru_scan_bwd(a, h, h0, dh)
+        return da, db, None if h0 is None else dh0
+
+
 def rglru_block(p: Block, x: Tensor, cfg: ArchConfig,
                 state: Optional[Tensor] = None):
     """RecurrentGemma RG-LRU mixer. state (B, R) float32, or None (train
@@ -471,7 +555,10 @@ def rglru_block(p: Block, x: Tensor, cfg: ArchConfig,
     a = torch.exp(log_a)
     b = (torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
          * (xr * gate).float())
-    hs = kops.rg_lru_scan(a, b, state)
+    if torch.is_grad_enabled():
+        hs = RgLruScan.apply(a, b, state)
+    else:
+        hs = kops.rg_lru_scan(a, b, state)
     return hs.to(x.dtype) @ p.wo, hs[:, -1]
 
 
@@ -572,8 +659,8 @@ def _apply_layer(cfg: ArchConfig, layer: Layer, x: Tensor, mode: str,
                  backends: Dict[str, Backend]):
     """Apply one layer's blocks with residual connections, in "decode" mode
     (one token, caches and states carried) or "train" mode (the whole
-    sequence, no cache; forward only). Returns (x, cache_out); the
-    backends chosen are recorded in `backends`."""
+    sequence, no cache). Returns (x, cache_out); the backends chosen are
+    recorded in `backends`."""
     decode = mode == "decode"
     cache_out = []
     for kind, block, cache in zip(layer.kinds, layer.blocks, cache_in):
@@ -600,31 +687,46 @@ def _apply_layer(cfg: ArchConfig, layer: Layer, x: Tensor, mode: str,
 def _run_stack(model: LM, x: Tensor, mode: str, caches=None,
                pos: Optional[Tensor] = None):
     """Every layer in order, in "decode" or "train" mode (caches None in
-    train mode). Returns (x, caches, backends chosen)."""
+    train mode). With grad enabled in train mode and cfg.remat, each layer
+    runs under torch.utils.checkpoint (non-reentrant): its activations are
+    recomputed in the backward, kernels included. Returns (x, caches,
+    backends chosen)."""
     if mode not in ("decode", "train"):
         _not_ported(f"the {mode} mode")
     if caches is None:
         caches = [tuple(None for _ in layer.kinds) for layer in model.layers]
     backends: Dict[str, Backend] = {}
     new_caches = []
+    remat = (mode == "train" and model.cfg.remat
+             and torch.is_grad_enabled())
     for layer, cache in zip(model.layers, caches):
-        x, c = _apply_layer(model.cfg, layer, x, mode, cache, pos,
-                            backends)
+        if remat:
+            x, c = checkpoint(_apply_layer, model.cfg, layer, x, mode, cache,
+                              pos, backends, use_reentrant=False)
+        else:
+            x, c = _apply_layer(model.cfg, layer, x, mode, cache, pos,
+                                backends)
         new_caches.append(c)
     return x, new_caches, backends
 
 
-@torch.no_grad()
-def _forward(model: LM, cfg: ArchConfig, tokens: Tensor,
-             extra: Optional[Dict[str, Tensor]] = None) -> Tensor:
+def _body(model: LM, cfg: ArchConfig, tokens: Tensor,
+          extra: Optional[Dict[str, Tensor]] = None) -> Tensor:
     """Tokens (B, S) -> final hidden states (B, S, D): the train-mode
-    forward of a decoder-only model (the prefill's body). `extra` feeds the
-    vlm and encdec front ends, which are not ported."""
+    forward of a decoder-only model, differentiable where grad is enabled.
+    `extra` feeds the vlm and encdec front ends, which are not ported."""
     if cfg.family in ("encdec", "vlm"):
         _not_ported(f"the {cfg.family} family ({cfg.name})")
     x = embed_tokens(model, cfg, tokens)
     x, _, _ = _run_stack(model, x, "train")
     return x
+
+
+@torch.no_grad()
+def _forward(model: LM, cfg: ArchConfig, tokens: Tensor,
+             extra: Optional[Dict[str, Tensor]] = None) -> Tensor:
+    """_body without gradients: the prefill's forward."""
+    return _body(model, cfg, tokens, extra)
 
 
 def logits_fn(model: LM, cfg: ArchConfig, x: Tensor) -> Tensor:
@@ -634,6 +736,22 @@ def logits_fn(model: LM, cfg: ArchConfig, x: Tensor) -> Tensor:
     if cfg.vocab_padded != cfg.vocab:
         logits[..., cfg.vocab:] = -1e30
     return logits
+
+
+def loss_fn(model: LM, cfg: ArchConfig, batch: Dict[str, Tensor]) -> Tensor:
+    """JAX's loss_fn: the mean over the shifted positions of the f32
+    log-sum-exp of the logits minus the target's logit, the target being
+    the next token (or batch["labels"] shifted). batch["tokens"] (B, S)
+    ints. Differentiable where grad is enabled."""
+    tokens = batch["tokens"]
+    x = _body(model, cfg, tokens, extra=batch)
+    logits = logits_fn(model, cfg, x)
+    targets = batch.get("labels", tokens)
+    lg = logits[:, :-1].float()
+    tg = targets[:, 1:].to(torch.int64)
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, tg[..., None])[..., 0]
+    return (lse - picked).mean()
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,

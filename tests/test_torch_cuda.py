@@ -913,3 +913,91 @@ def test_txn_batches_on_cuda_equal_cpu(cuda_device):
                 assert x == y, a[0]
             else:
                 same(x, y, a[0])
+
+
+# ---------------------------------------------------------------------------
+# The train path's kernels: B5 with its log-sum-exp, B10 (the attention
+# backward) and B11 (the RG-LRU backward), and a reduced train step
+# ---------------------------------------------------------------------------
+def _bwd_inputs(case, dev, dtype):
+    """q, k, v, do of a FLASH_BWD_CASES case as (B, H, S, d) views on
+    `dev` in `dtype`, and the plain forward's o and lse."""
+    q, k, v, do = (torch.as_tensor(x).to(dev, dtype).transpose(1, 2)
+                   for x in lane_cases.flash_bwd_inputs(case))
+    causal, window = case[6], case[7]
+    o, lse = kref.flash_fwd_lse(q, k, v, causal=causal, window=window)
+    return (q, k, v, o, lse, do), dict(causal=causal, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", lane_cases.FLASH_BWD_CASES)
+def test_flash_attention_lse_matches_plain_version(cuda_device, case,
+                                                   dtype):
+    """B5 with return_lse: the output within mha_tol and each row's
+    log-sum-exp within 1e-5 (f32 sums in another order; +inf on rows
+    without a key) of ref.flash_fwd_lse."""
+    (q, k, v, _, lse_want, _), kw = _bwd_inputs(case, cuda_device, dtype)
+    o_want = kref.mha(q, k, v, **kw)
+    o, lse = kops.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(o, o_want, **kref.mha_tol(o_want))
+    torch.testing.assert_close(lse, lse_want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", lane_cases.FLASH_BWD_CASES)
+def test_flash_attention_bwd_matches_plain_version(cuda_device, case,
+                                                   dtype):
+    """B10 against ref.flash_bwd on the same inputs (q, k, v, o, lse, do
+    read through strided views), dq, dk and dv each within
+    ref.flash_bwd_tol; and one launch counted a call."""
+    from repro_torch.kernels import flash_attention_bwd as kfab
+    args, kw = _bwd_inputs(case, cuda_device, dtype)
+    before = kfab.flash_attention_bwd.launches
+    got = kops.flash_attention_bwd(*args, **kw)
+    assert kfab.flash_attention_bwd.launches == before + 1
+    for g, w in zip(got, kref.flash_bwd(*args, **kw)):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g, w, **kref.flash_bwd_tol(w))
+
+
+@pytest.mark.parametrize("case", lane_cases.RG_LRU_BWD_CASES)
+def test_rg_lru_scan_bwd_matches_plain_version(cuda_device, case):
+    """B11 bit for bit with ref.rg_lru_scan_bwd: da, db and dh0."""
+    a, b, h0, dh = (None if x is None else torch.as_tensor(x).to(
+        cuda_device) for x in lane_cases.rg_lru_bwd_inputs(case))
+    h = kref.rg_lru_scan(a, b, h0)
+    for g, w in zip(kops.rg_lru_scan_bwd(a, h, h0, dh),
+                    kref.rg_lru_scan_bwd(a, h, h0, dh)):
+        same(g, w)
+
+
+@pytest.mark.parametrize("name", ["smollm-135m", "recurrentgemma-9b"])
+def test_reduced_train_step_on_cuda_equals_cpu(cuda_device, name):
+    """One step of make_train_step (accum 2 of 2 x 40 tokens) on reduced
+    f32 weights built once and moved, TF32 off: loss and grad norm within
+    1e-5, the updated weights within 1e-4 relative and 1e-4 of max(1, each
+    leaf's largest magnitude) absolute (the same f32 math summed in other
+    orders; AdamW's first step moves each weight by about lr = 1e-3
+    whatever its gradient's size, so a gradient of the other sign would
+    differ by 2e-3)."""
+    import copy
+    from repro_torch.launch import steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.get(name).reduced()
+    cpu = lm.init_lm(cfg, seed=7, device="cpu")
+    gpu = copy.deepcopy(cpu).to(cuda_device)
+    toks = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, (2, 2, 40)).astype(np.int32))
+    out = []
+    for model in (cpu, gpu):
+        init, step = steps.make_train_step(cfg, lr=1e-3, warmup=1,
+                                           total_steps=4)
+        opt = init(model)
+        dev = model.embed.device
+        _, _, m = step(model, opt, {"tokens": toks.to(dev)}, 0)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    assert out[0] == pytest.approx(out[1], rel=1e-5)
+    for a, b in zip(cpu.parameters(), gpu.parameters()):
+        scale = max(float(a.detach().abs().max()), 1.0)
+        torch.testing.assert_close(b.detach().cpu(), a.detach(), rtol=1e-4,
+                                   atol=1e-4 * scale)
