@@ -33,8 +33,11 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    mha_tol, the lse within LSE_TOL) and flash_attention_bwd (dq, dk, dv
    within kernels/ref.py's flash_bwd_tol, a limit that must also reject
    the plain version with the causal frontier, or the window, one key
-   short); rg_lru_scan_bwd bit for bit on RG_LRU_BWD_CASES (S = 1, S off
-   its unroll, D off a warp, B > 1, h0 given and None).
+   short; the bf16 case over 1,100 keys, whose dK/dV grid splits the 16
+   query heads into groups, run twice must give the same bits);
+   rg_lru_scan_bwd bit for bit on RG_LRU_BWD_CASES (S = 1 and 5, D off a
+   warp and off 4, B > 1, h0 given and None, S inside one ring stage, S
+   wrapping its ring and ending mid-stage, S a whole number of stages).
    Then the owner-lane cases of kernels/lane_cases.py, the
    inputs tests/test_torch_cuda.py holds amo_apply and fused_apply to: every
    op on one word (16,384 FAAs, mixed codes with offsets outside [0, L) in
@@ -371,6 +374,13 @@ SMOLLM_TRAIN = dict(shape="train_4k", seq_len=4096, accum=2, batch=8,
 RGEMMA_TRAIN = dict(layers=3, seq_len=4096, accum=2, batch=2,
                     shape_batch=256)
 TRAIN_STEPS = 4          # timed, after one warm-up step (captured)
+# flash_attention_bwd's launch plans printed for each head dim: (B, S, Skv,
+# H, Hkv, d) of smollm-135m's first train call (d 64), deepseek-moe-16b's
+# heads on a 1,024-row chunk of 4,096 tokens (d 128, not trained here) and
+# recurrentgemma-9b's first train call (d 256, keys cut to its window)
+BWD_PLAN_SHAPES = (("smollm-135m train", (4, 1024, 4096, 9, 3, 64)),
+                   ("deepseek-moe-16b heads", (1, 1024, 4096, 16, 16, 128)),
+                   ("recurrentgemma-9b train", (1, 1024, 3071, 16, 1, 256)))
 TRAIN_LR = dict(lr=3e-4, warmup=2, total_steps=100)
 TRAIN_CHECK = dict(batch=4, seq_len=64, accum=2, steps=2,
                    lr=dict(lr=1e-3, warmup=1, total_steps=4))
@@ -1324,6 +1334,26 @@ def live_count(name: str, args, kw) -> int:
     return int(args[0].numel())
 
 
+def bwd_rates(args, kw, ms: float) -> dict:
+    """flash_attention_bwd at one call: the rate of the bound's 10 d flops
+    a live pair and head, the rate of the flops the kernels issue (bf16:
+    20 d on the tensor cores, S and dP in both passes and dV, dK and dQ
+    two products each, P and dS split in hi and lo; 24 d at d = 256, where
+    two warps share a key tile's S and dP; f32: 14 d on the CUDA cores)
+    and the launch plan (blocks, blocks an SM, shared memory, groups of
+    query heads)."""
+    import torch
+    from repro_torch.kernels import flash_attention_bwd as kfab
+    q, k = args[0], args[1]
+    B, H, S, d = q.shape
+    pairs = live_pairs(args, kw)
+    issued = (14 if q.dtype != torch.bfloat16 else 24 if d == 256 else 20)
+    return dict(tflops=10 * d * pairs / (ms * 1e-3) / 1e12,
+                issued_tflops=issued * d * pairs / (ms * 1e-3) / 1e12,
+                plan=kfab.launch_plan(B, S, k.shape[2], H, k.shape[1], d,
+                                      q.dtype, q.device))
+
+
 def phase_captured(calls: dict, names, phase: int) -> dict:
     """Each captured main-path call: kernel against plain version, both
     timed, and the bound of these inputs. A kernel's ms is the median of
@@ -1380,6 +1410,9 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
         del buf
         shapes = [None if a is None else tuple(a.shape) for a in args]
         live = live_count(name, args, kw)
+        extra = {}
+        if name == "flash_attention_bwd":
+            extra = bwd_rates(args, kw, ms)
         out_rms = (float(out_p.float().square().mean().sqrt())
                    if torch.is_tensor(out_p) and out_p.is_floating_point()
                    and out_p.numel() else None)
@@ -1392,7 +1425,7 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
                                serial_chain=serial_chain(name, args),
                                word_chain=word_chain(name, args),
                                component_chain=component_chain(name, args,
-                                                               kw)))
+                                                               kw), **extra))
         lib_txt = ("" if library_ms is None
                    else f", library {library_ms:.4f} ms") + (
             "" if lse_ms is None else f", with lse {lse_ms:.4f} ms")
@@ -1408,7 +1441,11 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
                f", longest component {rows[name][-1]['component_chain']} "
                f"of {rows[name][-1]['serial_chain']} live at the busiest "
                f"owner")
-            + ("" if out_rms is None else f" (output RMS {out_rms:.6g})"))
+            + ("" if out_rms is None else f" (output RMS {out_rms:.6g})")
+            + ("" if not extra else
+               f"; {extra['tflops']:.1f} TFLOP/s of the bound's 10 d flops "
+               f"a live pair and head, {extra['issued_tflops']:.1f} of the "
+               f"flops issued, launch plan {extra['plan']}"))
         del out_k, out_p
     for name in names:
         if not rows[name]:
@@ -1442,7 +1479,8 @@ def kernel_row(name: str, calls: list, launches: dict) -> dict:
                                   "read_ms",
                                   "max_abs_err", "out_rms",
                                   "serial_chain", "word_chain",
-                                  "component_chain")}
+                                  "component_chain", "tflops",
+                                  "issued_tflops", "plan") if k in r}
                for r in calls])
 
 
@@ -3751,6 +3789,35 @@ def edge_fault_rejected(args, kw, phase: str) -> dict:
                          f"accepts the {edge} one key short")
 
 
+def bwd_same_bits(device, case=(1, 16, 1, 256, 1100, 256, True, 300)
+                  ) -> str:
+    """flash_attention_bwd has no atomics: two runs of a bf16 case whose
+    dK/dV grid splits the query heads into groups (their partials summed
+    in group order) must give the same bits. Returns what it checked."""
+    import torch
+    from repro_torch.kernels import flash_attention_bwd as kfab, ref as kref
+    from repro_torch.kernels import lane_cases as lc
+    kw = dict(causal=case[6], window=case[7])
+    q, k, v, do = (torch.as_tensor(x).to(device, torch.bfloat16
+                                         ).transpose(1, 2)
+                   for x in lc.flash_bwd_inputs(case))
+    o, lse = kref.flash_fwd_lse(q, k, v, **kw)
+    B, H, S, d = q.shape
+    plan = kfab.launch_plan(B, S, k.shape[2], H, k.shape[1], d, q.dtype,
+                            device)
+    if plan["groups"] < 2:
+        raise AssertionError(f"phase 1: the same-bits case does not split "
+                             f"its query heads: {plan}")
+    runs = [kfab.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            for _ in range(2)]
+    for part, x, y in zip(("dq", "dk", "dv"), *runs):
+        if not torch.equal(x.view(torch.int16), y.view(torch.int16)):
+            raise AssertionError(f"phase 1: flash_attention_bwd's {part} "
+                                 f"differs between two runs of {case}")
+    return (f"flash_attention_bwd gives the same bits twice on {case} "
+            f"(bf16, {plan['groups']} groups of query heads)")
+
+
 def bwd_edge_fault_rejected(args, kw, phase: str) -> dict:
     """The limit flash_attention_bwd is held to (kernels/ref.py
     flash_bwd_tol) must reject a backward whose mask edge is one key off:
@@ -4389,13 +4456,14 @@ def main() -> int:
         smem = getattr(_build.load(lib), fn)
         smem.restype = ctypes.c_longlong
         log(f"{lib}: {smem()} bytes of dynamic shared memory {what}")
-    smem = _build.load("flash_attention_bwd"
-                       ).repro_flash_attention_bwd_smem_bytes
-    smem.restype = ctypes.c_longlong
-    log("flash_attention_bwd: dynamic shared memory of a dK/dV or dQ block "
-        + ", ".join(f"{smem(d)} bytes at d = {d}" for d in (64, 128, 256)))
+    from repro_torch.kernels import flash_attention_bwd as kfab
+    for what, shape in BWD_PLAN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            log(f"flash_attention_bwd launches at {what} {shape} {dtype}: "
+                f"{kfab.launch_plan(*shape, dtype, device)}")
 
     edge_cases(device)
+    log("phase 1: " + bwd_same_bits(device))
     log(f"phase 1: edge cases equal on all {len(KERNELS)} kernels")
     launches = {name: {} for name in KERNELS}    # kernel -> phase -> count
 

@@ -49,11 +49,31 @@
 //   g_t = dh_t + a_{t+1} * g_{t+1}   (g_{S-1} = dh_{S-1}),
 //   db_t = g_t,   da_t = g_t * h_{t-1}   (h_{-1} = h0, or 0),
 // and writes dh0 = a_0 * g_0 (B, D), each product and sum rounded on its
-// own (__fmul_rn, __fadd_rn), bit for bit with the plain version. Bound:
-// bytes (a, h and dh read once, da and db written once). Design, simple:
-// the forward's column walk run backwards, one thread per (b, d) column,
-// 128 a block, each thread issuing kUnroll steps' loads before their
-// dependent multiply-adds.
+// own (g = __fadd_rn(dh_t, __fmul_rn(a_{t+1}, g)), da = __fmul_rn(g,
+// h_{t-1}), dh0 = __fmul_rn(a_0, g_0)), bit for bit with the plain
+// version. Bound: bytes (a, h and dh read once, da and db written once:
+// 20 bytes an element against 3 flops), 0.100 ms at the train shape
+// (1 x 4,096 x 4,096). Like the forward, the walk needs bytes in flight.
+//
+// What the design does about it, for S >= kShortS (rg_lru_bwd_ring_kernel):
+// the forward's ring run in reverse. One warp per block walks 32 adjacent
+// columns of one row b, so the train shape gives 128 blocks (a thread a
+// column gave 32 blocks of 128 threads, bound by the latency of its
+// walk). Stage k of the ring holds steps [S - (k + 1) kSteps, S - k
+// kSteps) of a, of dh and of h shifted by one step (row r holds h at
+// t - 1: h0's row, or zeros, at t = 0), so the first stage ends at t =
+// S - 1 and only the last one, at t = 0, may be short: steps before 0
+// are zero-filled and not walked. kStages stages of kSteps steps x 32
+// columns of the three arrays take 96 KB of shared memory, filled by
+// cp.async (16-byte copies where D and the pointers allow, 4-byte ones
+// otherwise), so two blocks fit on an SM where B x D gives more blocks
+// than SMs. The walk loads a stage into registers ahead of the chain,
+// carries g and a_{t+1} in registers from one step to the one before it,
+// and stores db and da from registers, one coalesced 128-byte store of
+// each a step; stores take a predicate only in blocks whose columns run
+// past D, as in the forward. g starts at -0 and a_{t+1} at 0, so the
+// first step's sum returns dh_{S-1} bit for bit (-0 included) without a
+// branch. For S < kShortS: one thread per column (rg_lru_bwd_kernel).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -70,6 +90,8 @@ constexpr int kSteps = 32;                          // steps a stage
 constexpr int kStages = 8;                          // stages in the ring
 constexpr int kStageFloats = kSteps * kCols;        // of a, and of b
 constexpr int kRingBytes = 2 * kStages * kStageFloats * 4;
+// the backward's ring: a, dh and h (shifted by one step), 96 KB
+constexpr int kBwdRingBytes = 3 * kStages * kStageFloats * 4;
 
 __global__ void __launch_bounds__(kColThreads)
 rg_lru_column_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -103,6 +125,7 @@ rg_lru_column_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// S < kShortS: one thread per column walks it from t = S - 1 down
 __global__ void __launch_bounds__(kColThreads)
 rg_lru_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
                   const float* __restrict__ h0, const float* __restrict__ dh,
@@ -112,39 +135,14 @@ rg_lru_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
   if (d >= D) return;
   const long long row = blockIdx.y;
   const long long base = row * S * D + d;
-  const float* ap = a + base;
-  const float* hp = h + base;
-  const float* gp = dh + base;
-  float* dap = da + base;
-  float* dbp = db + base;
   const float h_init = h0 != nullptr ? h0[row * D + d] : 0.f;
-  long long t = S - 1;
-  float g = gp[t * D];                      // g_{S-1} = dh_{S-1}
-  dbp[t * D] = g;
-  dap[t * D] = __fmul_rn(g, t > 0 ? hp[(t - 1) * D] : h_init);
-  float a_next = ap[t * D];                 // a_{t+1} of the next step
-  for (--t; t + 1 >= kUnroll; t -= kUnroll) {
-    float av[kUnroll], gv[kUnroll], hv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long tt = t - u;
-      av[u] = ap[tt * D];
-      gv[u] = gp[tt * D];
-      hv[u] = tt > 0 ? hp[(tt - 1) * D] : h_init;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      g = __fadd_rn(gv[u], __fmul_rn(a_next, g));
-      dbp[(t - u) * D] = g;
-      dap[(t - u) * D] = __fmul_rn(g, hv[u]);
-      a_next = av[u];
-    }
-  }
-  for (; t >= 0; --t) {
-    g = __fadd_rn(gp[t * D], __fmul_rn(a_next, g));
-    dbp[t * D] = g;
-    dap[t * D] = __fmul_rn(g, t > 0 ? hp[(t - 1) * D] : h_init);
-    a_next = ap[t * D];
+  float g = -0.f, a_next = 0.f;   // the first step gives g = dh_{S-1}
+  for (long long t = S - 1; t >= 0; --t) {
+    const long long at = base + t * D;
+    g = __fadd_rn(dh[at], __fmul_rn(a_next, g));
+    db[at] = g;
+    da[at] = __fmul_rn(g, t > 0 ? h[at - D] : h_init);
+    a_next = a[at];
   }
   dh0[row * D + d] = __fmul_rn(a_next, g);  // a_0 * g_0
 }
@@ -307,6 +305,157 @@ cudaError_t launch_ring(const float* a, const float* b, const float* h0,
   return cudaGetLastError();
 }
 
+// Issue the copies of steps [t0, t0 + kSteps) of columns [c0, c0 + 32) of
+// one array into a ring slot of the backward (row r holds step t0 + r;
+// t0 may be negative). Steps in [0, S) come from src, step -1 from
+// `first` (h0's row) where it is given, and every other step, and columns
+// past D, are zero-filled. Lanes as in load_stage.
+template <bool kVec>
+__device__ __forceinline__ void load_stage_rev(float* slot, const float* src,
+                                               const float* first,
+                                               long long t0, long long S,
+                                               int D, int c0, int lane) {
+  if (kVec) {
+    const int c = 4 * (lane & 7);
+    const bool col_in = c0 + c < D;
+#pragma unroll
+    for (int i = 0; i < kSteps / 4; ++i) {
+      const int r = (lane >> 3) + 4 * i;
+      const long long t = t0 + r;
+      const bool in = col_in && t < S && (t >= 0 || (t == -1 && first));
+      const float* p = t >= 0 ? src + t * D : first;
+      cp_async16(smem_addr(slot + r * kCols + c), in ? p + c0 + c : src, in);
+    }
+  } else {
+    const bool col_in = c0 + lane < D;
+#pragma unroll 8
+    for (int r = 0; r < kSteps; ++r) {
+      const long long t = t0 + r;
+      const bool in = col_in && t < S && (t >= 0 || (t == -1 && first));
+      const float* p = t >= 0 ? src + t * D : first;
+      cp_async4(smem_addr(slot + r * kCols + lane), in ? p + c0 + lane : src,
+                in);
+    }
+  }
+}
+
+// The backward walk of one block, from t = S - 1 down: kStages - 1 stages
+// in flight ahead of the one walked. kAll as in ring_walk.
+template <bool kVec, bool kAll>
+__device__ __forceinline__ void ring_walk_bwd(
+    float* ring, const float* ar, const float* hr, const float* h0r,
+    const float* gr, float* dap, float* dbp, float* dh0p, long long S, int D,
+    int c0, int lane, bool live) {
+  const long long nst = (S + kSteps - 1) / kSteps;
+  const long long nfull = S / kSteps;
+  auto issue = [&](long long k) {
+    if (k < nst) {   // stage k goes to slot k % kStages
+      float* sa = ring + (k % kStages) * 3 * kStageFloats;
+      const long long t0 = S - (k + 1) * kSteps;
+      load_stage_rev<kVec>(sa, ar, nullptr, t0, S, D, c0, lane);
+      load_stage_rev<kVec>(sa + kStageFloats, gr, nullptr, t0, S, D, c0,
+                           lane);
+      load_stage_rev<kVec>(sa + 2 * kStageFloats, hr, h0r, t0 - 1, S, D, c0,
+                           lane);
+    }
+    cp_async_commit();   // one group a stage, empty past the end
+  };
+  for (int k = 0; k < kStages - 1; ++k) issue(k);
+
+  float g = -0.f, a_next = 0.f;   // the first step gives g = dh_{S-1}
+  long long st = 0;
+  for (; st < nfull; ++st) {
+    issue(st + kStages - 1);   // into the slot walked last round
+    cp_async_wait<kStages - 1>();
+    __syncwarp();              // every lane's copies of stage st are in
+    const float* sa = ring + slot_of(st) * 3 * kStageFloats + lane;
+    const float* sg = sa + kStageFloats;
+    const float* sh = sa + 2 * kStageFloats;
+    const long long t0 = S - (st + 1) * kSteps;
+    float* daq = dap + t0 * D;
+    float* dbq = dbp + t0 * D;
+    float av[kSteps], gv[kSteps], hv[kSteps];   // loaded ahead of the chain
+#pragma unroll
+    for (int r = 0; r < kSteps; ++r) {
+      av[r] = sa[r * kCols];
+      gv[r] = sg[r * kCols];
+      hv[r] = sh[r * kCols];
+    }
+#pragma unroll
+    for (int r = kSteps - 1; r >= 0; --r) {
+      g = __fadd_rn(gv[r], __fmul_rn(a_next, g));
+      a_next = av[r];
+      const float dav = __fmul_rn(g, hv[r]);
+      if (kAll) {
+        dbq[static_cast<long long>(r) * D] = g;
+        daq[static_cast<long long>(r) * D] = dav;
+      } else {
+        store_if(dbq + static_cast<long long>(r) * D, g, live);
+        store_if(daq + static_cast<long long>(r) * D, dav, live);
+      }
+    }
+    __syncwarp();              // the slot is free for the next issue
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+  if (st < nst) {              // the last stage, at t = 0, short of kSteps
+    const float* sa = ring + slot_of(st) * 3 * kStageFloats + lane;
+    const float* sg = sa + kStageFloats;
+    const float* sh = sa + 2 * kStageFloats;
+    const long long t0 = S - (st + 1) * kSteps;   // < 0
+    for (int r = kSteps - 1; t0 + r >= 0; --r) {
+      g = __fadd_rn(sg[r * kCols], __fmul_rn(a_next, g));
+      a_next = sa[r * kCols];
+      const long long t = t0 + r;
+      store_if(dbp + t * D, g, live);
+      store_if(dap + t * D, __fmul_rn(g, sh[r * kCols]), live);
+    }
+  }
+  store_if(dh0p, __fmul_rn(a_next, g), live);   // a_0 * g_0
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kCols)
+rg_lru_bwd_ring_kernel(const float* __restrict__ a,
+                       const float* __restrict__ h,
+                       const float* __restrict__ h0,
+                       const float* __restrict__ dh, float* __restrict__ da,
+                       float* __restrict__ db, float* __restrict__ dh0,
+                       long long S, int D) {
+  extern __shared__ __align__(16) float ring[];   // [kStages][3][kSteps][32]
+  const int lane = threadIdx.x;
+  const int c0 = blockIdx.x * kCols;
+  const long long row = blockIdx.y;
+  const bool live = c0 + lane < D;
+  const long long base = row * S * D;
+  const float* h0r = h0 != nullptr ? h0 + row * D : nullptr;
+  float* dap = da + base + c0 + lane;
+  float* dbp = db + base + c0 + lane;
+  float* dh0p = dh0 + row * D + c0 + lane;
+  if (c0 + kCols <= D)
+    ring_walk_bwd<kVec, true>(ring, a + base, h + base, h0r, dh + base, dap,
+                              dbp, dh0p, S, D, c0, lane, live);
+  else
+    ring_walk_bwd<kVec, false>(ring, a + base, h + base, h0r, dh + base, dap,
+                               dbp, dh0p, S, D, c0, lane, live);
+}
+
+template <bool kVec>
+cudaError_t launch_bwd_ring(const float* a, const float* h, const float* h0,
+                            const float* dh, float* da, float* db,
+                            float* dh0, long long B, long long S, int D,
+                            cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      rg_lru_bwd_ring_kernel<kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdRingBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>((D + kCols - 1) / kCols),
+                  static_cast<unsigned>(B));
+  rg_lru_bwd_ring_kernel<kVec><<<grid, kCols, kBwdRingBytes, stream>>>(
+      a, h, h0, dh, da, db, dh0, S, D);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // h0 may be null (zeros). All pointers f32, contiguous.
@@ -343,13 +492,30 @@ extern "C" int repro_rg_lru_scan_bwd(const void* a, const void* h,
                                      long long B, long long S, int D,
                                      void* stream) {
   if (B <= 0 || S <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid(static_cast<unsigned>((D + kColThreads - 1) / kColThreads),
-                  static_cast<unsigned>(B));
-  rg_lru_bwd_kernel<<<grid, kColThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(h),
-      static_cast<const float*>(h0), static_cast<const float*>(dh),
-      static_cast<float*>(da), static_cast<float*>(db),
-      static_cast<float*>(dh0), S, D);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* af = static_cast<const float*>(a);
+  const float* hf = static_cast<const float*>(h);
+  const float* h0f = static_cast<const float*>(h0);
+  const float* dhf = static_cast<const float*>(dh);
+  float* daf = static_cast<float*>(da);
+  float* dbf = static_cast<float*>(db);
+  float* dh0f = static_cast<float*>(dh0);
+  if (S < kShortS) {
+    const dim3 grid(static_cast<unsigned>((D + kColThreads - 1) /
+                                          kColThreads),
+                    static_cast<unsigned>(B));
+    rg_lru_bwd_kernel<<<grid, kColThreads, 0, st>>>(af, hf, h0f, dhf, daf,
+                                                    dbf, dh0f, S, D);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const bool vec =
+      D % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(h) |
+        reinterpret_cast<uintptr_t>(h0) | reinterpret_cast<uintptr_t>(dh)) &
+       15) == 0;
+  return static_cast<int>(
+      vec ? launch_bwd_ring<true>(af, hf, h0f, dhf, daf, dbf, dh0f, B, S, D,
+                                  st)
+          : launch_bwd_ring<false>(af, hf, h0f, dhf, daf, dbf, dh0f, B, S, D,
+                                   st));
 }

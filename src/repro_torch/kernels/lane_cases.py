@@ -689,8 +689,14 @@ def moe_dispatch_cases(seed: int = 0) -> List[MoeCase]:
 # ---------------------------------------------------------------------------
 # (B, H, Hkv, S, Skv, d, causal, window): 1, 3 and 16 query heads a kv head;
 # d 64, 128 and 256; S == Skv and end-aligned S < Skv; windows 0 and
-# shorter than S; non-causal; S and Skv off the kernel's 32-row tiles; S >
-# Skv (causal rows without a key)
+# shorter than S; non-causal; S and Skv off the kernels' 32-row tiles; S >
+# Skv (causal rows without a key). Then, for the tensor-core tilings (64-
+# and 32-key tiles, 64- and 32-row steps, two warps sharing 16 keys at d =
+# 256, kv heads' query heads split into groups on a small grid): S and Skv
+# off every tile multiple and off 16; g = 16 with Hkv = 1 at d = 256,
+# windowed, over 600 and 1,100 keys (16 and 8 groups on 132 SMs); g = 1 at
+# d = 256; B > 1 with Hkv > 1 at d = 64 (a grid of 264 blocks, one group)
+# and at d = 128; a non-causal Skv > S.
 FLASH_BWD_CASES = [
     (2, 4, 4, 64, 64, 64, True, 0),
     (1, 9, 3, 100, 100, 64, True, 0),
@@ -701,11 +707,24 @@ FLASH_BWD_CASES = [
     (2, 4, 1, 33, 33, 64, False, 0),
     (1, 3, 1, 65, 97, 128, False, 20),
     (1, 2, 1, 12, 5, 64, True, 0),
+    (1, 6, 3, 77, 203, 64, True, 0),
+    (1, 16, 1, 300, 600, 256, True, 200),
+    (1, 16, 1, 256, 1100, 256, True, 300),
+    (1, 2, 2, 100, 180, 256, True, 0),
+    (4, 6, 3, 300, 1400, 64, True, 0),
+    (3, 4, 2, 72, 136, 128, True, 0),
+    (2, 8, 2, 40, 300, 128, False, 0),
 ]
-# (B, S, D, h0 given): S = 1; S off the kernel's unroll of 8; D off a warp;
-# B > 1; h0 given and None
-RG_LRU_BWD_CASES = [(3, 1, 64, True), (2, 37, 50, True), (1, 1000, 33, False),
-                    (4, 300, 4096, False), (2, 20, 96, True)]
+# (B, S, D, h0 given): S = 1 and 5 (one thread a column below S = 8); D
+# off a warp; B > 1; h0 given and None; S inside one ring stage (32 steps);
+# S wrapping the ring (8 stages) twice and ending mid-stage; S a whole
+# number of stages (t = 0 in a full stage, h0 through the ring); D off 32
+# and off 4 (4-byte copies) with B > 1; D off 32 with 16-byte copies
+RG_LRU_BWD_CASES = [(3, 1, 64, True), (2, 5, 64, True), (2, 37, 50, True),
+                    (1, 1000, 33, False), (4, 300, 4096, False),
+                    (2, 20, 96, True), (1, 2 * 8 * 32 + 5, 64, True),
+                    (2, 256, 64, True), (3, 200, 70, True),
+                    (2, 300, 100, False)]
 
 
 def flash_bwd_inputs(case, seed: int = 0):

@@ -960,6 +960,23 @@ def test_flash_attention_bwd_matches_plain_version(cuda_device, case,
         torch.testing.assert_close(g, w, **kref.flash_bwd_tol(w))
 
 
+def test_flash_attention_bwd_takes_unaligned_bf16_views(cuda_device):
+    """B10's bf16 kernels copy 16-byte rows: q, k, v and do given as views
+    whose base is off 16 bytes (a d-slice of wider rows) and whose strides
+    are not multiples of 8 still give ref.flash_bwd's gradients within
+    flash_bwd_tol (the wrapper copies such inputs first)."""
+    case = (2, 6, 3, 77, 203, 64, True, 0)
+    kw = dict(causal=True, window=0)
+    q, k, v, do = (torch.as_tensor(np.pad(x, [(0, 0)] * 3 + [(4, 5)])).to(
+        cuda_device, torch.bfloat16)[..., 4:4 + 64].transpose(1, 2)
+        for x in lane_cases.flash_bwd_inputs(case))
+    assert q.data_ptr() % 16 and q.stride(2) % 8
+    o, lse = kref.flash_fwd_lse(q, k, v, **kw)
+    for g, w in zip(kops.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                    kref.flash_bwd(q, k, v, o, lse, do, **kw)):
+        torch.testing.assert_close(g, w, **kref.flash_bwd_tol(w))
+
+
 @pytest.mark.parametrize("case", lane_cases.RG_LRU_BWD_CASES)
 def test_rg_lru_scan_bwd_matches_plain_version(cuda_device, case):
     """B11 bit for bit with ref.rg_lru_scan_bwd: da, db and dh0."""
