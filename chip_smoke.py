@@ -38,6 +38,14 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    rg_lru_scan_bwd bit for bit on RG_LRU_BWD_CASES (S = 1 and 5, D off a
    warp and off 4, B > 1, h0 given and None, S inside one ring stage, S
    wrapping its ring and ending mid-stage, S a whole number of stages).
+   The xLSTM kernels on kernels/lane_cases.py's cases, within
+   kernels/ref.py's xlstm_tol, kernel and plain version on the card:
+   mlstm_chunkwise on MLSTM_CHUNK_CASES (chunks of 6, 8, 100 (not a power
+   of two), 128 and 48; hd 16 and 512; B 1 and 3; from zeros and from a
+   carried state), mlstm_step on MLSTM_STEP_CASES (up to 5 steps in place
+   on one state, which must be the tensors given; hd 16 and 512, B up to
+   16; an hd 16 case whose |q . n'| stays well above 1), slstm_scan on SLSTM_CASES (S = 1 at R 64 and 2048, short and
+   ragged S, B 3, rz in bf16 and f32, 4,096 steps of its grid barrier).
    Then the owner-lane cases of kernels/lane_cases.py, the
    inputs tests/test_torch_cuda.py holds amo_apply and fused_apply to: every
    op on one word (16,384 FAAs, mixed codes with offsets outside [0, L) in
@@ -304,6 +312,31 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    of max(1, each leaf's largest magnitude) absolute); the train kernels
    must launch on the card.
 
+19. Serving xlstm-1.3b at full width (48 layers: 42 mLSTM and 6 sLSTM in
+   6 groups of 7 + 1; d_model 2048, 4 heads of 512, sLSTM width 2048,
+   vocab 50,304, bfloat16, seeded weights, the count from the model)
+   through repro_torch.launch.serve as in phase 5, with XLSTM_SERVE's 128
+   requests (decode_32k's batch, uncut: the state, 176 MB a sequence, does
+   not grow with context) of 256 prompt tokens and 64 generated, 320
+   decode steps; the earlier models are freed first. mlstm_step must
+   launch 42 times a step and slstm_scan 6, nothing else; the first and
+   last step's calls are held to the plain versions within xlstm_tol and
+   timed as in phase 3; the last PROFILE_STEPS steps are traced.
+20. The prefill step of the same model on 1 x 32,768 tokens (prefill_32k,
+   batch cut 32 -> 1, printed), three times as in phase 8: the last calls
+   of mlstm_chunkwise (the last mLSTM layer) and slstm_scan (the last
+   sLSTM layer) are held to the plain versions (slstm_scan's error in h_t
+   printed at SLSTM_ERR_AT positions and the last) and timed; mlstm_chunkwise
+   must launch 42 times and slstm_scan 6 a prefill, nothing else, and the
+   logits must be finite. Printed, not gated: the last-position logits of
+   a prefill of XLSTM_CROSS of phase 19's prompts against a decode of them.
+21. CPU against GPU for reduced xlstm-1.3b in float32 (weights built once
+   and moved, TF32 off): the forward's logits at every position of 48
+   tokens (one chunk), 384 (three chunks of 128) and 47 (odd: a step a
+   position), with the launches each must make, and 48 teacher-forced
+   decode steps, within LOGITS_TOL; on both devices decode at each step
+   equal to the forward within DECODE_VS_PREFILL_TOL.
+
 Before the last line it prints the card's name and power limit, the
 median time per batch of each data-structure arm and per decode step, the
 prefills' and train steps' times, one JSON line with the report, and one
@@ -392,6 +425,26 @@ TRAIN_CHECK = dict(batch=4, seq_len=64, accum=2, steps=2,
 # (a zero-initialized norm leaf has a scale of about lr after two steps);
 # a gradient of the other sign would move it by 2 lr = 2e-3
 TRAIN_CHECK_TOL = dict(loss_rtol=1e-5, weight_rtol=1e-4)
+# phases 19-21: xlstm-1.3b served at full width with decode_32k's batch of
+# 128 uncut (its state does not grow with context: 176 MB a sequence), 256
+# prompt tokens and 64 generated as phases 5 and 7; its prefill step at
+# the prefill_32k shape, batch cut 32 -> 1 (PREFILL) as phases 5b and 8,
+# whose decode cross-check takes XLSTM_CROSS of the served prompts; and
+# the reduced model in f32 at XLSTM_LENS: one chunk of 48, three of 128,
+# and an odd length (a step a position), with XLSTM_STEPS decode steps
+XLSTM = "xlstm-1.3b"
+XLSTM_SERVE = dict(arch=XLSTM, batch=128, prompt_len=256, gen_len=64,
+                   shape="decode_32k", shape_batch=128)
+XLSTM_CROSS = 8
+XLSTM_LENS = (48, 384, 47)
+XLSTM_STEPS = 48
+# the xLSTM kernels (B12-B14): held within kernels/ref.py xlstm_tol; their
+# kernel times take as many cold calls as fit in about 1 s (at least 3;
+# a prefill call of B12 or B14 takes tens of ms), and slstm_scan's plain
+# version, a Python loop of about a dozen launches a step (seconds at
+# 32,768 steps), is timed on one call
+XLSTM_KERNELS = ("mlstm_chunkwise", "mlstm_step", "slstm_scan")
+SLSTM_ERR_AT = (0, 1000, 10000)     # positions (and the last) printed
 # written before each timed call: > the 50 MB L2, and about 0.3 ms of
 # work, so the host has launched the timed call before the card reaches it
 L2_FLUSH_BYTES = 2 ** 30
@@ -682,6 +735,14 @@ KERNELS = {
     # pallas_call); `replaces` names it
     "txn_group_apply": ("src/repro_torch/kernels/csrc/txn_lane.cu",
                         "src/repro/kernels/ops.py:74"),
+    # no TPU counterparts: the JAX model's xLSTM cells are jnp (the
+    # chunkwise mLSTM, the mLSTM step, the sLSTM scan's step)
+    "mlstm_chunkwise": ("src/repro_torch/kernels/csrc/mlstm.cu",
+                        "src/repro/models/lm.py:755"),
+    "mlstm_step": ("src/repro_torch/kernels/csrc/mlstm.cu",
+                   "src/repro/models/lm.py:830"),
+    "slstm_scan": ("src/repro_torch/kernels/csrc/slstm.cu",
+                   "src/repro/models/lm.py:883"),
 }
 # the kernels each main path runs (phase 2, phase 5, phase 7; a prefill's
 # come from expected_prefill_launches)
@@ -693,9 +754,11 @@ RGEMMA_DECODE_KERNELS = ("rg_lru_scan",)
 # the train path's kernels (phases 16 and 17)
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
 RGEMMA_TRAIN_KERNELS = TRAIN_KERNELS + ("rg_lru_scan", "rg_lru_scan_bwd")
+XLSTM_DECODE_KERNELS = ("mlstm_step", "slstm_scan")
 # the model kernels: their plain versions are timed as the kernels are
-# (cold, 10 calls); the data structures' serial walks once
-FLOAT_KERNELS = MODEL_KERNELS + RGEMMA_TRAIN_KERNELS
+# (cold, 10 calls; slstm_scan's once); the data structures' serial walks
+# once
+FLOAT_KERNELS = MODEL_KERNELS + RGEMMA_TRAIN_KERNELS + XLSTM_KERNELS
 # why a kernel's row has no library time
 NO_LIBRARY = {
     "amo_apply": "no single PyTorch call",
@@ -707,6 +770,10 @@ NO_LIBRARY = {
     "rg_lru_scan_bwd": "PyTorch has no eager reverse linear-recurrence "
                        "scan",
     "txn_group_apply": "no TPU counterpart; no single PyTorch call",
+    "mlstm_chunkwise": "no TPU counterpart; no single PyTorch call "
+                       "computes a chunkwise mLSTM",
+    "mlstm_step": "no TPU counterpart; no single PyTorch call",
+    "slstm_scan": "no TPU counterpart; PyTorch has no eager sLSTM scan",
 }
 
 
@@ -715,7 +782,7 @@ def wrappers():
                                      flash_attention_bwd as kfab,
                                      flash_decode as kfd, hash_probe as khp,
                                      moe_dispatch as kmd, rg_lru as krg,
-                                     txn_lane as ktx)
+                                     txn_lane as ktx, xlstm as kx)
     return {"amo_apply": kamo.amo_apply, "fused_apply": kamo.fused_apply,
             "txn_group_apply": ktx.txn_group_apply,
             "hash_find": khp.hash_find, "hash_insert": khp.hash_insert,
@@ -724,7 +791,9 @@ def wrappers():
             "flash_attention": kfa.flash_attention,
             "flash_attention_bwd": kfab.flash_attention_bwd,
             "rg_lru_scan": krg.rg_lru_scan,
-            "rg_lru_scan_bwd": krg.rg_lru_scan_bwd}
+            "rg_lru_scan_bwd": krg.rg_lru_scan_bwd,
+            "mlstm_chunkwise": kx.mlstm_chunkwise,
+            "mlstm_step": kx.mlstm_step, "slstm_scan": kx.slstm_scan}
 
 
 def plain_versions():
@@ -735,7 +804,8 @@ def plain_versions():
         "flash_attention": plain_mha,
         "flash_attention_bwd": kref.flash_bwd,
         "rg_lru_scan": kref.rg_lru_scan,
-        "rg_lru_scan_bwd": kref.rg_lru_scan_bwd}
+        "rg_lru_scan_bwd": kref.rg_lru_scan_bwd} | {
+        name: getattr(kref, name) for name in XLSTM_KERNELS}
 
 
 def plain_mha(q, k, v, return_lse=False, **kw):
@@ -909,12 +979,15 @@ LSE_TOL = dict(rtol=1e-5, atol=1e-5)
 def kernel_err(name: str, got, want, what: str):
     """Bit for bit for the integer kernels, rg_lru_scan and
     rg_lru_scan_bwd; DECODE_TOL for flash_decode, kernels/ref.py's mha_tol
-    for flash_attention (LSE_TOL for its lse) and flash_bwd_tol for each
-    of flash_attention_bwd's outputs."""
+    for flash_attention (LSE_TOL for its lse), flash_bwd_tol for each of
+    flash_attention_bwd's outputs and xlstm_tol for each of the xLSTM
+    kernels'."""
     import torch
     from repro_torch.kernels import ref as kref
     if name == "flash_decode":
         return decode_err(got, want, what)
+    if name in XLSTM_KERNELS:
+        return xlstm_err(name, got, want, what)
     if name == "flash_attention" and isinstance(got, tuple):
         try:
             torch.testing.assert_close(got[1], want[1], **LSE_TOL)
@@ -967,6 +1040,36 @@ def kernel_err(name: str, got, want, what: str):
     return err
 
 
+def xlstm_err(name: str, got, want, what: str) -> float:
+    """Each output of an xLSTM kernel within kernels/ref.py xlstm_tol of
+    the plain version's (raises otherwise). Returns the largest abs
+    error."""
+    import torch
+    from repro_torch.kernels import ref as kref
+    terms, errs = kref.xlstm_terms(name, got[0]), []
+    for part, g, w in zip("01234", got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name} at {what}: output {part} {g.dtype} "
+                                 f"{tuple(g.shape)} against {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        try:
+            torch.testing.assert_close(g, w, **kref.xlstm_tol(w, terms))
+        except AssertionError as e:
+            raise AssertionError(f"{name} at {what}: output {part} != plain "
+                                 f"version: {e}") from None
+        errs.append(float((g - w).abs().max()) if g.numel() else 0.0)
+    return max(errs)
+
+
+def fresh(name: str, args) -> list:
+    """The arguments of a call, with copies of the state mlstm_step
+    updates in place (so that the kernel and the plain version, and each
+    timing, start from the kept state)."""
+    if name != "mlstm_step":
+        return list(args)
+    return list(args[:5]) + [a.clone() for a in args[5:]]
+
+
 def find_probes(table, starts, keys, mask, nslots, rec_w, max_probes=8):
     """Records each live lookup reads before it decides (data-dependent
     bytes of the find bound)."""
@@ -1013,7 +1116,27 @@ def bound_flops(name: str, args, kw) -> tuple:
     if name in ("rg_lru_scan", "rg_lru_scan_bwd"):
         per = 2 if name == "rg_lru_scan" else 3
         return per * args[0].numel(), PEAK_FLOPS["torch.float32"]
-    return 0, PEAK_FLOPS["torch.float32"]
+    f32 = PEAK_FLOPS["torch.float32"]
+    if name == "mlstm_chunkwise":
+        return mlstm_cell_flops(*args[0].shape), f32
+    if name == "mlstm_step":        # C' and q . C': 2 multiply-adds a C entry
+        B, H, hd = args[0].shape
+        return 4 * B * H * hd * hd, f32
+    if name == "slstm_scan":        # h_{t-1} rz: R^2 multiply-adds a step
+        B, S, R = args[0].shape
+        return 2 * B * S * R * R, f32
+    return 0, f32
+
+
+def mlstm_cell_flops(B: int, S: int, H: int, hd: int) -> int:
+    """The chunkwise mLSTM's f32 operations: 2 per multiply-add of q . C
+    and of the C update (c hd^2 each a chunk), and of the scores and
+    scores . v over the causal pairs s <= t only (c (c + 1) / 2 hd each a
+    chunk: the function needs no score above the diagonal), 4 B H S hd^2
+    + 2 B H S (c + 1) hd, c = ref.mlstm_chunk(S)."""
+    from repro_torch.kernels import ref as kref
+    c = kref.mlstm_chunk(S)
+    return 4 * B * H * S * hd * hd + 2 * B * H * S * (c + 1) * hd
 
 
 def bound(name: str, args, kw, out) -> tuple:
@@ -1036,7 +1159,9 @@ def bound_bytes(name: str, args, kw, out) -> float:
     (descriptors, starts, keys, vals) only the live rows, since a masked
     row is decided by its mask byte; the shard in full where the function
     returns a new one (amo_apply, fused_apply, hash_insert), and for the
-    find only the records its live probes read."""
+    find only the records its live probes read. The xLSTM kernels read
+    every input and write every output once (mlstm_step reads C and writes
+    it back: both count)."""
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts)
     if name == "flash_decode":
@@ -1274,6 +1399,35 @@ def edge_cases(device) -> None:
         cases.append(("rg_lru_scan_bwd", kops.rg_lru_scan_bwd,
                       kref.rg_lru_scan_bwd,
                       (a, kref.rg_lru_scan(a, b, h0), h0, dh), {}))
+    # the xLSTM kernels on kernels/lane_cases.py's cases, kernel and plain
+    # version on the card (B13 walks its steps in place on one state, the
+    # plain version on a copy)
+    for case in lc.MLSTM_CHUNK_CASES:
+        xs, st = lc.mlstm_inputs(*case)
+        cases.append(("mlstm_chunkwise", kops.mlstm_chunkwise,
+                      kref.mlstm_chunkwise,
+                      tuple(t(x, torch.float32) for x in (*xs, *st)), {}))
+    for B_, H_, hd_, steps, n_scale in lc.MLSTM_STEP_CASES:
+        xs, st = lc.mlstm_inputs(B_, steps, H_, hd_, True, n_scale=n_scale)
+        xs = [t(x, torch.float32) for x in xs]
+        state = [t(x, torch.float32) for x in st]
+        plain_state = [x.clone() for x in state]
+        for step in range(steps):
+            now = [x[:, step].contiguous() for x in xs]
+            got = kops.mlstm_step(*now, *state)
+            if any(a is not b for a, b in zip(got[1:], state)):
+                raise AssertionError("phase 1: mlstm_step did not update "
+                                     "the state it was given in place")
+            kernel_err("mlstm_step", got,
+                       kref.mlstm_step(*now, *plain_state),
+                       f"edge case {(B_, H_, hd_, n_scale)} step {step}")
+    for B_, S_, R_, bf16 in lc.SLSTM_CASES:
+        xs, st = lc.slstm_inputs(B_, S_, R_)
+        args = [t(x, torch.float32) for x in (*xs, *st)]
+        if bf16:
+            args[4] = args[4].to(torch.bfloat16)
+        cases.append(("slstm_scan", kops.slstm_scan, kref.slstm_scan,
+                      tuple(args), {}))
     for name, kernel, plain, args, kw in cases:
         kernel_err(name, kernel(*args, **kw), plain(*args, **kw),
                    "edge cases")
@@ -1317,7 +1471,10 @@ HEADLINE = {"amo_apply": "ht rdma_unfused insert last",
             "flash_attention_bwd": "smollm train",
             "rg_lru_scan": "prefill",
             "rg_lru_scan_bwd": "rgemma train",
-            "txn_group_apply": "txn rdma_fused"}
+            "txn_group_apply": "txn rdma_fused",
+            "mlstm_chunkwise": "xlstm prefill",
+            "mlstm_step": "xlstm-1.3b last step",
+            "slstm_scan": "xlstm prefill"}
 
 
 def live_count(name: str, args, kw) -> int:
@@ -1332,6 +1489,14 @@ def live_count(name: str, args, kw) -> int:
     if name in ("flash_attention", "flash_attention_bwd"):
         return live_pairs(args, kw)
     return int(args[0].numel())
+
+
+def slstm_drift(got, want, S: int) -> dict:
+    """slstm_scan's largest error in h_t at SLSTM_ERR_AT positions and the
+    last: whether the two trajectories part over the scan."""
+    at = sorted({t for t in SLSTM_ERR_AT if t < S} | {S - 1})
+    return {t: float((got[0][:, t] - want[0][:, t]).abs().max())
+            for t in at}
 
 
 def bwd_rates(args, kw, ms: float) -> dict:
@@ -1374,12 +1539,13 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
         if flush is None:
             flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
                                 device=args[0].device)
-        out_k = kernel(*args, **kw)
+        out_k = kernel(*fresh(name, args), **kw)
         torch.cuda.synchronize()
-        if name in FLOAT_KERNELS:
-            out_p = plain(*args, **kw)
-            plain_ms = cuda_ms_cold(lambda: plain(*args, **kw), 10, flush)
-        else:                       # the serial walks take seconds: once
+        targs = fresh(name, args)   # the timings' (mlstm_step: a copy)
+        if name in FLOAT_KERNELS and name != "slstm_scan":
+            out_p = plain(*fresh(name, args), **kw)
+            plain_ms = cuda_ms_cold(lambda: plain(*targs, **kw), 10, flush)
+        else:       # the serial walks and the sLSTM's step loop: once
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
             t0.record()
@@ -1389,8 +1555,11 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
             plain_ms = t0.elapsed_time(t1)
         err = kernel_err(name, out_k, out_p, tag)
         reps = 20 if serial_chain(name, args) is not None else 100
-        ms = cuda_ms_cold(lambda: kernel(*args, **kw), reps, flush)
-        warm_ms = cuda_ms(lambda: kernel(*args, **kw), reps)
+        if name in XLSTM_KERNELS:
+            one = cuda_ms(lambda: kernel(*targs, **kw), 1)
+            reps = max(3, min(reps, int(1000 / max(one, 1e-3))))
+        ms = cuda_ms_cold(lambda: kernel(*targs, **kw), reps, flush)
+        warm_ms = cuda_ms(lambda: kernel(*targs, **kw), reps)
         lse_ms = None
         if name == "flash_attention" and not kw.get("return_lse"):
             lse_ms = cuda_ms_cold(
@@ -1413,6 +1582,10 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
         extra = {}
         if name == "flash_attention_bwd":
             extra = bwd_rates(args, kw, ms)
+        if name == "slstm_scan":
+            S = args[0].shape[1]
+            extra = dict(us_per_step=ms * 1e3 / S,
+                         drift=slstm_drift(out_k, out_p, S))
         out_rms = (float(out_p.float().square().mean().sqrt())
                    if torch.is_tensor(out_p) and out_p.is_floating_point()
                    and out_p.numel() else None)
@@ -1442,10 +1615,13 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
                f"of {rows[name][-1]['serial_chain']} live at the busiest "
                f"owner")
             + ("" if out_rms is None else f" (output RMS {out_rms:.6g})")
-            + ("" if not extra else
+            + ("" if "tflops" not in extra else
                f"; {extra['tflops']:.1f} TFLOP/s of the bound's 10 d flops "
                f"a live pair and head, {extra['issued_tflops']:.1f} of the "
-               f"flops issued, launch plan {extra['plan']}"))
+               f"flops issued, launch plan {extra['plan']}")
+            + ("" if "drift" not in extra else
+               f"; {extra['us_per_step']:.3f} us a step; max abs err of h_t "
+               f"by t {extra['drift']}"))
         del out_k, out_p
     for name in names:
         if not rows[name]:
@@ -1480,7 +1656,8 @@ def kernel_row(name: str, calls: list, launches: dict) -> dict:
                                   "max_abs_err", "out_rms",
                                   "serial_chain", "word_chain",
                                   "component_chain", "tflops",
-                                  "issued_tflops", "plan") if k in r}
+                                  "issued_tflops", "plan", "us_per_step",
+                                  "drift") if k in r}
                for r in calls])
 
 
@@ -3636,14 +3813,23 @@ def describe(cfg, model) -> tuple:
     """(a line of the config's widths and the parameters and bytes on the
     card, the bytes); raises unless the count is the config's
     (params_count() leaves out the final norm, the padded vocab rows and
-    the RG-LRU blocks' a_param)."""
+    the RG-LRU blocks' a_param; for the xLSTM blocks it counts an mLSTM
+    as 4 D^2 + 4 D and rz as 4 R^2, so their count is taken from
+    init_block's shapes: 5 D H hd + 2 D H + D an mLSTM, 4 D R + R^2 +
+    R D + D an sLSTM)."""
     n_params = sum(p.numel() for p in model.parameters())
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    D, H = cfg.d_model, cfg.n_heads
     R = cfg.rnn_width or cfg.d_model
-    n_rglru = sum(kinds.count("rglru") for kinds in cfg.layer_pattern())
+    count = {k: sum(kinds.count(k) for kinds in cfg.layer_pattern())
+             for k in ("rglru", "mlstm", "slstm")}
+    n_rglru = count["rglru"]
     want = (cfg.params_count() + cfg.d_model
             + (cfg.vocab_padded - cfg.vocab) * cfg.d_model
-            + cfg.n_groups * n_rglru * R)
+            + cfg.n_groups * n_rglru * R
+            + cfg.n_groups * count["mlstm"] * (
+                5 * D * H * cfg.hd + 2 * D * H + D - (4 * D * D + 4 * D))
+            + cfg.n_groups * count["slstm"] * (R * R - 4 * R * R))
     if n_params != want:
         raise AssertionError(f"{cfg.name}: {n_params} parameters on the "
                              f"card, the config gives {want}")
@@ -3651,7 +3837,7 @@ def describe(cfg, model) -> tuple:
     moe = (f", {cfg.n_experts} experts top-{cfg.top_k} + "
            f"{cfg.n_shared_experts} shared" if cfg.n_experts else "")
     rnn = (f", RG-LRU width {R}, window {cfg.local_window}"
-           if n_rglru else "")
+           if n_rglru else f", sLSTM width {R}" if count["slstm"] else "")
     return (f"{cfg.name}: {cfg.n_layers} layers of {kinds}, d_model "
             f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd} ({cfg.n_kv_heads}"
             f" kv), d_ff {cfg.d_ff}{moe}{rnn}, vocab {cfg.vocab}, "
@@ -3661,8 +3847,8 @@ def describe(cfg, model) -> tuple:
 
 def state_bytes(state, steps: int) -> int:
     """Bytes a decode step must move besides the weights, at step `steps`:
-    K and V of the valid slots of every attention cache, each RG-LRU
-    state read and written."""
+    K and V of the valid slots of every attention cache, each RG-LRU and
+    xLSTM state read and written."""
     total = 0
     for caches in state["caches"]:
         for c in caches:
@@ -3671,7 +3857,8 @@ def state_bytes(state, steps: int) -> int:
                 row = c["k"][0, 0].numel() * c["k"].element_size()
                 total += 2 * B * min(steps, W) * row
             elif c is not None:
-                total += 2 * c.numel() * c.element_size()
+                total += sum(2 * x.numel() * x.element_size() for x in
+                             (c if isinstance(c, tuple) else (c,)))
     return total
 
 
@@ -3751,13 +3938,20 @@ def expected_prefill_launches(cfg, S: int) -> dict:
     """The kernels a forward over S tokens launches, each at least once:
     flash_attention once per attention layer, or min(8, S // 1024) query
     chunks each past 2 x 1024 tokens (chunked_flash's causal-skip split);
-    rg_lru_scan once per RG-LRU layer; moe_dispatch once per MoE layer."""
+    rg_lru_scan once per RG-LRU layer; moe_dispatch once per MoE layer;
+    per mLSTM layer mlstm_chunkwise once (an even S > 1) or mlstm_step once
+    a position; slstm_scan once per sLSTM layer."""
     kinds = [k for ks in cfg.layer_pattern() for k in ks] * cfg.n_groups
     chunks = min(8, S // 1024) if S > 2 * 1024 else 1
+    n_mlstm = kinds.count("mlstm")
+    chunked = S > 1 and S % 2 == 0
     want = {"flash_attention": chunks * sum(k in ("attn", "lattn")
                                             for k in kinds),
             "rg_lru_scan": kinds.count("rglru"),
-            "moe_dispatch": kinds.count("moe")}
+            "moe_dispatch": kinds.count("moe"),
+            "mlstm_chunkwise": n_mlstm if chunked else 0,
+            "mlstm_step": 0 if chunked else n_mlstm * S,
+            "slstm_scan": kinds.count("slstm")}
     return {name: n for name, n in want.items() if n}
 
 
@@ -3851,11 +4045,13 @@ def bwd_edge_fault_rejected(args, kw, phase: str) -> dict:
 
 
 def prefill_flops(model, B: int, S: int) -> tuple:
-    """(matrix-product flops, attention flops) a prefill must do: 2 per
-    weight and token in the products (each token through its top_k
-    experts; the embedding read as rows; the logits of the last position
-    only) and 4 d per live (q, k) pair and head in each attention layer
-    (full causal, or over its window for local attention)."""
+    """(matrix-product flops, attention flops, f32 cell flops) a prefill
+    must do: 2 per weight and token in the products (each token through
+    its top_k experts; the embedding read as rows; the logits of the last
+    position only; the sLSTM's rz once a step), 4 d per live (q, k) pair
+    and head in each attention layer (full causal, or over its window for
+    local attention), and the chunkwise mLSTM's f32 operations
+    (mlstm_cell_flops) in each mLSTM layer."""
     import torch
     cfg = model.cfg
     n_mat = sum(p.numel() for name, p in model.named_parameters()
@@ -3865,14 +4061,16 @@ def prefill_flops(model, B: int, S: int) -> tuple:
            + 2 * cfg.d_model * cfg.vocab_padded * B)
     q = torch.empty((B, cfg.n_heads, S, cfg.hd), device="meta")
     k = torch.empty((B, cfg.n_kv_heads, S, cfg.hd), device="meta")
-    attn = 0
+    attn = cell = 0
     kinds = [kd for ks in cfg.layer_pattern() for kd in ks] * cfg.n_groups
     for kind in kinds:
         if kind in ("attn", "lattn"):
             window = cfg.local_window if kind == "lattn" else 0
             attn += 4 * cfg.hd * live_pairs((q, k), dict(causal=True,
                                                           window=window))
-    return mat, attn
+        if kind == "mlstm":
+            cell += mlstm_cell_flops(B, S, cfg.n_heads, cfg.hd)
+    return mat, attn, cell
 
 
 def phase_prefill(model, seed: int, device, phase: str, tag: str,
@@ -3924,12 +4122,15 @@ def phase_prefill(model, seed: int, device, phase: str, tag: str,
         capture.mark(tag)
         logits, first_s, counts = run("captured")
     rows = phase_captured(capture.calls, tuple(want), phase)
-    limit_check = edge_fault_rejected(
-        *capture.calls[("flash_attention", tag)], phase)
-    lc = limit_check
-    log(f"phase {phase}: the flash_attention limit (rtol {lc['rtol']:.6g}, "
-        f"atol {lc['atol']:.6g}) rejects the {lc['edge']} one key short at "
-        f"the last call (max abs err {lc['max_abs_err']:.6g})")
+    limit_check = None
+    if "flash_attention" in want:
+        limit_check = edge_fault_rejected(
+            *capture.calls[("flash_attention", tag)], phase)
+        lc = limit_check
+        log(f"phase {phase}: the flash_attention limit (rtol "
+            f"{lc['rtol']:.6g}, atol {lc['atol']:.6g}) rejects the "
+            f"{lc['edge']} one key short at the last call (max abs err "
+            f"{lc['max_abs_err']:.6g})")
     del capture
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
@@ -3943,14 +4144,16 @@ def phase_prefill(model, seed: int, device, phase: str, tag: str,
         _, traced_s, _ = run("traced")
     profile = profile_summary(prof, [traced_s], prefill_s * 1e3, phase)
     del logits
-    mat_flops, attn_flops = prefill_flops(model, B, S)
-    bound_s = (mat_flops + attn_flops) / PEAK_FLOPS["torch.bfloat16"]
+    mat_flops, attn_flops, cell_flops = prefill_flops(model, B, S)
+    bound_s = ((mat_flops + attn_flops) / PEAK_FLOPS["torch.bfloat16"]
+               + cell_flops / PEAK_FLOPS["torch.float32"])
     report = dict(arch=cfg.name, batch=B, seq_len=S, cut=cut,
                   launches=counts,
                   first_s=first_s, prefill_s=prefill_s, traced_s=traced_s,
                   tok_per_s=B * S / prefill_s, max_memory_allocated=max_mem,
                   memory_before=base_mem, matmul_flops=mat_flops,
-                  attention_flops=attn_flops, bound_s=bound_s,
+                  attention_flops=attn_flops, cell_flops=cell_flops,
+                  bound_s=bound_s,
                   profile=profile, limit_check=limit_check)
     if prompts is None:
         return report, rows
@@ -3968,7 +4171,7 @@ def phase_prefill(model, seed: int, device, phase: str, tag: str,
         max_abs_err=float((cross - ref).abs().max()),
         argmax_agree=float((cross.argmax(-1) == ref.argmax(-1)).float()
                            .mean()),
-        logits_scale=float(ref.abs().max()))
+        logits_scale=float(ref[:, :cfg.vocab].abs().max()))
     return report, rows
 
 
@@ -4047,6 +4250,78 @@ def phase_rgemma_cpu_vs_gpu(seed: int, device) -> dict:
     return dict(steps=L, ring=ring, wraps=L > ring, split_len=SPLIT_LEN,
                 split_launches=want, split_cpu_vs_gpu=float(
                     (split["gpu"] - split["cpu"]).abs().max()), **worst)
+
+
+def phase_xlstm_cpu_vs_gpu(seed: int, device) -> dict:
+    """Reduced xlstm-1.3b in float32, weights built once on the CPU and
+    moved, TF32 off: the forward's logits at every position of each of
+    XLSTM_LENS tokens (one chunk of 48, three of 128, and an odd length: a
+    step a position), CPU against GPU within LOGITS_TOL, the GPU's forward
+    launching what expected_prefill_launches gives and nothing else; then
+    XLSTM_STEPS teacher-forced decode steps of the first length's tokens,
+    CPU against GPU within LOGITS_TOL, and on each device decode at step t
+    against the forward at position t within DECODE_VS_PREFILL_TOL."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.get(XLSTM).reduced()
+    cpu = lm.init_lm(cfg, seed, "cpu")
+    gpu = copy.deepcopy(cpu).to(device)
+    B = 2
+    rng = np.random.default_rng(seed + 21)
+    worst = dict(cpu_vs_gpu=0.0, decode_vs_forward=0.0)
+    launches, first = {}, None
+    for S in XLSTM_LENS:
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)).astype(
+            np.int32))
+        out = {"cpu": lm.logits_fn(cpu, cfg, lm._forward(cpu, cfg, tok))}
+        zero_counts()
+        out["gpu"] = lm.logits_fn(gpu, cfg, lm._forward(
+            gpu, cfg, tok.to(device))).cpu()
+        counts = read_counts(())
+        want = expected_prefill_launches(cfg, S)
+        if ({n: counts[n] for n in want} != want
+                or any(counts[n] for n in counts if n not in want)):
+            raise AssertionError(f"phase 21: the forward over {S} tokens "
+                                 f"launched {counts}, want {want}")
+        launches[S] = want
+        try:
+            torch.testing.assert_close(out["gpu"], out["cpu"], **LOGITS_TOL)
+        except AssertionError as e:
+            raise AssertionError(f"phase 21: forward logits over {S} tokens "
+                                 f"differ CPU vs GPU: {e}") from None
+        worst["cpu_vs_gpu"] = max(worst["cpu_vs_gpu"], float(
+            (out["gpu"] - out["cpu"]).abs().max()))
+        if first is None:
+            first = (tok, out)
+    tok, full = first
+    L = XLSTM_STEPS
+    states = {"cpu": lm.init_decode_state(cfg, B, L, device="cpu"),
+              "gpu": lm.init_decode_state(cfg, B, L, device=device)}
+    for t in range(L):
+        out = {}
+        for dev, m in (("cpu", cpu), ("gpu", gpu)):
+            lg, states[dev] = lm.decode_step(m, states[dev],
+                                             tok[:, t].to(m.embed.device))
+            out[dev] = lg.cpu()
+            try:
+                torch.testing.assert_close(out[dev], full[dev][:, t],
+                                           **DECODE_VS_PREFILL_TOL)
+            except AssertionError as e:
+                raise AssertionError(f"phase 21: {dev} decode != forward at "
+                                     f"step {t}: {e}") from None
+            worst["decode_vs_forward"] = max(
+                worst["decode_vs_forward"],
+                float((out[dev] - full[dev][:, t]).abs().max()))
+        try:
+            torch.testing.assert_close(out["gpu"], out["cpu"], **LOGITS_TOL)
+        except AssertionError as e:
+            raise AssertionError(f"phase 21: decode logits differ CPU vs GPU "
+                                 f"at step {t}: {e}") from None
+        worst["cpu_vs_gpu"] = max(worst["cpu_vs_gpu"], float(
+            (out["gpu"] - out["cpu"]).abs().max()))
+    return dict(lens=list(XLSTM_LENS), steps=L, launches=launches, **worst)
 
 
 def profile_summary(prof, window_s, step_ms: float, phase: int) -> dict:
@@ -4182,7 +4457,7 @@ def train_flops(model, B: int, S: int) -> tuple:
     cfg = model.cfg
     n_mat = sum(p.numel() for p in model.parameters() if p.dim() == 2)
     n_expert = sum(p[0].numel() for p in model.parameters() if p.dim() == 3)
-    _, attn = prefill_flops(model, B, S)
+    _, attn, _ = prefill_flops(model, B, S)
     return 6 * (n_mat + cfg.top_k * n_expert) * B * S, 3.5 * attn
 
 
@@ -4406,6 +4681,76 @@ def log_profile(what: str, pr: dict, unit: str) -> None:
     for r in pr["top"]:
         log(f"  {r['ms_per_step']:8.3f} ms/{unit} {r['calls_per_step']:7.1f}"
             f" calls/{unit}  {r['name']}")
+
+
+def phases_xlstm(seed: int, device, record, add_rows) -> tuple:
+    """Phases 19-21: xlstm-1.3b served at full width (XLSTM_SERVE) with
+    B13 and B14 launching a step as expected_prefill_launches(cfg, 1)
+    says and nothing else, their first and last step's calls held to the
+    plain versions; its prefill step (phase_prefill, the cross-check on
+    XLSTM_CROSS of the served prompts); the reduced model CPU against GPU
+    (phase_xlstm_cpu_vs_gpu). `record` and `add_rows` take the launches
+    and the kernel rows. Returns (serve report, prefill report, phase 21's
+    report)."""
+    import torch
+    from repro_torch.configs import registry
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    xv_cfg = registry.get(XLSTM)
+    log(f"phase 19: {XLSTM_SERVE['batch']} requests, the "
+        f"{XLSTM_SERVE['shape']} shape's batch of "
+        f"{XLSTM_SERVE['shape_batch']} uncut (the decode state does not "
+        f"grow with context)")
+    with Capture() as capture:
+        zero_counts()
+        xl = phase_serve(XLSTM_SERVE, seed, device, 19, capture.mark)
+        counts = read_counts(XLSTM_DECODE_KERNELS)
+    xv = xl["report"]
+    per_step = expected_prefill_launches(xv_cfg, 1)
+    want = {name: 0 for name in KERNELS} | {
+        name: n * xv["steps"] for name, n in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"phase 19: launches {counts}, want {want} "
+                             f"({per_step} a step)")
+    record("phase 19", counts, XLSTM_DECODE_KERNELS)
+    check_last_logits(xl)
+    xv["state_bytes"] = state_bytes(xl["state"], xv["steps"]) // 2
+    log(f"phase 19: launches {counts} ({per_step} a step over {xv['steps']} "
+        f"steps, nothing else); logits finite; decode state "
+        f"{xv['state_bytes'] / 1e9:.2f} GB")
+    add_rows(phase_captured(capture.calls, XLSTM_DECODE_KERNELS, 19))
+    del capture
+    xl.pop("state")
+    torch.cuda.empty_cache()
+    log(f"phase 19: seconds {time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    xpf, xrows = phase_prefill(xl["model"], seed, device, "20",
+                               "xlstm prefill",
+                               xl["prompts"][:XLSTM_CROSS],
+                               XLSTM_SERVE["gen_len"])
+    add_rows(xrows)
+    record("phase 20", xpf["launches"], tuple(xpf["launches"]))
+    cc = xpf["cross_check"]
+    log(f"phase 20: launches {xpf['launches']} per prefill (3 runs); logits "
+        f"finite; cross-check (not gated): prefill of {cc['prompts']} of "
+        f"phase 19's prompts against a decode of them: max abs err "
+        f"{cc['max_abs_err']:.4f} (logits up to {cc['logits_scale']:.2f}), "
+        f"argmax agrees on {cc['argmax_agree']:.3f} of the requests; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del xl
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    xl_check = phase_xlstm_cpu_vs_gpu(seed, device)
+    log(f"phase 21: reduced {XLSTM} forward at {xl_check['lens']} tokens "
+        f"(launches {xl_check['launches']}) and {xl_check['steps']} decode "
+        f"steps equal CPU vs GPU within {LOGITS_TOL} (max abs err "
+        f"{xl_check['cpu_vs_gpu']:.3e}); decode == forward within "
+        f"{DECODE_VS_PREFILL_TOL} on both (max abs err "
+        f"{xl_check['decode_vs_forward']:.3e}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return xv, xpf, xl_check
 
 
 def card_line() -> str:
@@ -4739,6 +5084,8 @@ def main() -> int:
             for n, v in train_check.items())
         + f"; {time.perf_counter() - t0:.1f} s")
 
+    xv, xpf, xl_check = phases_xlstm(args.seed, device, record, add_rows)
+
     for arm in ARMS:
         r = report[arm]
         log(f"median ms per batch, hash table {arm}: insert "
@@ -4752,7 +5099,7 @@ def main() -> int:
             f"pop {r['pop_ms']:.3f} ({card})")
         for op in ("push", "pop"):
             log_batch_profile(f"queue {arm} {op}", r[f"profile_{op}"], card)
-    for v in (sv, rv):
+    for v in (sv, rv, xv):
         log(f"serve {v['arch']}: median {v['step_ms_median']:.3f} ms per "
             f"decode step of {v['batch']} tokens (bound "
             f"{v['step_bound_ms']:.3f} ms, weights alone "
@@ -4761,14 +5108,15 @@ def main() -> int:
             f"generated tok/s; init {v['init_s']:.2f} s; peak memory "
             f"{v['max_memory_allocated'] / 1e9:.2f} GB ({card})")
         log_profile(f"serve {v['arch']}", v["profile"], "step")
-    for v in (dpf, pf):
+    for v in (dpf, pf, xpf):
         log(f"prefill {v['arch']}: {v['batch']} x {v['seq_len']} tokens in "
             f"{v['prefill_s']:.3f} s ({v['tok_per_s']:.0f} tok/s; first run "
             f"{v['first_s']:.3f} s), bound {v['bound_s']:.3f} s "
             f"({v['matmul_flops'] / 1e12:.1f} TFLOP of matrix products + "
             f"{v['attention_flops'] / 1e12:.1f} of attention at the bf16 "
-            f"peak); peak memory {v['max_memory_allocated'] / 1e9:.2f} GB "
-            f"({v['memory_before'] / 1e9:.2f} before) ({card})")
+            f"peak + {v['cell_flops'] / 1e12:.1f} of the mLSTM cell at the "
+            f"f32 peak); peak memory {v['max_memory_allocated'] / 1e9:.2f} "
+            f"GB ({v['memory_before'] / 1e9:.2f} before) ({card})")
         log_profile(f"prefill {v['arch']}", v["profile"], "prefill")
     report["serve"] = sv
     report["prefill_ds"] = dpf
@@ -4781,6 +5129,9 @@ def main() -> int:
     report["train_smollm"] = tr16
     report["train_rgemma"] = tr17
     report["train_cpu_vs_gpu"] = train_check
+    report["serve_xlstm"] = xv
+    report["prefill_xlstm"] = xpf
+    report["xlstm_cpu_vs_gpu"] = xl_check
     kernels = [kernel_row(name, rows[name], launches[name])
                for name in KERNELS]
     shapes = {f"{name} at {r['at']}": r["shapes"]

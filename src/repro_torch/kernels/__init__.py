@@ -10,6 +10,8 @@
 #   moe_dispatch — expert histogram + stable positions (batched FAA ticket)
 #   rg_lru_scan, rg_lru_scan_bwd — the RG-LRU block's gated linear
 #     recurrence and its backward
+#   mlstm_chunkwise, mlstm_step, slstm_scan — the xLSTM cells (the mLSTM
+#     over a sequence and one step, the sLSTM recurrence)
 from . import ops, ref
 
 __all__ = ["ops", "ref"]

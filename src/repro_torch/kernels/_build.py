@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 SOURCES = ("owner_lane", "hash_probe", "flash_decode", "moe_dispatch",
-           "flash_attention", "flash_attention_bwd", "rg_lru", "txn_lane")
+           "flash_attention", "flash_attention_bwd", "rg_lru", "txn_lane",
+           "mlstm", "slstm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -29,7 +29,10 @@ counts past a chunk, and an all-masked list.
 The backward kernels B10 `flash_attention_bwd` and B11 `rg_lru_scan_bwd`
 take their cases from `FLASH_BWD_CASES` and `RG_LRU_BWD_CASES` (inputs by
 `flash_bwd_inputs` / `rg_lru_bwd_inputs`): B10 within
-kernels/ref.py's flash_bwd_tol, B11 bit for bit.
+kernels/ref.py's flash_bwd_tol, B11 bit for bit. The xLSTM kernels B12-B14
+take theirs from `MLSTM_CHUNK_CASES`, `MLSTM_STEP_CASES` and `SLSTM_CASES`
+(inputs by `mlstm_inputs` / `slstm_inputs`), within kernels/ref.py's
+xlstm_tol.
 """
 from __future__ import annotations
 
@@ -749,3 +752,64 @@ def rg_lru_bwd_inputs(case, seed: int = 0):
     b, dh = (rng.normal(size=(B, S, D)).astype(np.float32) for _ in range(2))
     h0 = rng.normal(size=(B, D)).astype(np.float32) if given_h0 else None
     return a, b, h0, dh
+
+
+# B12 mlstm_chunkwise: (B, S, H, hd, carried): chunks c = ref.mlstm_chunk(S)
+# of 6, 8 (S = 200), 100 (not a power of two), 128 (three chunks: the
+# prefill's form) and 48, at hd 16 (the reduced config) and 512
+# (xlstm-1.3b), B 1 and 3, from zeros or from a carried state
+MLSTM_CHUNK_CASES = [(1, 6, 2, 16, False), (3, 200, 2, 16, True),
+                     (1, 100, 4, 512, True), (1, 384, 4, 512, False),
+                     (3, 256, 2, 16, True), (3, 48, 4, 512, True),
+                     (1, 256, 4, 512, True)]
+# B13 mlstm_step: (B, H, hd, steps, n_scale) walked in place on one
+# state; n_scale > 1 makes |q . n'| well above 1 at every step (see
+# mlstm_inputs), so that the normalizer divides
+MLSTM_STEP_CASES = [(1, 2, 16, 5, 1.0), (3, 4, 512, 3, 1.0),
+                    (3, 2, 16, 4, 1.0), (16, 4, 512, 2, 1.0),
+                    (1, 4, 512, 1, 1.0), (3, 2, 16, 4, 64.0)]
+# B14 slstm_scan: (B, S, R, rz in bf16): S = 1 (decode) at R 64 and 2048,
+# short and ragged S, B > 1, and 4,096 steps of the grid barrier
+SLSTM_CASES = [(1, 1, 64, False), (3, 1, 2048, True), (1, 5, 64, True),
+               (3, 37, 64, False), (3, 20, 2048, False),
+               (1, 300, 2048, True), (1, 4096, 2048, True)]
+
+
+def mlstm_inputs(B: int, S: int, H: int, hd: int, carried: bool,
+                 seed: int = 0, n_scale: float = 1.0):
+    """q (scaled by hd**-0.5), k (hd**-0.25), v (B, S, H, hd), gate
+    logits i, f (B, S, H) and a state C (B, H, hd, hd), n (B, H, hd), m
+    (B, H): zeros and m = -1e30, or unit normal (carried). With n_scale >
+    1 (carried) q and n are positive, n is scaled by n_scale and m raised
+    by 8, so that the forget gate keeps n over a few steps and |q . n'|
+    stays well above 1; f32."""
+    rng = np.random.default_rng([seed, B, S, H, hd, carried])
+    q = (rng.normal(size=(B, S, H, hd)) * hd ** -0.5).astype(np.float32)
+    k = (rng.normal(size=(B, S, H, hd)) * hd ** -0.25).astype(np.float32)
+    v = rng.normal(size=(B, S, H, hd)).astype(np.float32)
+    i, f = (rng.normal(size=(B, S, H)).astype(np.float32) for _ in range(2))
+    if carried:
+        C, n, m = (rng.normal(size=shape) for shape in
+                   ((B, H, hd, hd), (B, H, hd), (B, H)))
+        if n_scale > 1:
+            q, n, m = np.abs(q), np.abs(n) * n_scale, m + 8.0
+        state = tuple(x.astype(np.float32) for x in (C, n, m))
+    else:
+        state = (np.zeros((B, H, hd, hd), np.float32),
+                 np.zeros((B, H, hd), np.float32),
+                 np.full((B, H), -1e30, np.float32))
+    return (q, k, v, i, f), state
+
+
+def slstm_inputs(B: int, S: int, R: int, seed: int = 0):
+    """z, i, f (B, S, R) unit normal, the output gate o in (0, 1), rz
+    (R, R) normal with std R**-0.5 (the model's init) and a state c, n,
+    h, m (B, R) unit normal (h halved), f32."""
+    rng = np.random.default_rng([seed, B, S, R])
+    z, i, f = (rng.normal(size=(B, S, R)).astype(np.float32)
+               for _ in range(3))
+    o = rng.uniform(0.0, 1.0, (B, S, R)).astype(np.float32)
+    rz = (rng.normal(size=(R, R)) * R ** -0.5).astype(np.float32)
+    c, n, m = (rng.normal(size=(B, R)).astype(np.float32) for _ in range(3))
+    h = (0.5 * rng.normal(size=(B, R))).astype(np.float32)
+    return (z, i, f, o, rz), (c, n, h, m)

@@ -1,7 +1,8 @@
 """Device dispatch for the kernels: the owner lanes (the transactional one
 included) and handler bodies of the data structures, and attention,
-decode attention, expert dispatch and the RG-LRU scan of the model, and
-the backwards of attention and of the scan.
+decode attention, expert dispatch, the RG-LRU scan and the xLSTM cells
+(the chunkwise mLSTM, its step and the sLSTM scan) of the model, and the
+backwards of attention and of the RG-LRU scan.
 
 A CUDA tensor launches the hand-written kernel (inputs are made
 contiguous first, except the attention kernels' q, k, v, o and do and
@@ -25,6 +26,7 @@ from . import moe_dispatch as _md
 from . import rg_lru as _rg
 from . import ref
 from . import txn_lane as _tx
+from . import xlstm as _xl
 
 Tensor = torch.Tensor
 
@@ -153,3 +155,39 @@ def rg_lru_scan_bwd(a: Tensor, h: Tensor, h0: Optional[Tensor], dh: Tensor
                                    None if h0 is None else h0.contiguous(),
                                    dh.contiguous())
     return ref.rg_lru_scan_bwd(a, h, h0, dh)
+
+
+def mlstm_chunkwise(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
+                    C0: Tensor, n0: Tensor, m0: Tensor
+                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The chunkwise mLSTM: q, k, v (B, S, H, hd), gate logits i, f (B, S,
+    H), state C0 (B, H, hd, hd), n0 (B, H, hd), m0 (B, H), float32, in
+    chunks of ref.mlstm_chunk(S). Returns (h (B, S, H, hd), C, n, m)."""
+    if q.is_cuda:
+        return _xl.mlstm_chunkwise(*(x.contiguous() for x in (
+            q, k, v, i, f, C0, n0, m0)))
+    return ref.mlstm_chunkwise(q, k, v, i, f, C0, n0, m0)
+
+
+def mlstm_step(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
+               C: Tensor, n: Tensor, m: Tensor
+               ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """One mLSTM step: q, k, v (B, H, hd), i, f (B, H) float32; the state
+    C (B, H, hd, hd), n (B, H, hd), m (B, H) float32 (contiguous on the
+    card) is updated in place. Returns (h (B, H, hd), C, n, m)."""
+    if q.is_cuda:
+        return _xl.mlstm_step(*(x.contiguous() for x in (q, k, v, i, f)),
+                              C, n, m)
+    return ref.mlstm_step(q, k, v, i, f, C, n, m)
+
+
+def slstm_scan(z: Tensor, i: Tensor, f: Tensor, o: Tensor, rz: Tensor,
+               c0: Tensor, n0: Tensor, h0: Tensor, m0: Tensor
+               ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The sLSTM recurrence: z, i, f, o (B, S, R) float32, rz (R, R), the
+    state c0, n0, h0, m0 (B, R) float32. Returns (hs (B, S, R), c, n, h,
+    m)."""
+    if z.is_cuda:
+        return _xl.slstm_scan(*(x.contiguous() for x in (
+            z, i, f, o, rz, c0, n0, h0, m0)))
+    return ref.slstm_scan(z, i, f, o, rz, c0, n0, h0, m0)

@@ -648,3 +648,128 @@ def rg_lru_scan_bwd(a: Tensor, h: Tensor, h0: Tensor | None, dh: Tensor
         prev = h[:, t - 1] if t > 0 else (zero if h0 is None else h0)
         da[:, t] = g * prev
     return da, db, a[:, 0] * g
+
+
+# ---------------------------------------------------------------------------
+# The xLSTM cells: the mLSTM (chunkwise and one step) and the sLSTM scan
+# ---------------------------------------------------------------------------
+def mlstm_chunk(S: int, chunk: int = 128) -> int:
+    """The chunk length of JAX's _mlstm_chunkwise: min(chunk, S), halved
+    while it does not divide S (S = 6 gives 6, S = 200 gives 8, S = 100
+    gives 100)."""
+    c = min(chunk, S)
+    while S % c:
+        c //= 2
+    return c
+
+
+def mlstm_chunkwise(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
+                    C0: Tensor, n0: Tensor, m0: Tensor
+                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The chunkwise-parallel mLSTM of JAX's `_mlstm_chunkwise`
+    (repro/models/lm.py), formula for formula: q, k, v (B, S, H, hd) f32
+    (pre-scaled), the raw gate logits i, f (B, S, H) f32 and the state
+    C0 (B, H, hd, hd), n0 (B, H, hd), m0 (B, H) f32, in chunks of
+    mlstm_chunk(S). Returns (h (B, S, H, hd), C, n, m), new tensors."""
+    B, S, H, hd = q.shape
+    c = mlstm_chunk(S)
+    C, n, m = C0, n0, m0
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
+    hs = []
+    for lo in range(0, S, c):
+        qc, kc, vc = q[:, lo:lo + c], k[:, lo:lo + c], v[:, lo:lo + c]
+        ic, fc = i[:, lo:lo + c], f[:, lo:lo + c]
+        lf = torch.nn.functional.logsigmoid(fc)                # (B, c, H)
+        F = torch.cumsum(lf, dim=1)
+        rel = ic - F
+        M = torch.maximum(m[:, None], torch.cummax(rel, dim=1).values)
+        inter = torch.exp(m[:, None] - M)
+        d = torch.exp(rel[:, None] - M[:, :, None])            # (B, t, s, H)
+        d = torch.where(tri[None, :, :, None], d, 0.0)
+        scores = torch.einsum("bthd,bshd->btsh", qc, kc) * d
+        num = (inter[..., None] * torch.einsum("bthd,bhde->bthe", qc, C)
+               + torch.einsum("btsh,bshd->bthd", scores, vc))
+        qn = (inter * torch.einsum("bthd,bhd->bth", qc, n)
+              + torch.sum(scores, dim=2))
+        den = torch.abs(qn)
+        hs.append(num / torch.clamp(den, min=1.0)[..., None])
+        M_end, F_end = M[:, -1], F[:, -1]
+        w_end = torch.exp(rel - M_end[:, None])
+        decay = torch.exp(m - M_end)
+        C = (decay[..., None, None] * C
+             + torch.einsum("bsh,bshd,bshe->bhde", w_end, kc, vc))
+        n = decay[..., None] * n + torch.einsum("bsh,bshd->bhd", w_end, kc)
+        m = F_end + M_end
+    return torch.cat(hs, dim=1), C, n, m
+
+
+def mlstm_step(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
+               C: Tensor, n: Tensor, m: Tensor
+               ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """One mLSTM step, the `step` of JAX's mlstm_block: q, k, v (B, H, hd)
+    f32, i, f (B, H) f32 raw gate logits; the state C (B, H, hd, hd), n
+    (B, H, hd), m (B, H) f32 is updated in place. Returns (h (B, H, hd),
+    C, n, m)."""
+    logf = torch.nn.functional.logsigmoid(f)
+    m_new = torch.maximum(logf + m, i)
+    ig = torch.exp(i - m_new)
+    fg = torch.exp(logf + m - m_new)
+    C_new = fg[..., None, None] * C + ig[..., None, None] * (
+        k[..., :, None] * v[..., None, :])
+    n_new = fg[..., None] * n + ig[..., None] * k
+    num = torch.einsum("bhd,bhde->bhe", q, C_new)
+    den = torch.abs(torch.einsum("bhd,bhd->bh", q, n_new))
+    h = num / torch.clamp(den, min=1.0)[..., None]
+    C.copy_(C_new)
+    n.copy_(n_new)
+    m.copy_(m_new)
+    return h, C, n, m
+
+
+def slstm_scan(z: Tensor, i: Tensor, f: Tensor, o: Tensor, rz: Tensor,
+               c0: Tensor, n0: Tensor, h0: Tensor, m0: Tensor
+               ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The sLSTM recurrence of JAX's slstm_block (its `step` scanned over
+    the sequence): z, i, f (B, S, R) f32 pre-activations, o (B, S, R) f32
+    output gates, rz (R, R) (cast to f32), the state c0, n0, h0, m0 (B, R)
+    f32. Returns (hs (B, S, R), c, n, h, m), new tensors."""
+    rz = rz.float()
+    c, n, hp, m = c0, n0, h0, m0
+    hs = torch.empty_like(z)
+    for t in range(z.shape[1]):
+        zz = torch.tanh(z[:, t] + hp @ rz)
+        logf = torch.nn.functional.logsigmoid(f[:, t])
+        m_new = torch.maximum(logf + m, i[:, t])
+        ig = torch.exp(i[:, t] - m_new)
+        fg = torch.exp(logf + m - m_new)
+        c = fg * c + ig * zz
+        n = fg * n + ig
+        hp = o[:, t] * c / torch.clamp(n, min=1.0)
+        m = m_new
+        hs[:, t] = hp
+    return hs, c, n, hp, m
+
+
+def xlstm_terms(name: str, h: Tensor) -> int:
+    """The products a value of an xLSTM kernel's outputs sums, for
+    xlstm_tol, from the kernel's name and its first output h: hd and the
+    chunk c for mlstm_chunkwise (h (B, S, H, hd)), hd for mlstm_step (h
+    (B, H, hd)), R for slstm_scan's recurrent product (hs (B, S, R))."""
+    if name == "mlstm_chunkwise":
+        return max(h.shape[-1], mlstm_chunk(h.shape[1]))
+    if name in ("mlstm_step", "slstm_scan"):
+        return h.shape[-1]
+    raise ValueError(f"xlstm_terms: {name!r} is not an xLSTM kernel")
+
+
+def xlstm_tol(want: Tensor, terms: int) -> dict:
+    """The limit (assert_close keywords) to which the xLSTM kernels are
+    held against these plain versions, on an f32 output `want` that sums
+    `terms` products a value (xlstm_terms: hd or c in the mLSTM's
+    contractions, R in the sLSTM's recurrent product). Both sides compute the same f32
+    formulas and sum in another order: a relative 2**-23 sqrt(terms) per
+    sum, which the gates' exponentials and the division by the
+    normalizer carry through. 1e-5 of the value plus 1e-6 sqrt(terms) of
+    the output's RMS (2.3e-5 of it at 512 terms) holds that with room."""
+    rms = float(want.float().square().mean().sqrt()) if want.numel() else 0.0
+    return dict(rtol=1e-5, atol=1e-6 * terms ** 0.5 * max(rms, 1e-30))

@@ -6,7 +6,8 @@
 
 `--device` defaults to cuda; there the path runs the CUDA kernels
 (flash_decode and moe_dispatch for attention and MoE models, rg_lru_scan
-for recurrentgemma-9b), on the CPU their plain versions.
+for recurrentgemma-9b, mlstm_step and slstm_scan for xlstm-1.3b), on the
+CPU their plain versions.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """The model zoo's serving, prefill and training paths: `repro.models.lm`
-for the ATTN, LATTN, RGLRU, MLP and MOE blocks of decoder-only models
-(dense GQA, fine-grained MoE and the RG-LRU hybrid recurrentgemma), in
-decode mode and in train mode (the prefill's forward, and `loss_fn` with
-its gradients).
+for the ATTN, LATTN, RGLRU, MLP, MOE, MLSTM and SLSTM blocks of
+decoder-only models (dense GQA, fine-grained MoE, the RG-LRU hybrid
+recurrentgemma and the xLSTM ssm family), in decode mode and in train
+mode (the prefill's forward, and `loss_fn` with its gradients; not yet
+for the MLSTM and SLSTM blocks, whose kernels have no backward).
 
 The paper's technique enters at two irregular-access points, each with a
 backend chosen by the cost model exactly as the JAX model chooses it
@@ -19,28 +20,37 @@ choice is still made, returned in the decode state (`state["backends"]`)
 and logged by `launch/serve.py`. The path's kernels are
 `kops.flash_decode` (the shard-local body of global-attention decode),
 `kops.moe_dispatch` (the batched FAA ticket of expert dispatch),
-`kops.rg_lru_scan` (the RG-LRU recurrence, in both modes) and
+`kops.rg_lru_scan` (the RG-LRU recurrence, in both modes),
 `kops.flash_attention` (full-sequence attention; a CPU tensor takes its
-plain version, `kernels/ref.py` `mha`). With grad enabled, attention and
-the scan run as autograd Functions (`FlashTrain`, JAX's flash_train
-custom_vjp, and `RgLruScan`) whose backwards are the kernels
-`kops.flash_attention_bwd` and `kops.rg_lru_scan_bwd`; the MoE block's
-gradient flows through the torch gathers and scatters around its integer
-tickets. With cfg.remat each layer runs under torch.utils.checkpoint (JAX
-remats per group: the same values).
+plain version, `kernels/ref.py` `mha`), and the xLSTM cells
+`kops.mlstm_chunkwise` (the mLSTM over an even S > 1), `kops.mlstm_step`
+(one mLSTM step: decode, and each position of an odd S > 1) and
+`kops.slstm_scan` (the sLSTM recurrence, in both modes). With grad
+enabled, attention and the scan run as autograd Functions (`FlashTrain`,
+JAX's flash_train custom_vjp, and `RgLruScan`) whose backwards are the
+kernels `kops.flash_attention_bwd` and `kops.rg_lru_scan_bwd`; the MoE
+block's gradient flows through the torch gathers and scatters around its
+integer tickets. With cfg.remat each layer runs under
+torch.utils.checkpoint (JAX remats per group: the same values).
 
 Weights live in `nn.Module`s under the JAX package's parameter names and
 layouts (`LM`: `embed`, `layers`, `final_norm`; `Attention`,
-`LocalAttention`, `Rglru`, `Mlp`, `Moe` blocks); the block math is plain
-functions on tensors, as in JAX. Layers are held one by one (JAX stacks
-each pattern position over n_groups). KV caches are per layer,
-(B, W, Hkv, hd), and are written in place at slot = pos (pos % W for the
-local-attention ring), where JAX returns new caches: that keeps one cache
-in memory. The RG-LRU state is (B, R) float32 per layer. Weights are
-built with requires_grad False (serving); `set_trainable` turns it on.
+`LocalAttention`, `Rglru`, `Mlp`, `Moe`, `Mlstm`, `Slstm` blocks); the
+block math is plain functions on tensors, as in JAX. Layers are held one
+by one (JAX stacks each pattern position over n_groups). KV caches are
+per layer, (B, W, Hkv, hd), and are written in place at slot = pos
+(pos % W for the local-attention ring), where JAX returns new caches:
+that keeps one cache in memory. The RG-LRU state is (B, R) float32 per
+layer. An mLSTM layer holds (C (B, H, hd, hd), n (B, H, hd), m (B, H))
+float32, which a decode step updates in place (4 MiB of C a sequence at
+xlstm-1.3b's hd = 512: one state of 22.6 GB at batch 128 stays in
+memory); an sLSTM layer holds (c, n, h, m), each (B, R) float32,
+replaced each step. Weights are built
+with requires_grad False (serving); `set_trainable` turns it on.
 
-Not ported yet (each raises NotImplementedError): the MLSTM, SLSTM, CROSS
-and EATTN blocks and the encdec and vlm families.
+Not ported yet (each raises NotImplementedError): the CROSS and EATTN
+blocks, the encdec and vlm families, and the gradients of the MLSTM and
+SLSTM blocks.
 """
 from __future__ import annotations
 
@@ -52,7 +62,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..configs.base import ATTN, LATTN, MLP, MOE, RGLRU, ArchConfig
+from ..configs.base import (ATTN, LATTN, MLP, MLSTM, MOE, RGLRU, SLSTM,
+                            ArchConfig)
 from ..core import costmodel
 from ..core.types import Backend
 from ..kernels import ops as kops
@@ -62,8 +73,9 @@ Tensor = torch.Tensor
 
 def _not_ported(what: str):
     raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A13); the port "
-        f"serves and prefills decoder-only models of {tuple(BLOCKS)} blocks")
+        f"{what} is not ported to repro_torch yet (ROADMAP A); the port "
+        f"serves and prefills decoder-only models of {tuple(BLOCKS)} blocks "
+        f"and trains those without MLSTM and SLSTM blocks")
 
 
 # ===========================================================================
@@ -113,8 +125,8 @@ def init_block(cfg: ArchConfig, kind: str, gen: torch.Generator,
     def norm():
         return torch.zeros((D,), dtype=dt, device=device)
 
-    def dense(shape, dtype=dt):
-        return _dense(gen, shape, dtype, device)
+    def dense(shape, dtype=dt, scale=None):
+        return _dense(gen, shape, dtype, device, scale)
 
     if kind in (ATTN, LATTN):
         return {"norm": norm(), "wq": dense((D, H * hd)),
@@ -141,6 +153,17 @@ def init_block(cfg: ArchConfig, kind: str, gen: torch.Generator,
                 "wr": dense((D, R)), "wo": dense((R, D)),
                 "a_param": torch.full((R,), 2.0, dtype=torch.float32,
                                       device=device)}
+    if kind == MLSTM:
+        return {"norm": norm(), "wq": dense((D, H * hd)),
+                "wk": dense((D, H * hd)), "wv": dense((D, H * hd)),
+                "wi": dense((D, H), scale=0.01),
+                "wf": dense((D, H), scale=0.01),
+                "wog": dense((D, H * hd)), "wo": dense((H * hd, D))}
+    if kind == SLSTM:
+        return {"norm": norm(), "wz": dense((D, R)),
+                "wi": dense((D, R), scale=0.01),
+                "wf": dense((D, R), scale=0.01), "wog": dense((D, R)),
+                "rz": dense((R, R)), "wo": dense((R, D))}
     _not_ported(f"block kind {kind!r}")
 
 
@@ -177,6 +200,20 @@ class Rglru(Block):
         return rglru_block(self, x, self.cfg, state)
 
 
+class Mlstm(Block):
+    kind = MLSTM
+
+    def forward(self, x: Tensor, state):
+        return mlstm_block(self, x, self.cfg, state)
+
+
+class Slstm(Block):
+    kind = SLSTM
+
+    def forward(self, x: Tensor, state):
+        return slstm_block(self, x, self.cfg, state)
+
+
 class Mlp(Block):
     kind = MLP
 
@@ -192,7 +229,7 @@ class Moe(Block):
 
 
 BLOCKS = {ATTN: Attention, LATTN: LocalAttention, RGLRU: Rglru,
-          MLP: Mlp, MOE: Moe}
+          MLSTM: Mlstm, SLSTM: Slstm, MLP: Mlp, MOE: Moe}
 
 
 def make_block(cfg: ArchConfig, kind: str, weights: Dict[str, Tensor]
@@ -563,6 +600,91 @@ def rglru_block(p: Block, x: Tensor, cfg: ArchConfig,
 
 
 # ===========================================================================
+# xLSTM blocks (MLSTM, SLSTM)
+# ===========================================================================
+def _rnn_state(*shapes, device) -> Tuple[Tensor, ...]:
+    """A zero xLSTM state: float32 zeros of each shape, the last (the
+    stabilizer m) filled with -1e30, as JAX's."""
+    out = [torch.zeros(s, dtype=torch.float32, device=device)
+           for s in shapes[:-1]]
+    return (*out, torch.full(shapes[-1], -1e30, dtype=torch.float32,
+                             device=device))
+
+
+def _sigmoid(x: Tensor) -> Tensor:
+    """jax.nn.sigmoid as XLA expands it: 1 / (1 + exp(-x)), each op
+    rounded in x's dtype. torch.sigmoid rounds once; in bfloat16 the two
+    differ by one step on about a quarter of the values."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def _no_backward(what: str) -> None:
+    """The xLSTM kernels have no backward yet: with grad enabled the
+    blocks raise, on the CPU as on the card."""
+    if torch.is_grad_enabled():
+        _not_ported(f"the backward of {what}")
+
+
+def mlstm_block(p: Block, x: Tensor, cfg: ArchConfig, state=None):
+    """xLSTM mLSTM: matrix memory with stabilized exponential gating.
+    state = (C (B, H, hd, hd), n (B, H, hd), m (B, H)) float32, or None
+    (zeros, m = -1e30). q, k, v and the gate logits are float32 (q scaled
+    by hd**-0.5, k by hd**-0.25); the output gate stays in the compute
+    dtype. JAX's branches: an even S > 1 runs chunkwise
+    (kops.mlstm_chunkwise), S == 1 one step (kops.mlstm_step, which
+    updates the given state in place), an odd S > 1 one step a position on
+    a copy of the state. Returns (residual delta, new state)."""
+    _no_backward("the mLSTM block (kernels mlstm_chunkwise, mlstm_step)")
+    B, S, D = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    h = rms_norm(x, p.norm, cfg.norm_eps)
+    q = (h @ p.wq).reshape(B, S, H, hd).float() * hd ** -0.5
+    kk = (h @ p.wk).reshape(B, S, H, hd).float() * hd ** -0.25
+    v = (h @ p.wv).reshape(B, S, H, hd).float()
+    it = (h @ p.wi).float()                                  # (B, S, H)
+    ft = (h @ p.wf).float()
+    og = _sigmoid((h @ p.wog).reshape(B, S, H, hd))
+    if state is None:
+        state = _rnn_state((B, H, hd, hd), (B, H, hd), (B, H),
+                           device=x.device)
+    if S > 1 and S % 2 == 0:
+        hs, C, n, m = kops.mlstm_chunkwise(q, kk, v, it, ft, *state)
+    else:
+        if S > 1:
+            state = tuple(t.clone() for t in state)
+        outs = []
+        for t in range(S):
+            ht, C, n, m = kops.mlstm_step(q[:, t], kk[:, t], v[:, t],
+                                          it[:, t], ft[:, t], *state)
+            state = (C, n, m)
+            outs.append(ht)
+        hs = torch.stack(outs, dim=1)                        # (B, S, H, hd)
+    y = (og * hs.to(x.dtype)).reshape(B, S, -1) @ p.wo
+    return y, (C, n, m)
+
+
+def slstm_block(p: Block, x: Tensor, cfg: ArchConfig, state=None):
+    """xLSTM sLSTM: scalar memory with the recurrent matrix rz. state =
+    (c, n, h, m), each (B, R) float32, or None (zeros, m = -1e30). The
+    pre-activations and the output gate are float32; rz reaches
+    kops.slstm_scan in its own dtype (the plain version casts it to f32,
+    as JAX does; the kernel widens each bf16 value exactly). Returns
+    (residual delta, new state)."""
+    _no_backward("the sLSTM block (kernel slstm_scan)")
+    B, S, D = x.shape
+    R = cfg.rnn_width or D
+    h = rms_norm(x, p.norm, cfg.norm_eps)
+    z_in = (h @ p.wz).float()
+    i_in = (h @ p.wi).float()
+    f_in = (h @ p.wf).float()
+    og = _sigmoid((h @ p.wog).float())
+    if state is None:
+        state = _rnn_state(*[(B, R)] * 4, device=x.device)
+    hs, c, n, hl, m = kops.slstm_scan(z_in, i_in, f_in, og, p.rz, *state)
+    return hs.to(x.dtype) @ p.wo, (c, n, hl, m)
+
+
+# ===========================================================================
 # FFN blocks
 # ===========================================================================
 def mlp_block(p: Block, x: Tensor, cfg: ArchConfig, w1="w1", w3="w3",
@@ -670,7 +792,7 @@ def _apply_layer(cfg: ArchConfig, layer: Layer, x: Tensor, mode: str,
                 delta, c, backends["decode"] = block(x, cache, pos)
             else:
                 delta = attn_block_train(block, x, cfg, kind)
-        elif kind == RGLRU:
+        elif kind in (RGLRU, MLSTM, SLSTM):
             delta, st = block(x, cache if decode else None)
             c = st if decode else None
         elif kind == MOE:
@@ -758,8 +880,12 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device="cuda") -> Dict:
     """Zero decode state: per layer, one entry per block: {k, v: (batch,
     W, Hkv, hd)} for attention (W = max_len; min(local_window, max_len)
-    for the LATTN ring), a (batch, R) float32 state for RGLRU, None for
-    FFN blocks; and pos (batch,) int32."""
+    for the LATTN ring), a (batch, R) float32 state for RGLRU, (C (batch,
+    H, hd, hd), n (batch, H, hd), m (batch, H)) float32 for MLSTM and
+    (c, n, h, m), each (batch, R) float32, for SLSTM (m = -1e30, the rest
+    zeros; JAX's template), None for FFN blocks; and pos (batch,) int32.
+    Every tensor is written in place by the decode steps but the sLSTM's,
+    which each step replaces."""
     check_supported(cfg)
     dt = cfg.compute_dtype
     R = cfg.rnn_width or cfg.d_model
@@ -773,6 +899,12 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
         if kind == RGLRU:
             return torch.zeros((batch, R), dtype=torch.float32,
                                device=device)
+        if kind == MLSTM:
+            H, hd = cfg.n_heads, cfg.hd
+            return _rnn_state((batch, H, hd, hd), (batch, H, hd), (batch, H),
+                              device=device)
+        if kind == SLSTM:
+            return _rnn_state(*[(batch, R)] * 4, device=device)
         return None
 
     caches = [tuple(block_cache(kind) for kind in kinds)

@@ -1018,3 +1018,112 @@ def test_reduced_train_step_on_cuda_equals_cpu(cuda_device, name):
         scale = max(float(a.detach().abs().max()), 1.0)
         torch.testing.assert_close(b.detach().cpu(), a.detach(), rtol=1e-4,
                                    atol=1e-4 * scale)
+
+
+def _xlstm_close(name, got, want, what):
+    """The xLSTM kernel `name` against its plain version on the same card:
+    kernels/ref.py xlstm_tol (f32 sums of xlstm_terms products in another
+    order)."""
+    terms = kref.xlstm_terms(name, want[0])
+    for part, g, w in zip("0123", got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (what, part)
+        torch.testing.assert_close(g, w, **kref.xlstm_tol(w, terms),
+                                   msg=lambda m: f"{what} output {part}: {m}")
+
+
+@pytest.mark.parametrize("case", lane_cases.MLSTM_CHUNK_CASES)
+def test_mlstm_chunkwise_kernel_matches_plain_version(cuda_device, case):
+    """B12 on chunks of 6, 8, 100 (not a power of two), 128 and 48, hd 16
+    and 512, B 1 and 3, from zeros and from a carried state: h and the
+    final (C, n, m); the state it is given stays as it was."""
+    B, S, H, hd, carried = case
+    xs, st = lane_cases.mlstm_inputs(*case)
+    args = _on(cuda_device, *xs, *st)
+    kept = [a.clone() for a in args]
+    got = kops.mlstm_chunkwise(*args)
+    for a, b in zip(args, kept):
+        same(a, b)
+    want = kref.mlstm_chunkwise(*args)
+    _xlstm_close("mlstm_chunkwise", got, want, f"mlstm_chunkwise {case}")
+
+
+@pytest.mark.parametrize("case", lane_cases.MLSTM_STEP_CASES)
+def test_mlstm_step_kernel_matches_plain_version(cuda_device, case):
+    """B13 walked `steps` times over one carried state, in place: each
+    step's h and the state after it, against the plain version walking a
+    copy of the same state; the state tensors are the ones given. A case
+    with a large carried n keeps |q . n'| above 1 at every step, so that
+    the division by the normalizer is held too."""
+    B, H, hd, steps, n_scale = case
+    xs, st = lane_cases.mlstm_inputs(B, steps, H, hd, True, n_scale=n_scale)
+    xs = _on(cuda_device, *xs)
+    state = _on(cuda_device, *st)
+    plain = [s.clone() for s in state]
+    for t in range(steps):
+        step = [x[:, t].contiguous() for x in xs]
+        got = kops.mlstm_step(*step, *state)
+        assert all(a is b for a, b in zip(got[1:], state))
+        want = kref.mlstm_step(*step, *plain)
+        _xlstm_close("mlstm_step", got, want, f"mlstm_step {case} step {t}")
+        if n_scale > 1:
+            assert float((step[0] * plain[1]).sum(-1).abs().min()) > 2.0
+
+
+@pytest.mark.parametrize("case", lane_cases.SLSTM_CASES)
+def test_slstm_scan_kernel_matches_plain_version(cuda_device, case):
+    """B14 at S = 1 (decode) with R 64 and 2048, short and ragged S, B 3,
+    rz in bf16 and f32, and 4,096 steps of its grid barrier: hs and the
+    final (c, n, h, m)."""
+    B, S, R, bf16 = case
+    xs, st = lane_cases.slstm_inputs(B, S, R)
+    z, i, f, o, rz = _on(cuda_device, *xs)
+    if bf16:
+        rz = rz.to(torch.bfloat16)
+    state = _on(cuda_device, *st)
+    got = kops.slstm_scan(z, i, f, o, rz, *state)
+    want = kref.slstm_scan(z, i, f, o, rz, *state)
+    _xlstm_close("slstm_scan", got[:4], want[:4], f"slstm_scan {case}")
+    torch.testing.assert_close(got[4], want[4], rtol=1e-6, atol=1e-6)
+
+
+def test_xlstm_kernels_count_one_launch_a_call(cuda_device):
+    """Each wrapper counts one launch a call (B12 is three launches)."""
+    from repro_torch.kernels import xlstm as kx
+    xs, st = lane_cases.mlstm_inputs(1, 8, 2, 16, False)
+    args = _on(cuda_device, *xs, *st)
+    before = (kx.mlstm_chunkwise.launches, kx.mlstm_step.launches,
+              kx.slstm_scan.launches)
+    kops.mlstm_chunkwise(*args)
+    kops.mlstm_step(*(x[:, 0].contiguous() for x in args[:5]), *args[5:])
+    xs, st = lane_cases.slstm_inputs(1, 3, 64)
+    kops.slstm_scan(*_on(cuda_device, *xs, *st))
+    kops.slstm_scan(*_on(cuda_device, *xs, *st))
+    assert (kx.mlstm_chunkwise.launches, kx.mlstm_step.launches,
+            kx.slstm_scan.launches) == (before[0] + 1, before[1] + 1,
+                                        before[2] + 2)
+
+
+def test_reduced_xlstm_on_cuda_equals_cpu(cuda_device):
+    """Reduced xlstm-1.3b (f32, weights built once and moved, TF32 off):
+    the forward's logits at S = 48 (one chunk), 384 (three) and 47 (a step
+    a position), and 8 teacher-forced decode steps, within 1e-4."""
+    import copy
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.get("xlstm-1.3b").reduced()
+    cpu = lm.init_lm(cfg, seed=5, device="cpu")
+    gpu = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(5)
+    for S in (48, 384, 47):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, (2, S)).astype(
+            np.int32))
+        lc = lm.logits_fn(cpu, cfg, lm._forward(cpu, cfg, tok))
+        lg = lm.logits_fn(gpu, cfg, lm._forward(gpu, cfg,
+                                                tok.to(cuda_device)))
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    states = [lm.init_decode_state(cfg, 3, 8, device=d)
+              for d in ("cpu", cuda_device)]
+    for _ in range(8):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, 3).astype(np.int32))
+        lc, states[0] = lm.decode_step(cpu, states[0], tok)
+        lg, states[1] = lm.decode_step(gpu, states[1], tok.to(cuda_device))
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
