@@ -41,11 +41,17 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    The xLSTM kernels on kernels/lane_cases.py's cases, within
    kernels/ref.py's xlstm_tol, kernel and plain version on the card:
    mlstm_chunkwise on MLSTM_CHUNK_CASES (chunks of 6, 8, 100 (not a power
-   of two), 128 and 48; hd 16 and 512; B 1 and 3; from zeros and from a
-   carried state), mlstm_step on MLSTM_STEP_CASES (up to 5 steps in place
-   on one state, which must be the tensors given; hd 16 and 512, B up to
-   16; an hd 16 case whose |q . n'| stays well above 1), slstm_scan on SLSTM_CASES (S = 1 at R 64 and 2048, short and
-   ragged S, B 3, rz in bf16 and f32, 4,096 steps of its grid barrier).
+   of two), 128 (3 and 32 of them at hd 512) and 48; hd 16 and 512; B 1
+   and 3; from zeros and from a carried state) and on MLSTM_SEGMENT_CASES
+   (its scratch cut to a few chunks, so that the state crosses segment
+   boundaries; also bit for bit against one segment), mlstm_step on
+   MLSTM_STEP_CASES (up to 5 steps in place on one state, which must be
+   the tensors given; hd 16 and 512, B up to 16; an hd 16 case whose |q .
+   n'| stays well above 1), slstm_scan on SLSTM_CASES (S = 1, the step
+   kernel, at R 64 and 2048 and B up to 128; the chain at short and ragged
+   S, R 100, B 3, rz in bf16 and f32, 4,096 steps: its ring's tag wraps
+   every 4), and called twice on one input (the chain, B 3 x 300, and
+   decode): the same bits both times.
    Then the owner-lane cases of kernels/lane_cases.py, the
    inputs tests/test_torch_cuda.py holds amo_apply and fused_apply to: every
    op on one word (16,384 FAAs, mixed codes with offsets outside [0, L) in
@@ -337,6 +343,12 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    decode steps, within LOGITS_TOL; on both devices decode at each step
    equal to the forward within DECODE_VS_PREFILL_TOL.
 
+Phases 5, 7 and 19 (a decode step), 5b, 8 and 20 (a prefill) and 16 and
+17 (a train step) also count the calls of models/lm.py's _sigmoid and
+_silu (JAX's expansions, each op rounded in the input's type: ROADMAP C1)
+by shape and print their time against torch.sigmoid's and F.silu's on
+inputs of the same shapes (`ActivationCalls`).
+
 Before the last line it prints the card's name and power limit, the
 median time per batch of each data-structure arm and per decode step, the
 prefills' and train steps' times, one JSON line with the report, and one
@@ -448,6 +460,9 @@ SLSTM_ERR_AT = (0, 1000, 10000)     # positions (and the last) printed
 # written before each timed call: > the 50 MB L2, and about 0.3 ms of
 # work, so the host has launched the timed call before the card reaches it
 L2_FLUSH_BYTES = 2 ** 30
+# the spin (torch.cuda._sleep cycles, about 25 ms) under which
+# ActivationCalls issues the calls it times
+ACT_SPIN_CYCLES = 50_000_000
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory, NVIDIA data sheet
 # dense peaks of one H100 SXM at 700 W (data sheet): bf16 tensor cores,
@@ -941,6 +956,113 @@ def cuda_ms_cold(fn, reps: int, flush) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
+class ActivationCalls:
+    """While `on`, counts the calls of models/lm.py's _sigmoid and _silu
+    (JAX's expansions: each op rounded in the input's type, four or five
+    elementwise passes where torch.sigmoid and F.silu make one; with a
+    gradient, JAX's rule in a torch.autograd.Function) by kind, shape,
+    dtype and whether a gradient flows; a silu's own sigmoid is not
+    counted again. `cost` then times them against torch's own ops."""
+
+    def __enter__(self):
+        from repro_torch.models import lm
+        self.lm, self.saved = lm, (lm._sigmoid, lm._silu)
+        self.calls, self.on, self.depth = {}, False, 0
+
+        def counted(kind, fn):
+            def call(x):
+                if self.on and not self.depth:
+                    import torch
+                    key = (kind, tuple(x.shape),
+                           str(x.dtype).replace("torch.", ""),
+                           bool(torch.is_grad_enabled() and x.requires_grad))
+                    self.calls[key] = self.calls.get(key, 0) + 1
+                self.depth += 1
+                try:
+                    return fn(x)
+                finally:
+                    self.depth -= 1
+            return call
+        lm._sigmoid = counted("sigmoid", self.saved[0])
+        lm._silu = counted("silu", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.lm._sigmoid, self.lm._silu = self.saved
+        return False
+
+    def cost(self, device, reps: int = 10) -> dict:
+        """The counted calls (one step's, prefill's or train step's worth)
+        against torch's own ops on seeded inputs of the same shapes
+        (forward, and backward where a gradient flowed): the device time
+        of their kernels (CUDA events around `reps` calls that the host
+        issued while the card spun, ACT_SPIN_CYCLES) and the host's time
+        to issue them (`reps` calls without a synchronize, as a host-bound
+        step pays it), each x the calls, and what the port adds to
+        each."""
+        import torch
+        import torch.nn.functional as F
+        port = dict(sigmoid=self.saved[0], silu=self.saved[1])
+        lib = dict(sigmoid=torch.sigmoid, silu=F.silu)
+        gen = torch.Generator(device=device).manual_seed(0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        rows = []
+        tot = dict(device_ms=0.0, torch_device_ms=0.0, host_ms=0.0,
+                   torch_host_ms=0.0)
+        for (kind, shape, dtype, grad), n in sorted(self.calls.items()):
+            x = torch.randn(shape, generator=gen, device=device).to(
+                getattr(torch, dtype))
+            g = torch.randn(shape, generator=gen, device=device).to(x.dtype)
+
+            def run(fn):
+                if grad:
+                    fn(x.detach().requires_grad_()).backward(g)
+                else:
+                    with torch.no_grad():
+                        fn(x)
+
+            def times(fn):
+                run(fn)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    run(fn)
+                host = (time.perf_counter() - t0) / reps * 1e3
+                torch.cuda.synchronize()
+                # the card spins while the host issues the calls, so that
+                # the events time their kernels only
+                torch.cuda._sleep(ACT_SPIN_CYCLES)
+                start.record()
+                for _ in range(reps):
+                    run(fn)
+                end.record()
+                torch.cuda.synchronize()
+                return start.elapsed_time(end) / reps, host
+            dev, host = times(port[kind])
+            lib_dev, lib_host = times(lib[kind])
+            rows.append(dict(kind=kind, shape=list(shape), dtype=dtype,
+                             grad=grad, calls=n, device_ms=dev,
+                             torch_device_ms=lib_dev, host_ms=host,
+                             torch_host_ms=lib_host))
+            for key, val in (("device_ms", dev), ("torch_device_ms", lib_dev),
+                             ("host_ms", host), ("torch_host_ms", lib_host)):
+                tot[key] += n * val
+            del x, g
+        return dict(calls=sum(self.calls.values()), **tot,
+                    added_device_ms=tot["device_ms"] - tot["torch_device_ms"],
+                    added_host_ms=tot["host_ms"] - tot["torch_host_ms"],
+                    by_shape=rows)
+
+
+def log_activations(phase, what: str, c: dict) -> None:
+    log(f"phase {phase}: JAX's sigmoid and silu, {c['calls']} calls "
+        f"{what}: device {c['device_ms']:.4f} ms against torch's own ops' "
+        f"{c['torch_device_ms']:.4f} (+{c['added_device_ms']:.4f}); host "
+        f"{c['host_ms']:.4f} against {c['torch_host_ms']:.4f} "
+        f"(+{c['added_host_ms']:.4f})")
+
+
 def max_abs_err(a, b) -> int:
     import torch
     outs = []
@@ -1284,6 +1406,7 @@ def edge_cases(device) -> None:
     kernels/lane_cases.py."""
     import torch
     from repro_torch.kernels import ops as kops, ref as kref
+    from repro_torch.kernels import xlstm as kx
     rng = np.random.default_rng(3)
 
     def t(x, dtype=torch.int32):
@@ -1421,6 +1544,18 @@ def edge_cases(device) -> None:
             kernel_err("mlstm_step", got,
                        kref.mlstm_step(*now, *plain_state),
                        f"edge case {(B_, H_, hd_, n_scale)} step {step}")
+    # B12's segments exist on the card only (kernels/xlstm.py)
+    for case in lc.MLSTM_SEGMENT_CASES if device.type == "cuda" else ():
+        xs, st = lc.mlstm_inputs(*case[:5])
+        args = tuple(t(x, torch.float32) for x in (*xs, *st))
+        nbytes = lc.mlstm_segment_bytes(case)
+        got = kx.mlstm_chunkwise(*args, state_bytes=nbytes)
+        kernel_err("mlstm_chunkwise", got, kref.mlstm_chunkwise(*args),
+                   f"segment case {case}")
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got, kx.mlstm_chunkwise(*args))):
+            raise AssertionError(f"phase 1: mlstm_chunkwise in segments of "
+                                 f"{case[-1]} chunks != one segment")
     for B_, S_, R_, bf16 in lc.SLSTM_CASES:
         xs, st = lc.slstm_inputs(B_, S_, R_)
         args = [t(x, torch.float32) for x in (*xs, *st)]
@@ -1428,6 +1563,14 @@ def edge_cases(device) -> None:
             args[4] = args[4].to(torch.bfloat16)
         cases.append(("slstm_scan", kops.slstm_scan, kref.slstm_scan,
                       tuple(args), {}))
+    for B_, S_ in ((3, 300), (128, 1)):
+        xs, st = lc.slstm_inputs(B_, S_, 2048, seed=5)
+        args = [t(x, torch.float32) for x in (*xs, *st)]
+        args[4] = args[4].to(torch.bfloat16)
+        first, second = kops.slstm_scan(*args), kops.slstm_scan(*args)
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"phase 1: slstm_scan called twice on "
+                                 f"{(B_, S_)} gave other bits")
     for name, kernel, plain, args, kw in cases:
         kernel_err(name, kernel(*args, **kw), plain(*args, **kw),
                    "edge cases")
@@ -3893,18 +4036,25 @@ def phase_serve(serve_cfg: dict, seed: int, device, phase: int,
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
 
+    acts = ActivationCalls()
+
     def on_step(t):
         mark(f"{tag} first step" if t == 1 else
              f"{tag} last step" if t == steps else None)
+        acts.on = t == 1                # one step's activation calls
         if t == steps - PROFILE_STEPS + 1:
             prof.__enter__()
 
     t0 = time.perf_counter()
-    gen, times, state = serve.generate(model, prompts, G, on_step=on_step,
-                                       sync=torch.cuda.synchronize)
+    with acts:
+        gen, times, state = serve.generate(model, prompts, G,
+                                           on_step=on_step,
+                                           sync=torch.cuda.synchronize)
     total_s = time.perf_counter() - t0
     prof.__exit__(None, None, None)
     mark(None)
+    activations = acts.cost(device)
+    log_activations(phase, "a decode step", activations)
     max_mem = torch.cuda.max_memory_allocated(device)
     gen = gen.cpu()
     if tuple(gen.shape) != (B, G + 1) or len(times) != steps:
@@ -3929,7 +4079,7 @@ def phase_serve(serve_cfg: dict, seed: int, device, phase: int,
         step_bound_ms_weights=w_bytes / HBM_BYTES_PER_S * 1e3,
         step_bound_ms=(w_bytes + extra) / HBM_BYTES_PER_S * 1e3,
         backends={k: v.value for k, v in sorted(state["backends"].items())},
-        first_tokens=gen[:2, :8].tolist(),
+        first_tokens=gen[:2, :8].tolist(), activations=activations,
         profile=profile_summary(prof, times[-PROFILE_STEPS:], step_ms,
                                 phase)))
 
@@ -4118,10 +4268,13 @@ def phase_prefill(model, seed: int, device, phase: str, tag: str,
                                  f"{tuple(logits.shape)} or not finite")
         return logits, dt, got
 
-    with Capture(last=True) as capture:
+    with Capture(last=True) as capture, ActivationCalls() as acts:
         capture.mark(tag)
+        acts.on = True
         logits, first_s, counts = run("captured")
     rows = phase_captured(capture.calls, tuple(want), phase)
+    activations = acts.cost(device)
+    log_activations(phase, "a prefill", activations)
     limit_check = None
     if "flash_attention" in want:
         limit_check = edge_fault_rejected(
@@ -4153,7 +4306,7 @@ def phase_prefill(model, seed: int, device, phase: str, tag: str,
                   tok_per_s=B * S / prefill_s, max_memory_allocated=max_mem,
                   memory_before=base_mem, matmul_flops=mat_flops,
                   attention_flops=attn_flops, cell_flops=cell_flops,
-                  bound_s=bound_s,
+                  bound_s=bound_s, activations=activations,
                   profile=profile, limit_check=limit_check)
     if prompts is None:
         return report, rows
@@ -4534,10 +4687,13 @@ def phase_train(cfg, seed: int, device, phase: int, tag: str, batch: int,
         gnorms.append(gn)
         return dt
 
-    with Capture() as capture:
+    with Capture() as capture, ActivationCalls() as acts:
         capture.mark(tag)
+        acts.on = True
         first_s = run(0)
     rows = phase_captured(capture.calls, names, phase)
+    activations = acts.cost(device)
+    log_activations(phase, "a train step", activations)
     edge = bwd_edge_fault_rejected(
         *capture.calls[("flash_attention_bwd", tag)], str(phase))
     log(f"phase {phase}: the flash_attention_bwd limit rejects the "
@@ -4589,6 +4745,7 @@ def phase_train(cfg, seed: int, device, phase: int, tag: str, batch: int,
                   bound_ms=(mat_flops + attn_flops)
                   / PEAK_FLOPS["torch.bfloat16"] * 1e3,
                   profile=profile, limit_check=edge,
+                  activations=activations,
                   checkpoint=dict(leaves=len(pairs), bytes=ckpt_bytes,
                                   seconds=ckpt_s))
     del model, opt

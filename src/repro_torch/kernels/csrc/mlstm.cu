@@ -48,10 +48,11 @@
 // (c hd^2 each) and of the causal scores and scores . v (c (c + 1) / 2 hd
 // each, the pairs s <= t only): 4 B H S hd^2 + 2 B H S (c + 1) hd, 155
 // GFLOP, 2.31 ms at 67 TFLOP/s, a layer of the 1 x 32,768 prefill.
-// Design: three launches a call.
-//  1. gates (mlstm_gates_kernel): one warp per (b, h), a lane a chunk,
+// Design: the carry (C, n, m from chunk to chunk) is split from the output,
+// so that only the state walk is in order and it needs no output.
+//  1. gates (mlstm_gates_kernel): one block per (b, h), a thread a chunk,
 //     walks each chunk in order (the cumsum and the running max as the
-//     plain version takes them), lane 0 the chunks' m in order; it writes
+//     plain version takes them), thread 0 the chunks' m in order; it writes
 //     rel and M a position and m at each chunk's start. With m0 = -1e30
 //     every exp(m - M) is 0, and stays finite.
 //  2. intra (mlstm_intra_kernel): one block per (b, h, chunk), all chunks
@@ -59,15 +60,23 @@
 //     shared memory, transposed) from d-tiles of q and k, each thread an
 //     8 x 8 block of it; then sum_s S_ts v_s into h and sum_s S_ts into a
 //     scratch row, over e-tiles of v. 2 blocks an SM.
-//  3. inter (mlstm_inter_kernel): the carry. A chunk's q or k alone is
-//     256 KB at hd = 512 and C of a head 1 MiB, so C's value columns are
-//     split into slices of 16: one block per (b, h, slice) keeps its
-//     hd x 16 slice of C (32 KB) and its own copy of n in shared memory
-//     and walks the chunks in order: q . C and q . n over d-tiles of q,
-//     the output h (adding step 2's part), then C and n updated from
-//     s-tiles of k and the slice of v. At B = 1 the grid is 4 heads x 32
-//     slices = 128 blocks on 132 SMs; each block reads every chunk's q and
-//     k (from L2), which the work of a 16-column slice does not hide.
+//  3. per segment of `seg` chunks (the wrapper sizes seg so that the
+//     states of a segment take at most 1 GiB: the whole 1 x 32,768 prefill
+//     of xlstm-1.3b is one segment of 256 chunks), two launches:
+//     (a) states (mlstm_state_kernel): one block per (64 x 128 tile of C,
+//         h, b), 32 a head at hd = 512, walks the segment's chunks in
+//         order, storing the state entering each chunk into scratch and
+//         adding the chunk's (w k)^T v to its tile in registers, fed by a
+//         4-stage cp.async ring; no block reads another's tile, so none
+//         waits on another;
+//     (b) output (mlstm_out_kernel): one block per (chunk, 128-column
+//         e-tile, h, b), all chunks at once: exp(m - M_t) q_t . C_k and
+//         q_t . n_k over d-tiles (the next loaded into registers while the
+//         current one is multiplied), plus step 2's parts, over the
+//         normalizer.
+//     Both are register-tiled f32 on the CUDA cores (no tensor cores: TF32
+//     keeps three digits, short of ref.xlstm_tol).
+//  At the prefill: 4 launches, 1 GiB of states written and read once.
 #include <cmath>
 #include <cuda_runtime.h>
 
@@ -174,11 +183,9 @@ __global__ void mlstm_step_kernel(const float* __restrict__ q,
 // B12: the chunkwise forward
 // ---------------------------------------------------------------------------
 constexpr int kMaxChunk = 128;
-constexpr int kThreads = 256;         // intra and inter blocks
+constexpr int kThreads = 256;         // intra, state and output blocks
 constexpr int kDTile = 32;            // d-tile of q and k
 constexpr int kETile = 64;            // e-tile of v (intra)
-constexpr int kSlice = 16;            // value columns of C a block (inter)
-constexpr int kSTile = 16;            // s-tile of k (inter)
 constexpr int kStride = kMaxChunk + 4;  // row stride of the transposed S
 
 // Scratch layout (floats): rel, M and qn_intra (B, H, S) each, then m at
@@ -190,21 +197,20 @@ struct Work {
   float* mk;
 };
 
-// One warp per (b, h); lane l takes chunks l, l + 32, ... Pass 1: each
-// chunk's cumsum F_end and max of rel (parked in mk[ch] and Mx[ch c]);
-// lane 0 then walks the chunks' m in order; pass 2: each chunk's rel and M
-// from its m (the same sums in the same order as pass 1).
+// One block per (b, h); thread x takes chunks x, x + blockDim, ... Pass 1:
+// each chunk's cumsum F_end and max of rel (parked in mk[ch] and Mx[ch
+// c]); thread 0 then walks the chunks' m in order; pass 2: each chunk's
+// rel and M from its m (the same sums in the same order as pass 1).
 __global__ void mlstm_gates_kernel(const float* __restrict__ gi,
                                    const float* __restrict__ gf,
                                    const float* __restrict__ m0,
                                    float* __restrict__ m_out,
                                    float* __restrict__ rel_out,
                                    float* __restrict__ M_out,
-                                   float* __restrict__ mk_out, int BH, int H,
+                                   float* __restrict__ mk_out, int H,
                                    long long S, int c) {
-  const int bh = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (bh >= BH) return;
+  const long long bh = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
   const long long b = bh / H, hh = bh % H;
   const long long nc = S / c;
   const float* ib = gi + b * S * H + hh;
@@ -212,7 +218,7 @@ __global__ void mlstm_gates_kernel(const float* __restrict__ gi,
   float* rel = rel_out + bh * S;
   float* Mx = M_out + bh * S;
   float* mk = mk_out + bh * (nc + 1);
-  for (long long ch = lane; ch < nc; ch += 32) {
+  for (long long ch = tid; ch < nc; ch += nt) {
     float F = 0.f, cm = -INFINITY;
     for (int t = 0; t < c; ++t) {
       const long long s = ch * c + t;
@@ -222,8 +228,8 @@ __global__ void mlstm_gates_kernel(const float* __restrict__ gi,
     mk[ch] = F;
     Mx[ch * c] = cm;
   }
-  __syncwarp();
-  if (lane == 0) {
+  __syncthreads();
+  if (tid == 0) {
     float m = m0[bh];
     for (long long ch = 0; ch < nc; ++ch) {
       const float F_end = mk[ch], R = Mx[ch * c];
@@ -233,8 +239,8 @@ __global__ void mlstm_gates_kernel(const float* __restrict__ gi,
     mk[nc] = m;
     m_out[bh] = m;
   }
-  __syncwarp();
-  for (long long ch = lane; ch < nc; ch += 32) {
+  __syncthreads();
+  for (long long ch = tid; ch < nc; ch += nt) {
     const float m = mk[ch];
     float F = 0.f, cm = -INFINITY;
     for (int t = 0; t < c; ++t) {
@@ -376,178 +382,355 @@ mlstm_intra_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// One block per (slice, h, b), walking the chunks in order. Shared memory:
-// Cs (HD x kSlice), ns (HD), the q d-tile (kDTile x kMaxChunk, [d][t]) or
-// the k s-tile (kSTile x HD) with the weighted v slice (kSTile x kSlice),
-// the chunk's inter_t, w_s and qn_t, and a reduction row.
+// P adjacent floats, as float4 where P is 4 (the address then 16-byte
+// aligned).
+template <int P>
+__device__ __forceinline__ void load_row(float* dst, const float* src) {
+  if constexpr (P == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(src);
+    dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < P; ++j) dst[j] = src[j];
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void store_row(float* dst, const float* src) {
+  if constexpr (P == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2],
+                                                  src[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < P; ++j) dst[j] = src[j];
+  }
+}
+
+// Thread tx's PE columns of an e-tile of 16 PE: PE < 4 adjacent ones at tx
+// PE; else groups of 4 at tx * 4 + 64 g, so that 16 threads read 256
+// contiguous bytes a float4.
+template <int PE>
+__device__ __forceinline__ void load_cols(float* dst, const float* row,
+                                          int tx) {
+  if constexpr (PE >= 4) {
+#pragma unroll
+    for (int g = 0; g < PE / 4; ++g)
+      load_row<4>(dst + 4 * g, row + 64 * g + tx * 4);
+  } else {
+    load_row<PE>(dst, row + tx * PE);
+  }
+}
+
+template <int PE>
+__device__ __forceinline__ void store_cols(float* row, const float* src,
+                                           int tx) {
+  if constexpr (PE >= 4) {
+#pragma unroll
+    for (int g = 0; g < PE / 4; ++g)
+      store_row<4>(row + 64 * g + tx * 4, src + 4 * g);
+  } else {
+    store_row<PE>(row + tx * PE, src);
+  }
+}
+
+// Pass (a), the boundary states: one block per (d-tile x e-tile of C, h,
+// b) walks the chunks of a segment in order and keeps its tile of C (and,
+// for the e-tile 0 blocks, its rows of n) in registers. At each chunk's
+// start it stores the tile into the scratch `states` (the state entering
+// the chunk), then adds sum_s (w_s k_s[d-tile])^T v_s[e-tile] over the
+// chunk's positions in s-blocks of kSBlock, and scales by the decay:
+// C <- exp(m - M_end) C + sum, n likewise. A tile needs only its own
+// columns of k and v: no block waits on another. The s-blocks stream
+// through a ring of kStages stages of shared memory filled by cp.async
+// (k, v, rel and M_end of an s-block a stage), kStages - 1 s-blocks ahead
+// of the products, so that a copy's latency hides behind several s-blocks
+// of products. Tiles are 64 x 128 (32 blocks a head at hd = 512); thread
+// (tx, ty) holds rows ty PD + [0, PD) and the PE columns load_cols gives
+// tx (PD = d-tile / 16, PE = e-tile / 16). States: (B, H, seg, hd, hd),
+// n's (B, H, seg, hd), f32.
+constexpr int kSBlock = 32;           // positions an s-block (pass a)
+constexpr int kStages = 4;            // the ring's stages (pass a)
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src to shared dst, or 16 zero bytes (src not read)
+__device__ __forceinline__ void copy16(float* dst, const float* src,
+                                       bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+template <int HD>
+struct StateTile {
+  static constexpr int kTD = HD < 64 ? HD : 64;     // d-tile
+  static constexpr int kTE = HD < 128 ? HD : 128;   // e-tile
+  // a stage: k (kSBlock x kTD), v (kSBlock x kTE), rel (kSBlock), M_end
+  static constexpr int kStage = kSBlock * (kTD + kTE) + kSBlock + 4;
+  static constexpr size_t kSmem = sizeof(float) * kStages * kStage;
+};
+
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
-mlstm_inter_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ C0,
-                   const float* __restrict__ n0, float* __restrict__ h,
-                   float* __restrict__ C_out, float* __restrict__ n_out,
-                   Work w, long long S, int H, int c) {
-  constexpr int kRowsB = HD / 16;        // rows of C a thread (update)
-  constexpr int kNPer = (HD + kThreads - 1) / kThreads;
-  extern __shared__ float sm[];
-  float* Cs = sm;                                      // HD x kSlice
-  float* ns = Cs + HD * kSlice;                        // HD
-  float* tile = ns + HD;
-  float* qs = tile;                                    // kDTile x kMaxChunk
-  float* ks = tile;                                    // kSTile x HD
-  float* vw = tile + kSTile * HD;                      // kSTile x kSlice
-  const int tile_floats = (kDTile * kMaxChunk > kSTile * (HD + kSlice))
-                              ? kDTile * kMaxChunk
-                              : kSTile * (HD + kSlice);
-  float* inter = tile + tile_floats;                   // kMaxChunk
-  float* wgt = inter + kMaxChunk;                      // kMaxChunk
-  float* qn = wgt + kMaxChunk;                         // 2 x kMaxChunk
-  const int tid = threadIdx.x;
-  const int e = tid % kSlice, g = tid / kSlice;        // 16 groups
-  const long long sl = blockIdx.x, hh = blockIdx.y, b = blockIdx.z;
+mlstm_state_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                   const float* C_in, const float* n_in, float* C_out,
+                   float* n_out, float* __restrict__ states,
+                   float* __restrict__ nstates, Work w, long long S, int H,
+                   int c, long long k0, int nk, int seg) {
+  using T = StateTile<HD>;
+  constexpr int kTD = T::kTD, kTE = T::kTE;
+  constexpr int PD = kTD / 16, PE = kTE / 16;
+  constexpr int kKQuads = kSBlock * kTD / 4;     // float4 of an s-block
+  constexpr int kVQuads = kSBlock * kTE / 4;
+  constexpr int nE = HD / kTE;
+  extern __shared__ __align__(16) float ring[];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int dt = blockIdx.x / nE, et = blockIdx.x % nE;
+  const int d0 = dt * kTD, e0 = et * kTE;
+  const long long hh = blockIdx.y, b = blockIdx.z;
   const long long bh = b * H + hh;
-  const int e0 = static_cast<int>(sl) * kSlice;
   const long long row_stride = static_cast<long long>(H) * HD;
-  const long long nc = S / c;
-  for (int x = tid; x < HD * kSlice; x += kThreads) {
-    const int d = x / kSlice, ee = x % kSlice;
-    Cs[x] = C0[bh * HD * HD + static_cast<long long>(d) * HD + e0 + ee];
-  }
-  for (int d = tid; d < HD; d += kThreads) ns[d] = n0[bh * HD + d];
-  for (long long ch = 0; ch < nc; ++ch) {
-    const long long lo = ch * c;
-    const float mk = w.mk[bh * (nc + 1) + ch];
-    const float M_end = w.Mx[bh * S + lo + c - 1];
-    const float decay = expf(mk - M_end);
-    __syncthreads();
-    for (int t = tid; t < kMaxChunk; t += kThreads) {
-      inter[t] = t < c ? expf(mk - w.Mx[bh * S + lo + t]) : 0.f;
-      wgt[t] = t < c ? expf(w.rel[bh * S + lo + t] - M_end) : 0.f;
-    }
-    // q . C (rows t = g * 8 + i, column e) and q . n (row tid % 128, the
-    // half tid / 128 of each d-tile)
-    const float* qb = q + (b * S + lo) * row_stride + hh * HD;
-    float acc[8];
+  const bool n_thread = et == 0 && tid < kTD;
+  const long long cbase = bh * HD * HD;
+  float cr[PD][PE];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-    float qnp = 0.f;
-    const int qt = tid % kMaxChunk, qhalf = tid / kMaxChunk;
-    for (int d0 = 0; d0 < HD; d0 += kDTile) {
-      __syncthreads();
-      for (int x = tid; x < kMaxChunk * kDTile; x += kThreads) {
-        const int t = x % kMaxChunk, d = x / kMaxChunk;
-        qs[d * kMaxChunk + t] =
-            (t < c && d0 + d < HD) ? qb[t * row_stride + d0 + d] : 0.f;
+  for (int i = 0; i < PD; ++i)
+    load_cols<PE>(cr[i], C_in + cbase +
+                             static_cast<long long>(d0 + ty * PD + i) * HD + e0,
+                  tx);
+  float nr = n_thread ? n_in[bh * HD + d0 + tid] : 0.f;
+  const int nsb = (c + kSBlock - 1) / kSBlock;
+  const int G = nk * nsb;
+  // s-block g into stage g % kStages (zeros past the chunk's end)
+  auto issue = [&](int g) {
+    float* st = ring + (g % kStages) * T::kStage;
+    const long long ch = k0 + g / nsb;
+    const int s0 = (g % nsb) * kSBlock;
+    const long long pos0 = ch * c + s0;
+    const float* kb = k + (b * S + pos0) * row_stride + hh * HD + d0;
+    const float* vb = v + (b * S + pos0) * row_stride + hh * HD + e0;
+    for (int x = tid; x < kKQuads; x += kThreads) {
+      const int s = x / (kTD / 4), q4 = x % (kTD / 4);
+      const bool live = s0 + s < c;
+      copy16(st + 4 * x, live ? kb + s * row_stride + 4 * q4 : kb, live);
+    }
+    for (int x = tid; x < kVQuads; x += kThreads) {
+      const int s = x / (kTE / 4), q4 = x % (kTE / 4);
+      const bool live = s0 + s < c;
+      copy16(st + kSBlock * kTD + 4 * x,
+             live ? vb + s * row_stride + 4 * q4 : vb, live);
+    }
+    // rel past the chunk's end is -inf, so that its weight is exp(-inf) = 0
+    const float* relb = w.rel + bh * S + pos0;
+    if (tid < kSBlock) {
+      if (s0 + tid < c)
+        copy4(st + kSBlock * (kTD + kTE) + tid, relb + tid);
+      else
+        st[kSBlock * (kTD + kTE) + tid] = -INFINITY;
+    } else if (tid == kSBlock) {
+      copy4(st + kSBlock * (kTD + kTE) + kSBlock,
+            w.Mx + bh * S + ch * c + c - 1);
+    }
+  };
+  float up[PD][PE];
+  float nup = 0.f;
+#pragma unroll
+  for (int g = 0; g < kStages - 1; ++g) {
+    if (g < G) issue(g);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+  for (int g = 0; g < G; ++g) {
+    const int kl = g / nsb, sb = g % nsb;
+    if (g + kStages - 1 < G) issue(g + kStages - 1);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    asm volatile("cp.async.wait_group %0;" ::"n"(kStages - 1) : "memory");
+    __syncthreads();
+    if (sb == 0) {           // the state entering chunk k0 + kl
+      float* st = states + ((bh * seg + kl) * HD + d0) * HD + e0;
+#pragma unroll
+      for (int i = 0; i < PD; ++i) {
+        store_cols<PE>(st + static_cast<long long>(ty * PD + i) * HD, cr[i],
+                       tx);
+#pragma unroll
+        for (int j = 0; j < PE; ++j) up[i][j] = 0.f;
       }
-      __syncthreads();
-      const int dn = HD - d0 < kDTile ? HD - d0 : kDTile;
+      if (n_thread) nstates[(bh * seg + kl) * HD + d0 + tid] = nr;
+      nup = 0.f;
+    }
+    const float* ks = ring + (g % kStages) * T::kStage;
+    const float* vs = ks + kSBlock * kTD;
+    const float* rel = vs + kSBlock * kTE;
+    const float M_end = rel[kSBlock];
 #pragma unroll 4
-      for (int d = 0; d < dn; ++d) {
-        const float cv = Cs[(d0 + d) * kSlice + e];
-        const float4 qa = reinterpret_cast<const float4*>(
-            qs + d * kMaxChunk + g * 8)[0];
-        const float4 qc = reinterpret_cast<const float4*>(
-            qs + d * kMaxChunk + g * 8)[1];
-        acc[0] += qa.x * cv;
-        acc[1] += qa.y * cv;
-        acc[2] += qa.z * cv;
-        acc[3] += qa.w * cv;
-        acc[4] += qc.x * cv;
-        acc[5] += qc.y * cv;
-        acc[6] += qc.z * cv;
-        acc[7] += qc.w * cv;
-      }
-      for (int d = qhalf; d < dn; d += 2)
-        qnp += qs[d * kMaxChunk + qt] * ns[d0 + d];
-    }
-    qn[qhalf * kMaxChunk + qt] = qnp;
-    __syncthreads();
-    // the output rows of this slice: step 2's part added
-    float* hb = h + (b * S + lo) * row_stride + hh * HD + e0 + e;
+    for (int s = 0; s < kSBlock; ++s) {
+      const float ws = expf(rel[s] - M_end);
+      float a[PD], bv[PE];
+      load_row<PD>(a, ks + s * kTD + ty * PD);
+      load_cols<PE>(bv, vs + s * kTE, tx);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int t = g * 8 + i;
-      if (t < c) {
-        const float it = inter[t];
-        const float qnt = it * (qn[t] + qn[kMaxChunk + t]) +
-                          w.qni[bh * S + lo + t];
-        const float num = it * acc[i] + hb[t * row_stride];
-        hb[t * row_stride] = num / fmaxf(fabsf(qnt), 1.f);
-      }
-    }
-    // C' = decay C + sum_s w_s k_s v_s^T over s-tiles; n' likewise. Thread
-    // (e, g) holds rows d = g * kRowsB + j of column e.
-    const float* kb = k + (b * S + lo) * row_stride + hh * HD;
-    const float* vb = v + (b * S + lo) * row_stride + hh * HD + e0;
-    float up[kRowsB];
+      for (int i = 0; i < PD; ++i) a[i] *= ws;
 #pragma unroll
-    for (int j = 0; j < kRowsB; ++j) up[j] = 0.f;
-    float nup[kNPer];
+      for (int i = 0; i < PD; ++i)
 #pragma unroll
-    for (int j = 0; j < kNPer; ++j) nup[j] = 0.f;
-    for (int s0 = 0; s0 < c; s0 += kSTile) {
-      __syncthreads();
-      for (int x = tid; x < kSTile * (HD / 4); x += kThreads) {
-        const int s = x / (HD / 4), d4 = x % (HD / 4);
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (s0 + s < c)
-          val = reinterpret_cast<const float4*>(kb + (s0 + s) * row_stride)[d4];
-        reinterpret_cast<float4*>(ks + s * HD)[d4] = val;
-      }
-      for (int x = tid; x < kSTile * kSlice; x += kThreads) {
-        const int s = x / kSlice, ee = x % kSlice;
-        vw[x] = s0 + s < c ? wgt[s0 + s] * vb[(s0 + s) * row_stride + ee]
-                           : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 2
-      for (int s = 0; s < kSTile; ++s) {
-        const float vv = vw[s * kSlice + e];
-        const float* kr = ks + s * HD + g * kRowsB;
-        if constexpr (kRowsB % 4 == 0) {
-#pragma unroll
-          for (int j = 0; j < kRowsB; j += 4) {
-            const float4 kk = *reinterpret_cast<const float4*>(kr + j);
-            up[j] += kk.x * vv;
-            up[j + 1] += kk.y * vv;
-            up[j + 2] += kk.z * vv;
-            up[j + 3] += kk.w * vv;
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < kRowsB; ++j) up[j] += kr[j] * vv;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kNPer; ++j) {
-        const int d = tid + j * kThreads;
-        if (d < HD) {
-          float sum = 0.f;
-          for (int s = 0; s < kSTile && s0 + s < c; ++s)
-            sum += wgt[s0 + s] * ks[s * HD + d];
-          nup[j] += sum;
-        }
-      }
+        for (int j = 0; j < PE; ++j) up[i][j] += a[i] * bv[j];
+      if (n_thread) nup += ws * ks[s * kTD + tid];
     }
     __syncthreads();
+    if (sb == nsb - 1) {     // the chunk's end: decay and add
+      const long long ch = k0 + kl;
+      const float decay = expf(w.mk[bh * (S / c + 1) + ch] - M_end);
 #pragma unroll
-    for (int j = 0; j < kRowsB; ++j) {
-      float* cp = Cs + (g * kRowsB + j) * kSlice + e;
-      *cp = decay * *cp + up[j];
-    }
+      for (int i = 0; i < PD; ++i)
 #pragma unroll
-    for (int j = 0; j < kNPer; ++j) {
-      const int d = tid + j * kThreads;
-      if (d < HD) ns[d] = decay * ns[d] + nup[j];
+        for (int j = 0; j < PE; ++j) cr[i][j] = decay * cr[i][j] + up[i][j];
+      nr = decay * nr + nup;
     }
   }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < PD; ++i)
+    store_cols<PE>(C_out + cbase +
+                       static_cast<long long>(d0 + ty * PD + i) * HD + e0,
+                   cr[i], tx);
+  if (n_thread) n_out[bh * HD + d0 + tid] = nr;
+}
+
+// Pass (b), the output: one block per (chunk of the segment x e-tile, h,
+// b), all chunks at once. It forms q_t . C_k[:, e-tile] (C_k the state
+// entering chunk k, from `states`) and q_t . n_k over d-tiles of 16 (q
+// transposed in shared memory; the next d-tile loaded into registers
+// while the current one is multiplied), then h_t = (exp(m_k - M_t) q_t .
+// C_k + intra_t) / max(|exp(m_k - M_t) q_t . n_k + qn_intra_t|, 1), the
+// intra parts from the intra pass (in h and qni). Thread (tx, ty) holds
+// rows t = ty * 8 + [0, 8) and columns tx PE + [0, PE) of the e-tile (PE
+// = e-tile / 16).
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+mlstm_out_kernel(const float* __restrict__ q, const float* __restrict__ states,
+                 const float* __restrict__ nstates, float* __restrict__ h,
+                 Work w, long long S, int H, int c, long long k0, int seg) {
+  constexpr int kE = HD < 128 ? HD : 128;        // e-tile
+  constexpr int PE = kE / 16;
+  constexpr int kD = 16;                         // d-tile
+  constexpr int kQLd = kMaxChunk + 4;            // row stride of q^T
+  constexpr int kQQuads = kMaxChunk * kD / 4;
+  constexpr int kCQuads = kD * kE / 4;
+  constexpr int kQPer = (kQQuads + kThreads - 1) / kThreads;
+  constexpr int kCPer = (kCQuads + kThreads - 1) / kThreads;
+  constexpr int nE = HD / kE;
+  __shared__ __align__(16) float qT[kD * kQLd];
+  __shared__ __align__(16) float Cs[kD * kE];
+  __shared__ float nsm[HD];
+  __shared__ float qnp[2][kMaxChunk];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const long long kl = blockIdx.x / nE;
+  const int e0 = (blockIdx.x % nE) * kE;
+  const long long hh = blockIdx.y, b = blockIdx.z;
+  const long long bh = b * H + hh;
+  const long long ch = k0 + kl;
+  const long long lo = ch * c;
+  const long long row_stride = static_cast<long long>(H) * HD;
+  const float* qb = q + (b * S + lo) * row_stride + hh * HD;
+  const float* Cb = states + (bh * seg + kl) * HD * HD + e0;
+  const float* nb = nstates + (bh * seg + kl) * HD;
+  for (int d = tid; d < HD; d += kThreads) nsm[d] = nb[d];
+  float4 qreg[kQPer], creg[kCPer];
+  auto fetch = [&](int d0) {
+#pragma unroll
+    for (int r = 0; r < kQPer; ++r) {
+      const int x = tid + kThreads * r;
+      const int t = x / (kD / 4), q4 = x % (kD / 4);
+      qreg[r] = (x < kQQuads && t < c)
+                    ? *reinterpret_cast<const float4*>(qb + t * row_stride +
+                                                       d0 + 4 * q4)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int r = 0; r < kCPer; ++r) {
+      const int x = tid + kThreads * r;
+      const int d = x / (kE / 4), q4 = x % (kE / 4);
+      if (x < kCQuads)
+        creg[r] = *reinterpret_cast<const float4*>(
+            Cb + static_cast<long long>(d0 + d) * HD + 4 * q4);
+    }
+  };
+  auto stash = [&]() {
+#pragma unroll
+    for (int r = 0; r < kQPer; ++r) {
+      const int x = tid + kThreads * r;
+      if (x < kQQuads) {
+        const int t = x / (kD / 4), d = 4 * (x % (kD / 4));
+        qT[d * kQLd + t] = qreg[r].x;
+        qT[(d + 1) * kQLd + t] = qreg[r].y;
+        qT[(d + 2) * kQLd + t] = qreg[r].z;
+        qT[(d + 3) * kQLd + t] = qreg[r].w;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kCPer; ++r) {
+      const int x = tid + kThreads * r;
+      if (x < kCQuads) reinterpret_cast<float4*>(Cs)[x] = creg[r];
+    }
+  };
+  float acc[8][PE];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < PE; ++j) acc[i][j] = 0.f;
+  float qn = 0.f;
+  const int qt = tid % kMaxChunk, qhalf = tid / kMaxChunk;
+  fetch(0);
+  for (int d0 = 0; d0 < HD; d0 += kD) {
+    __syncthreads();
+    stash();
+    __syncthreads();
+    if (d0 + kD < HD) fetch(d0 + kD);
+#pragma unroll 4
+    for (int d = 0; d < kD; ++d) {
+      const float4 qa =
+          *reinterpret_cast<const float4*>(qT + d * kQLd + ty * 8);
+      const float4 qc =
+          *reinterpret_cast<const float4*>(qT + d * kQLd + ty * 8 + 4);
+      const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qc.x, qc.y, qc.z, qc.w};
+      float cv[PE];
+      load_cols<PE>(cv, Cs + d * kE, tx);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < PE; ++j) acc[i][j] += qv[i] * cv[j];
+    }
+    for (int d = qhalf; d < kD; d += 2) qn += qT[d * kQLd + qt] * nsm[d0 + d];
+  }
+  qnp[qhalf][qt] = qn;
   __syncthreads();
-  for (int x = tid; x < HD * kSlice; x += kThreads) {
-    const int d = x / kSlice, ee = x % kSlice;
-    C_out[bh * HD * HD + static_cast<long long>(d) * HD + e0 + ee] = Cs[x];
+  const float mk = w.mk[bh * (S / c + 1) + ch];
+  float* hb = h + (b * S + lo) * row_stride + hh * HD + e0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int t = ty * 8 + i;
+    if (t < c) {
+      const float it = expf(mk - w.Mx[bh * S + lo + t]);
+      const float qnt = it * (qnp[0][t] + qnp[1][t]) + w.qni[bh * S + lo + t];
+      const float den = fmaxf(fabsf(qnt), 1.f);
+      float* hr = hb + t * row_stride;
+      float intra[PE];
+      load_cols<PE>(intra, hr, tx);
+#pragma unroll
+      for (int j = 0; j < PE; ++j)
+        intra[j] = (it * acc[i][j] + intra[j]) / den;
+      store_cols<PE>(hr, intra, tx);
+    }
   }
-  if (sl == 0)
-    for (int d = tid; d < HD; d += kThreads) n_out[bh * HD + d] = ns[d];
 }
 
 size_t intra_smem() {
@@ -555,29 +738,49 @@ size_t intra_smem() {
          (kMaxChunk * kStride + 2 * kDTile * kMaxChunk + 2 * kMaxChunk);
 }
 
+// One segment: pass (a) over chunks [k0, k0 + nk) from (C_in, n_in) into
+// (C, n), then pass (b) over the same chunks.
 template <int HD>
-size_t inter_smem() {
-  const int tile = (kDTile * kMaxChunk > kSTile * (HD + kSlice))
-                       ? kDTile * kMaxChunk
-                       : kSTile * (HD + kSlice);
-  return sizeof(float) * (HD * kSlice + HD + tile + 4 * kMaxChunk);
+cudaError_t launch_segment(const float* q, const float* k, const float* v,
+                           const float* C_in, const float* n_in, float* h,
+                           float* C, float* n, float* states, float* nstates,
+                           Work w,
+                           long long B, long long S, int H, int c,
+                           long long k0, int nk, int seg, cudaStream_t st) {
+  using T = StateTile<HD>;
+  constexpr int kE = HD < 128 ? HD : 128;
+  cudaError_t err = cudaFuncSetAttribute(
+      mlstm_state_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(T::kSmem));
+  if (err != cudaSuccess) return err;
+  const dim3 ga((HD / T::kTD) * (HD / T::kTE), static_cast<unsigned>(H),
+                static_cast<unsigned>(B));
+  mlstm_state_kernel<HD><<<ga, kThreads, T::kSmem, st>>>(
+      k, v, C_in, n_in, C, n, states, nstates, w, S, H, c, k0, nk, seg);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 gb(static_cast<unsigned>(nk * (HD / kE)),
+                static_cast<unsigned>(H), static_cast<unsigned>(B));
+  mlstm_out_kernel<HD><<<gb, kThreads, 0, st>>>(q, states, nstates, h, w, S,
+                                                H, c, k0, seg);
+  return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch_inter(const float* q, const float* k, const float* v,
-                         const float* C0, const float* n0, float* h,
-                         float* C, float* n, Work w, long long B, long long S,
-                         int H, int c, cudaStream_t st) {
-  const size_t smem = inter_smem<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      mlstm_inter_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(HD / kSlice, static_cast<unsigned>(H),
-                  static_cast<unsigned>(B));
-  mlstm_inter_kernel<HD><<<grid, kThreads, smem, st>>>(q, k, v, C0, n0, h, C,
-                                                       n, w, S, H, c);
-  return cudaGetLastError();
+cudaError_t carry(const float* q, const float* k, const float* v,
+                  const float* C0, const float* n0, float* h, float* C,
+                  float* n, float* states, float* nstates, Work w,
+                  long long B, long long S, int H, int c, int seg,
+                  cudaStream_t st) {
+  const long long nc = S / c;
+  for (long long k0 = 0; k0 < nc; k0 += seg) {
+    const int nk = static_cast<int>(nc - k0 < seg ? nc - k0 : seg);
+    const cudaError_t err = launch_segment<HD>(
+        q, k, v, k0 == 0 ? C0 : C, k0 == 0 ? n0 : n, h, C, n, states,
+        nstates, w, B, S, H, c, k0, nk, seg, st);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // The largest divisor ds of hd / 8 with ds * hd / 4 <= 256 (at least 1):
@@ -628,17 +831,19 @@ extern "C" long long repro_mlstm_chunkwise_work_floats(long long B, int H,
 // H, hd), m0 (B, H), all f32 contiguous and 16-byte aligned; hd in {16,
 // 32, 64, 128, 256, 512}; 1 <= c <= 128 dividing S. Writes h (B, S, H,
 // hd) and the final C, n, m (new buffers); `work` holds
-// repro_mlstm_chunkwise_work_floats floats.
+// repro_mlstm_chunkwise_work_floats floats and `states` seg B H hd (hd + 1)
+// (the states entering seg chunks). 2 + 2 ceil((S / c) / seg) launches.
 extern "C" int repro_mlstm_chunkwise(const void* q, const void* k,
                                      const void* v, const void* i,
                                      const void* f, const void* C0,
                                      const void* n0, const void* m0, void* h,
                                      void* C, void* n, void* m, void* work,
-                                     long long B, long long S, int H, int hd,
-                                     int c, void* stream) {
+                                     void* states, long long B, long long S,
+                                     int H, int hd, int c, int seg,
+                                     void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
-  if (c < 1 || c > kMaxChunk || S % c) return static_cast<int>(
-      cudaErrorInvalidValue);
+  if (c < 1 || c > kMaxChunk || S % c || seg < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* wf = static_cast<float*>(work);
   const long long BH = B * H;
@@ -647,10 +852,13 @@ extern "C" int repro_mlstm_chunkwise(const void* q, const void* k,
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* hf = static_cast<float*>(h);
-  mlstm_gates_kernel<<<static_cast<unsigned>((BH + 3) / 4), 128, 0, st>>>(
+  const long long nc = S / c;
+  const int gate_threads =
+      nc >= 256 ? 256 : static_cast<int>((nc + 31) / 32 * 32);
+  mlstm_gates_kernel<<<static_cast<unsigned>(BH), gate_threads, 0, st>>>(
       static_cast<const float*>(i), static_cast<const float*>(f),
       static_cast<const float*>(m0), static_cast<float*>(m), w.rel, w.Mx,
-      w.mk, static_cast<int>(BH), H, S, c);
+      w.mk, H, S, c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = intra_smem();
@@ -668,13 +876,21 @@ extern "C" int repro_mlstm_chunkwise(const void* q, const void* k,
   const float* n0f = static_cast<const float*>(n0);
   float* Cf = static_cast<float*>(C);
   float* nf = static_cast<float*>(n);
+  float* sf = static_cast<float*>(states);
+  float* nsf = sf + BH * seg * static_cast<long long>(hd) * hd;
   switch (hd) {
-    case 16: err = launch_inter<16>(qf, kf, vf, C0f, n0f, hf, Cf, nf, w, B, S, H, c, st); break;
-    case 32: err = launch_inter<32>(qf, kf, vf, C0f, n0f, hf, Cf, nf, w, B, S, H, c, st); break;
-    case 64: err = launch_inter<64>(qf, kf, vf, C0f, n0f, hf, Cf, nf, w, B, S, H, c, st); break;
-    case 128: err = launch_inter<128>(qf, kf, vf, C0f, n0f, hf, Cf, nf, w, B, S, H, c, st); break;
-    case 256: err = launch_inter<256>(qf, kf, vf, C0f, n0f, hf, Cf, nf, w, B, S, H, c, st); break;
-    case 512: err = launch_inter<512>(qf, kf, vf, C0f, n0f, hf, Cf, nf, w, B, S, H, c, st); break;
+#define CARRY_CASE(HD)                                                      \
+  case HD:                                                                  \
+    err = carry<HD>(qf, kf, vf, C0f, n0f, hf, Cf, nf, sf, nsf, w, B, S, H, c, \
+                    seg, st);                                               \
+    break;
+    CARRY_CASE(16)
+    CARRY_CASE(32)
+    CARRY_CASE(64)
+    CARRY_CASE(128)
+    CARRY_CASE(256)
+    CARRY_CASE(512)
+#undef CARRY_CASE
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -2,7 +2,7 @@
 // slstm_scan).
 //
 // Replaces no Pallas kernel: the JAX package scans the cell in jnp
-// (repro/models/lm.py slstm_block, :883-903). It was added because the
+// (repro/models/lm.py slstm_block, :864-908). It was added because the
 // scan as eager PyTorch is about 12 launches a step, and the prefill of
 // xlstm-1.3b makes 6 layers x 32,768 steps. The contract is that of
 // repro_torch/kernels/ref.py slstm_scan: z, i, f, o (B, S, R) f32
@@ -12,38 +12,69 @@
 //   m' = max(lf + m, i_t),  ig = exp(i_t - m'),  fg = exp(lf + m - m'),
 //   c = fg c + ig z,  n = fg n + ig,  h_t = o_t c / max(n, 1),  m = m'.
 // Writes hs (B, S, R) (h_t of every step) and the final c, n, h, m. A bf16
-// rz is widened value by value (exactly), as JAX's astype(float32).
+// rz is widened value by value (exactly), as JAX's astype(float32). Every
+// sum runs in one fixed order, whatever the timing: a call gives the same
+// bits every time. That order differs from torch.matmul's, so the kernel
+// is held to the plain version within ref.xlstm_tol, not bit for bit.
 //
-// Bound: each step needs the whole h_{t-1}, so the S steps are a chain.
-// Bytes: z, i, f, o read and hs written once (20 B S R bytes) and rz once;
-// beside them a floor a step: one exchange of h across the card. At the
-// prefill (B = 1, S = 32,768, R = 2048) the bytes are 1.34 GB, 0.40 ms at
-// 3.35 TB/s; at 1-3 us a step the chain takes 33-100 ms. Reading rz (8.4
-// MB in bf16) from device memory each step would take 2.5 us a step.
+// Bound: 2 R^2 f32 operations a row and step (h_{t-1} rz), and the bytes
+// of z, i, f, o, hs (20 B S R) and rz once. At the prefill (B = 1, S =
+// 32,768, R = 2048) the operations take 4.1 ms at 67 TFLOP/s; but each
+// step needs the whole h_{t-1}, so the S steps are a chain, and a step
+// costs at least one exchange of h across the card.
 //
-// Design: a persistent grid of ceil(R / 16) blocks, launched cooperatively
-// (cudaLaunchCooperativeKernel refuses a grid that is not all resident,
-// so the barrier below always returns). Block g owns columns [16 g, 16 g +
-// 16): it keeps that slice of rz (R x 16, 64 KB in bf16, 128 KB in f32)
-// and the state of its columns for every row b in shared memory for the
-// whole call. Each step and row b: the block reads h_{t-1} (h0 at t = 0,
-// else hs[b, t - 1], which other blocks wrote: through L2, never L1) into
-// shared memory, 16 groups of 16 threads form partial products of 16
-// columns over R / 16 rows each, 16 threads sum the groups in order and
-// step their column's cell, storing h_t into hs. Then a grid barrier: a
-// fence, one atomic arrival on a counter the launcher zeroes, and a spin
-// of one thread a block until the counter reaches (steps done) x (blocks).
-// The step's z, i, f, o are loaded before h_{t-1}, so their latency hides
-// behind its. The product sums in another order than torch.matmul, so the
-// kernel is held to the plain version within a tolerance, not bit for bit.
+// Two kernels, one a call:
+//
+// S > 1, slstm_chain_kernel: a persistent grid of ceil(R / 16) blocks of
+// 256 threads, launched cooperatively (cudaLaunchCooperativeKernel refuses
+// a grid that is not all resident, so a block that spins on another always
+// has it running). Block g owns columns [16 g, 16 g + 16). Its 16
+// half-warps ("groups") split the rows of rz: thread (group q, column c)
+// holds rows [q RPG, q RPG + RPG) of column c in registers for the whole
+// call (RPG = 128 at R = 2048). h_t leaves the block as packed 8-byte words
+// (h's bits, a tag) in an exchange ring of two steps, (2, B, R), which the
+// launcher zeroes; each word is one aligned 64-bit store (single-copy
+// atomic), so a reader that sees the tag of the step it waits for sees that
+// step's h: no fence, no atomic, no counter. Reads are ld.relaxed.gpu
+// (coherent at L2, never a stale L1 line). Two slots are enough: no block
+// can write h_{t+1} before every block has read all of h_{t-1} (it needs
+// all of h_t, and a block makes its h_t only after its reads of h_{t-1}),
+// so slot t % 2 holds step t - 2 or step t when a reader looks for step t.
+// The tag only has to tell t from t - 2 and from the zeroed ring: 1 + ((t
+// >> 1) & 1), which wraps every 4 steps. A group polls exactly the rows it
+// multiplies (at R = 2048 its thread polls every 16th row, 8 producers'
+// words, all 8 loads in flight at once) and starts its partial
+// products as soon as they have come, while other groups still wait; a
+// wait that outlasts 2**24 polls traps (a fault, not a hang). Each
+// thread sums its rows in 8 interleaved partial sums (a fixed order), 16
+// threads then sum the 16 groups' partials of their column in order and
+// step the cell; its gate terms (m', ig, fg) are formed before the wait,
+// and the next step's z, i, f, o are loaded a step ahead. Rows b are
+// stepped in tiles of 4 (B > 1: rows of a tile together, tiles in turn).
+// Needs R <= 2048 (rz's rows in registers).
+//
+// S == 1, slstm_step_kernel (decode): no chain, so no cooperative launch
+// and no ring. One launch forms the (B, R) x (R, R) product and the cell:
+// a block per 32 rows x 64 columns; its four parts of 128 threads each
+// take a quarter of the R rows of rz in k-tiles of 32 (h transposed and rz
+// widened to f32 in shared memory, the next tile loaded into registers
+// while the current one is multiplied), each thread a 4 x 4 tile of
+// outputs; part 0 adds the other parts' sums in a fixed order and steps
+// the cell. Each rz slice is read once a block and reused across its 32
+// rows.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kCols = 16;                  // columns of rz a block
-constexpr int kThreads = 256;              // 16 groups x 16 columns
-constexpr int kGroups = kThreads / kCols;
+constexpr int kCols = 16;                  // columns a chain block
+constexpr int kGroups = 16;                // row groups (half-warps)
+constexpr int kThreads = kCols * kGroups;  // 256
+constexpr int kRowTile = 4;                // rows b a chain block steps at once
+constexpr int kMaxR = 2048;                // chain: rz rows in registers
+// polls of one word before the chain gives up (seconds: a producer that
+// never comes is a fault to report, not a hang)
+constexpr unsigned kMaxSpins = 1u << 24;
 
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
@@ -54,176 +85,451 @@ __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T>
-__device__ __forceinline__ T zero_value();
-template <>
-__device__ __forceinline__ float zero_value<float>() {
-  return 0.f;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero_value<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
+// The exchange word of step t: h's bits low, the tag high.
+__device__ __forceinline__ unsigned step_tag(long long t) {
+  return 1u + static_cast<unsigned>((t >> 1) & 1);
 }
 
-// Every block waits here until the counter reaches `target` (steps done
-// x blocks); fences make each block's stores before the barrier visible
-// to every block after it.
-__device__ __forceinline__ void grid_barrier(unsigned int* count,
-                                             unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(count, 1u);
-    while (*static_cast<volatile unsigned int*>(count) < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
+__device__ __forceinline__ void publish(unsigned long long* p, float h,
+                                        unsigned tag) {
+  const unsigned long long w =
+      (static_cast<unsigned long long>(tag) << 32) | __float_as_uint(h);
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(w)
+               : "memory");
 }
 
-// Shared memory: rz's slice (R x kCols of T), h_{t-1} (R f32), the group
-// partials (kGroups x kCols), the state c, n, m of the block's columns for
-// every row (3 x B x kCols f32).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-slstm_scan_kernel(const float* __restrict__ z, const float* __restrict__ gi,
-                  const float* __restrict__ gf, const float* __restrict__ go,
-                  const T* __restrict__ rz, const float* __restrict__ c0,
-                  const float* __restrict__ n0, const float* __restrict__ h0,
-                  const float* __restrict__ m0, float* hs,
-                  float* __restrict__ c_out, float* __restrict__ n_out,
-                  float* __restrict__ h_out, float* __restrict__ m_out,
-                  unsigned int* count, int B, long long S, int R) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* rzs = reinterpret_cast<T*>(smem_raw);
-  const size_t rz_bytes = (static_cast<size_t>(R) * kCols * sizeof(T) + 15) &
-                          ~static_cast<size_t>(15);
-  float* hp = reinterpret_cast<float*>(smem_raw + rz_bytes);   // R
-  float* part = hp + R;                                        // kGroups x kCols
-  float* cs = part + kGroups * kCols;                          // B x kCols
+__device__ __forceinline__ unsigned long long peek(
+    const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(w)
+               : "l"(p)
+               : "memory");
+  return w;
+}
+
+// The cell's terms that do not need h_{t-1}: m', ig, fg.
+struct Gate {
+  float m_new, ig, fg;
+};
+
+__device__ __forceinline__ Gate gate_terms(float it, float ft, float m) {
+  const float lf = log_sigmoid(ft);
+  const float m_new = fmaxf(lf + m, it);
+  return {m_new, expf(it - m_new), expf(lf + m - m_new)};
+}
+
+// One (row, step) of the cell from pre = (h_{t-1} rz)_j; updates c and n.
+__device__ __forceinline__ float cell(float zt, float ot, float pre, Gate g,
+                                      float& c, float& n) {
+  const float zz = tanhf(zt + pre);
+  c = g.fg * c + g.ig * zz;
+  n = g.fg * n + g.ig;
+  return ot * c / fmaxf(n, 1.f);
+}
+
+// ---------------------------------------------------------------------------
+// S > 1: the chain
+// ---------------------------------------------------------------------------
+// Shared memory: hsm (kRowTile x 16 RPG: the rows of h_{t-1} of the tile),
+// part (2 x kRowTile x kCols x kGroups: the groups' partial sums, by the
+// parity of the (step, tile) iteration), then the state c, n, m of the
+// block's columns for every row (3 x B x kCols). One __syncthreads an
+// iteration: a group writes part[it & 1] again at iteration it + 2 only
+// after the barrier of it + 1, which the cell threads reach after reading
+// it; each group reads only the rows of hsm it wrote itself.
+template <typename T, int RPG>
+__global__ void __launch_bounds__(kThreads, 1)
+slstm_chain_kernel(const float* __restrict__ z, const float* __restrict__ gi,
+                   const float* __restrict__ gf, const float* __restrict__ go,
+                   const T* __restrict__ rz, const float* __restrict__ c0,
+                   const float* __restrict__ n0, const float* __restrict__ h0,
+                   const float* __restrict__ m0, float* __restrict__ hs,
+                   float* __restrict__ c_out, float* __restrict__ n_out,
+                   float* __restrict__ h_out, float* __restrict__ m_out,
+                   unsigned long long* ring, int B, long long S, int R) {
+  constexpr int kRows = kGroups * RPG;           // rows of h kept (>= R)
+  constexpr int kPer = (RPG + 15) / 16;          // rows a thread polls
+  extern __shared__ __align__(16) float smem[];
+  float* hsm = smem;                             // kRowTile x kRows
+  float* part = hsm + kRowTile * kRows;  // 2 x kRowTile x kCols x kGroups
+  float* cs = part + 2 * kRowTile * kCols * kGroups;  // B x kCols
   float* ns = cs + B * kCols;
   float* ms = ns + B * kCols;
   const int tid = threadIdx.x;
   const int col = tid % kCols, grp = tid / kCols;
   const int j0 = blockIdx.x * kCols;
   const int j = j0 + col;
-  const bool mine = tid < kCols && j < R;
-  for (int x = tid; x < R * kCols; x += kThreads) {
-    const int r = x / kCols, cc = x % kCols;
-    rzs[x] = j0 + cc < R ? rz[static_cast<long long>(r) * R + j0 + cc]
-                          : zero_value<T>();
+  const bool jok = j < R;
+  const int row0 = grp * RPG;
+  float w[RPG];
+#pragma unroll
+  for (int r = 0; r < RPG; ++r)
+    w[r] = (jok && row0 + r < R)
+               ? widen(rz[static_cast<long long>(row0 + r) * R + j])
+               : 0.f;
+  for (int x = tid; x < kRowTile * kRows; x += kThreads) hsm[x] = 0.f;
+  for (int x = tid; x < B * kCols; x += kThreads) {
+    const int b = x / kCols, jj = j0 + x % kCols;
+    const long long at = static_cast<long long>(b) * R + jj;
+    const bool in = jj < R;
+    cs[x] = in ? c0[at] : 0.f;
+    ns[x] = in ? n0[at] : 0.f;
+    ms[x] = in ? m0[at] : 0.f;
   }
-  if (tid < kCols)
-    for (int b = 0; b < B; ++b) {
-      const long long at = static_cast<long long>(b) * R + j;
-      cs[b * kCols + tid] = mine ? c0[at] : 0.f;
-      ns[b * kCols + tid] = mine ? n0[at] : 0.f;
-      ms[b * kCols + tid] = mine ? m0[at] : 0.f;
+  // the cell threads: (row bb of the tile, column col) for tid < 64
+  const int bb_cell = tid / kCols;
+  const bool cell_thread = tid < kRowTile * kCols && jok;
+  const long long RS = static_cast<long long>(R) * S;
+  auto load_gates = [&](long long t, int b0) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int b = b0 + bb_cell;
+    if (cell_thread && t < S && b < B) {
+      const long long at = b * RS + t * R + j;
+      v = make_float4(z[at], gi[at], gf[at], go[at]);
     }
-  const int per = (R + kGroups - 1) / kGroups;
-  const int r_lo = grp * per;
-  const int r_hi = r_lo + per < R ? r_lo + per : R;
-  const unsigned int nblocks = gridDim.x;
+    return v;
+  };
+  float4 next = load_gates(0, 0);
+  __syncthreads();
+  // the rows this thread polls: rbase + 16 k, k < kPer (RPG < 32: one
+  // row). Every 16th row: the kPer loads of a poll go to kPer producers'
+  // lines; kPer strong loads of one line serialize (consecutive rows took
+  // 2.5x as long a step on the H100)
+  constexpr int kStride = RPG < 32 ? 1 : 16;
+  const int rbase = row0 + (tid & 15);
+  const bool polls = rbase - row0 < RPG && rbase < R;
+  int it = 0;                       // (step, tile) iterations: part's buffer
   for (long long t = 0; t < S; ++t) {
-    for (int b = 0; b < B; ++b) {
-      const long long at = (static_cast<long long>(b) * S + t) * R + j;
-      float zt = 0.f, it = 0.f, ft = 0.f, ot = 0.f;
-      if (mine) {
-        zt = z[at];
-        it = gi[at];
-        ft = gf[at];
-        ot = go[at];
+    const unsigned tag_in = t > 0 ? step_tag(t - 1) : 0u;
+    const unsigned tag_out = step_tag(t);
+    const long long BR = static_cast<long long>(B) * R;
+    const unsigned long long* slot_in = ring + ((t - 1) & 1) * BR;
+    unsigned long long* slot_out = ring + (t & 1) * BR;
+    for (int b0 = 0; b0 < B; b0 += kRowTile) {
+      const int nb = B - b0 < kRowTile ? B - b0 : kRowTile;
+      const float4 gates = next;
+      next = b0 + kRowTile < B ? load_gates(t, b0 + kRowTile)
+                               : load_gates(t + 1, 0);
+      Gate g{0.f, 0.f, 0.f};
+      const int sidx = (b0 + bb_cell) * kCols + col;
+      if (cell_thread && bb_cell < nb)
+        g = gate_terms(gates.y, gates.z, ms[sidx]);
+      // h_{t-1} of this group's rows, each row of the tile: the thread's
+      // kPer rows (kPer producers'), all polled at once until every tag
+      // is the step's
+      for (int bb = 0; bb < nb; ++bb) {
+        const long long b = b0 + bb;
+        float* hrow = hsm + bb * kRows;
+        if (!polls) continue;
+        if (t == 0) {
+#pragma unroll
+          for (int k = 0; k < kPer; ++k)
+            if (rbase + k * kStride < R)
+              hrow[rbase + k * kStride] = h0[b * R + rbase + k * kStride];
+          continue;
+        }
+        const unsigned long long* src = slot_in + b * R + rbase;
+        unsigned long long got[kPer];
+        for (unsigned spins = 0, wait = 1; wait; ++spins) {
+          if (spins == kMaxSpins) __trap();
+          wait = 0;
+#pragma unroll
+          for (int k = 0; k < kPer; ++k)
+            if (rbase + k * kStride < R) {
+              got[k] = peek(src + k * kStride);
+              wait |= static_cast<unsigned>(got[k] >> 32) != tag_in;
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < kPer; ++k)
+          if (rbase + k * kStride < R)
+            hrow[rbase + k * kStride] =
+                __uint_as_float(static_cast<unsigned>(got[k]));
       }
-      const float* src = t == 0 ? h0 + static_cast<long long>(b) * R
-                                : hs + (static_cast<long long>(b) * S + t - 1) * R;
-      for (int x = tid; x < R; x += kThreads) hp[x] = __ldcg(src + x);
+      __syncwarp();
+      // partial products of the group's rows, 8 interleaved sums
+      for (int bb = 0; bb < nb; ++bb) {
+        const float4* hv =
+            reinterpret_cast<const float4*>(hsm + bb * kRows + row0);
+        float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int q = 0; q < RPG / 4; ++q) {
+          const float4 h4 = hv[q];
+          float* s = a + 4 * (q & 1);
+          s[0] += h4.x * w[4 * q];
+          s[1] += h4.y * w[4 * q + 1];
+          s[2] += h4.z * w[4 * q + 2];
+          s[3] += h4.w * w[4 * q + 3];
+        }
+        part[((it & 1) * kRowTile + bb) * kCols * kGroups + col * kGroups +
+             grp] =
+            ((a[0] + a[4]) + (a[1] + a[5])) + ((a[2] + a[6]) + (a[3] + a[7]));
+      }
       __syncthreads();
-      float acc = 0.f;
-      for (int r = r_lo; r < r_hi; ++r)
-        acc += hp[r] * widen(rzs[r * kCols + col]);
-      part[grp * kCols + col] = acc;
-      __syncthreads();
-      if (mine) {
-        float pre = 0.f;
-        for (int g = 0; g < kGroups; ++g) pre += part[g * kCols + tid];
-        const float zz = tanhf(zt + pre);
-        const float lf = log_sigmoid(ft);
-        const float m = ms[b * kCols + tid];
-        const float m_new = fmaxf(lf + m, it);
-        const float ig = expf(it - m_new);
-        const float fg = expf(lf + m - m_new);
-        const float c = fg * cs[b * kCols + tid] + ig * zz;
-        const float n = fg * ns[b * kCols + tid] + ig;
-        const float h = ot * c / fmaxf(n, 1.f);
-        cs[b * kCols + tid] = c;
-        ns[b * kCols + tid] = n;
-        ms[b * kCols + tid] = m_new;
-        __stcg(hs + at, h);
+      if (cell_thread && bb_cell < nb) {
+        const float4* p4 = reinterpret_cast<const float4*>(
+            part + ((it & 1) * kRowTile + bb_cell) * kCols * kGroups +
+            col * kGroups);
+        const float4 p0 = p4[0], p1 = p4[1], p2 = p4[2], p3 = p4[3];
+        const float pre = (((p0.x + p0.y) + (p0.z + p0.w)) +
+                           ((p1.x + p1.y) + (p1.z + p1.w))) +
+                          (((p2.x + p2.y) + (p2.z + p2.w)) +
+                           ((p3.x + p3.y) + (p3.z + p3.w)));
+        float c = cs[sidx], n = ns[sidx];
+        const float h = cell(gates.x, gates.w, pre, g, c, n);
+        const long long b = b0 + bb_cell;
+        if (t + 1 < S) publish(slot_out + b * R + j, h, tag_out);
+        cs[sidx] = c;
+        ns[sidx] = n;
+        ms[sidx] = g.m_new;
+        __stcs(hs + b * RS + t * R + j, h);
         if (t == S - 1) {
-          const long long o = static_cast<long long>(b) * R + j;
-          c_out[o] = c;
-          n_out[o] = n;
-          h_out[o] = h;
-          m_out[o] = m_new;
+          c_out[b * R + j] = c;
+          n_out[b * R + j] = n;
+          h_out[b * R + j] = h;
+          m_out[b * R + j] = g.m_new;
         }
       }
-      __syncthreads();
+      ++it;
     }
-    if (t + 1 < S)
-      grid_barrier(count, static_cast<unsigned int>(t + 1) * nblocks);
   }
 }
 
-template <typename T>
-size_t scan_smem(int B, int R) {
-  const size_t rz_bytes =
-      (static_cast<size_t>(R) * kCols * sizeof(T) + 15) & ~static_cast<size_t>(15);
-  return rz_bytes + sizeof(float) * (static_cast<size_t>(R) + kGroups * kCols +
-                                     3 * static_cast<size_t>(B) * kCols);
+template <int RPG>
+size_t chain_smem(int B) {
+  return sizeof(float) * (static_cast<size_t>(kRowTile) * kGroups * RPG +
+                          2 * kRowTile * kCols * kGroups +
+                          3 * static_cast<size_t>(B) * kCols);
 }
 
-template <typename T>
-cudaError_t launch_scan(const float* z, const float* i, const float* f,
-                        const float* o, const T* rz, const float* c0,
-                        const float* n0, const float* h0, const float* m0,
-                        float* hs, float* c, float* n, float* h, float* m,
-                        unsigned int* count, int B, long long S, int R,
-                        cudaStream_t st) {
-  const size_t smem = scan_smem<T>(B, R);
+// rows of rz a thread holds: the power of two >= R / 16, at least 4
+int chain_rpg(int R) {
+  int rpg = 4;
+  while (rpg * kGroups < R) rpg *= 2;
+  return rpg;
+}
+
+template <typename T, int RPG>
+cudaError_t launch_chain(const float* z, const float* i, const float* f,
+                         const float* o, const T* rz, const float* c0,
+                         const float* n0, const float* h0, const float* m0,
+                         float* hs, float* c, float* n, float* h, float* m,
+                         unsigned long long* ring, int B, long long S, int R,
+                         cudaStream_t st) {
+  const size_t smem = chain_smem<RPG>(B);
   cudaError_t err = cudaFuncSetAttribute(
-      slstm_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      slstm_chain_kernel<T, RPG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(count, 0, sizeof(unsigned int), st);
+  err = cudaMemsetAsync(ring, 0, sizeof(unsigned long long) * 2 *
+                                     static_cast<size_t>(B) * R, st);
   if (err != cudaSuccess) return err;
   const dim3 grid((R + kCols - 1) / kCols), block(kThreads);
   void* args[] = {&z, &i, &f, &o, &rz, &c0, &n0, &h0, &m0, &hs, &c, &n,
-                  &h, &m, &count, &B, &S, &R};
+                  &h, &m, &ring, &B, &S, &R};
   return cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(slstm_scan_kernel<T>), grid, block, args,
-      smem, st);
+      reinterpret_cast<const void*>(slstm_chain_kernel<T, RPG>), grid, block,
+      args, smem, st);
+}
+
+template <typename T>
+cudaError_t chain(const float* z, const float* i, const float* f,
+                  const float* o, const T* rz, const float* c0,
+                  const float* n0, const float* h0, const float* m0, float* hs,
+                  float* c, float* n, float* h, float* m,
+                  unsigned long long* ring, int B, long long S, int R,
+                  cudaStream_t st) {
+  switch (chain_rpg(R)) {
+#define CHAIN_CASE(P)                                                        \
+  case P:                                                                    \
+    return launch_chain<T, P>(z, i, f, o, rz, c0, n0, h0, m0, hs, c, n, h, m, \
+                              ring, B, S, R, st);
+    CHAIN_CASE(4)
+    CHAIN_CASE(8)
+    CHAIN_CASE(16)
+    CHAIN_CASE(32)
+    CHAIN_CASE(64)
+    CHAIN_CASE(128)
+#undef CHAIN_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// S == 1: one step, a product and the cell
+// ---------------------------------------------------------------------------
+constexpr int kStepM = 32;        // rows b a block
+constexpr int kStepN = 64;        // columns j a block
+constexpr int kStepK = 32;        // k-tile
+constexpr int kParts = 4;         // parts of the R rows of rz a block
+constexpr int kPart = 128;        // threads of a part
+constexpr int kHLd = kStepM + 4;  // row stride of h transposed ([k][m])
+constexpr int kPartFloats = kStepK * kHLd + kStepK * kStepN;
+
+// Dynamic shared memory, each part: hT (kStepK x kHLd) then rzs (kStepK x
+// kStepN), f32; after the products parts 1-3 leave their sums there
+// (kStepM x kStepN) for part 0.
+template <typename T>
+__global__ void __launch_bounds__(kParts * kPart)
+slstm_step_kernel(const float* __restrict__ z, const float* __restrict__ gi,
+                  const float* __restrict__ gf, const float* __restrict__ go,
+                  const T* __restrict__ rz, const float* __restrict__ c0,
+                  const float* __restrict__ n0, const float* __restrict__ h0,
+                  const float* __restrict__ m0, float* __restrict__ hs,
+                  float* __restrict__ c_out, float* __restrict__ n_out,
+                  float* __restrict__ h_out, float* __restrict__ m_out, int B,
+                  int R) {
+  extern __shared__ __align__(16) float step_smem[];
+  const int part = threadIdx.x / kPart, t = threadIdx.x % kPart;
+  const int tx = t % 16, ty = t / 16;            // cols tx*4.., rows ty*4..
+  const int m_base = blockIdx.y * kStepM, n_base = blockIdx.x * kStepN;
+  const int nkt = (R + kStepK - 1) / kStepK;
+  const int per = (nkt + kParts - 1) / kParts;
+  const int kt0 = part * per < nkt ? part * per : nkt;
+  const int kt1 = kt0 + per < nkt ? kt0 + per : nkt;
+  float* myhT = step_smem + part * kPartFloats;
+  float* myrz = myhT + kStepK * kHLd;
+  // staging: h (kStepM x kStepK: 8 a thread, row e / 32, k e % 32) and rz
+  // (kStepK x kStepN: 16 a thread, k e / 64, column e % 64)
+  float hreg[8], rreg[16];
+  auto fetch = [&](int kt) {
+    const int k0 = kt * kStepK;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int e = t + kPart * q, row = e / kStepK, kk = e % kStepK;
+      const int b = m_base + row, k = k0 + kk;
+      hreg[q] = (b < B && k < R) ? h0[static_cast<long long>(b) * R + k] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int e = t + kPart * q, kk = e / kStepN, jj = e % kStepN;
+      const int k = k0 + kk, jc = n_base + jj;
+      rreg[q] = (k < R && jc < R)
+                    ? widen(rz[static_cast<long long>(k) * R + jc])
+                    : 0.f;
+    }
+  };
+  auto stash = [&]() {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int e = t + kPart * q, row = e / kStepK, kk = e % kStepK;
+      myhT[kk * kHLd + row] = hreg[q];
+    }
+#pragma unroll
+    for (int q = 0; q < 16; ++q) myrz[t + kPart * q] = rreg[q];
+  };
+  auto part_sync = [&]() {
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + part), "r"(kPart) : "memory");
+  };
+  float acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+  if (kt0 < kt1) fetch(kt0);
+  for (int kt = kt0; kt < kt1; ++kt) {
+    stash();
+    part_sync();
+    if (kt + 1 < kt1) fetch(kt + 1);
+#pragma unroll 8
+    for (int kk = 0; kk < kStepK; ++kk) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(myhT + kk * kHLd + ty * 4);
+      const float4 b =
+          *reinterpret_cast<const float4*>(myrz + kk * kStepN + tx * 4);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] += av[r] * bv[c];
+    }
+    part_sync();
+  }
+  __syncthreads();
+  if (part > 0) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      *reinterpret_cast<float4*>(myhT + (ty * 4 + r) * kStepN + tx * 4) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
+  __syncthreads();
+  if (part > 0) return;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int b = m_base + ty * 4 + r;
+    if (b >= B) break;
+    float o[kParts][4];
+#pragma unroll
+    for (int p = 1; p < kParts; ++p) {
+      const float4 o4 = *reinterpret_cast<const float4*>(
+          step_smem + p * kPartFloats + (ty * 4 + r) * kStepN + tx * 4);
+      o[p][0] = o4.x; o[p][1] = o4.y; o[p][2] = o4.z; o[p][3] = o4.w;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int jc = n_base + tx * 4 + c;
+      if (jc >= R) break;
+      const long long at = static_cast<long long>(b) * R + jc;
+      const float pre = (acc[r][c] + o[1][c]) + (o[2][c] + o[3][c]);
+      const Gate g = gate_terms(gi[at], gf[at], m0[at]);
+      float cc = c0[at], nn = n0[at];
+      const float h = cell(z[at], go[at], pre, g, cc, nn);
+      hs[at] = h;
+      c_out[at] = cc;
+      n_out[at] = nn;
+      h_out[at] = h;
+      m_out[at] = g.m_new;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t step(const float* z, const float* i, const float* f,
+                 const float* o, const T* rz, const float* c0, const float* n0,
+                 const float* h0, const float* m0, float* hs, float* c,
+                 float* n, float* h, float* m, int B, int R, cudaStream_t st) {
+  const size_t smem = sizeof(float) * kParts * kPartFloats;
+  const cudaError_t err = cudaFuncSetAttribute(
+      slstm_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((R + kStepN - 1) / kStepN, (B + kStepM - 1) / kStepM);
+  slstm_step_kernel<T><<<grid, kParts * kPart, smem, st>>>(
+      z, i, f, o, rz, c0, n0, h0, m0, hs, c, n, h, m, B, R);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Bytes of dynamic shared memory a block takes.
-extern "C" long long repro_slstm_scan_smem_bytes(int B, int R, int bf16) {
-  return static_cast<long long>(bf16 ? scan_smem<__nv_bfloat16>(B, R)
-                                     : scan_smem<float>(B, R));
+// Bytes of dynamic shared memory a chain block takes (S > 1), or -1 where
+// the chain does not take R (R > 2048).
+extern "C" long long repro_slstm_scan_smem_bytes(int B, int R) {
+  if (R > kMaxR) return -1;
+  switch (chain_rpg(R)) {
+    case 4: return static_cast<long long>(chain_smem<4>(B));
+    case 8: return static_cast<long long>(chain_smem<8>(B));
+    case 16: return static_cast<long long>(chain_smem<16>(B));
+    case 32: return static_cast<long long>(chain_smem<32>(B));
+    case 64: return static_cast<long long>(chain_smem<64>(B));
+    default: return static_cast<long long>(chain_smem<128>(B));
+  }
 }
 
 // B14: z, i, f, o (B, S, R) f32, rz (R, R) bf16 (rz_bf16 != 0) or f32, the
 // state c0, n0, h0, m0 (B, R) f32, all contiguous. Writes hs (B, S, R) and
-// the final c, n, h, m (B, R). `count` is one word of device memory, zeroed
-// here before the launch.
+// the final c, n, h, m (B, R). S == 1: one step launch; S > 1: the chain,
+// with `ring` 2 B R 8-byte words of device memory, zeroed here first.
 extern "C" int repro_slstm_scan(const void* z, const void* i, const void* f,
                                 const void* o, const void* rz, int rz_bf16,
                                 const void* c0, const void* n0,
                                 const void* h0, const void* m0, void* hs,
                                 void* c, void* n, void* h, void* m,
-                                void* count, int B, long long S, int R,
+                                void* ring, int B, long long S, int R,
                                 void* stream) {
   if (B <= 0 || S <= 0 || R <= 0) return static_cast<int>(cudaGetLastError());
+  if (S > 1 && R > kMaxR) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* zf = static_cast<const float*>(z);
   const float* i_ = static_cast<const float*>(i);
@@ -238,13 +544,19 @@ extern "C" int repro_slstm_scan(const void* z, const void* i, const void* f,
   float* nf = static_cast<float*>(n);
   float* hf = static_cast<float*>(h);
   float* mf = static_cast<float*>(m);
-  unsigned int* cnt = static_cast<unsigned int*>(count);
-  const cudaError_t err =
-      rz_bf16 ? launch_scan(zf, i_, ff, of,
-                            static_cast<const __nv_bfloat16*>(rz), c0f, n0f,
-                            h0f, m0f, hsf, cf, nf, hf, mf, cnt, B, S, R, st)
-              : launch_scan(zf, i_, ff, of, static_cast<const float*>(rz),
-                            c0f, n0f, h0f, m0f, hsf, cf, nf, hf, mf, cnt, B,
-                            S, R, st);
+  auto* rg = static_cast<unsigned long long*>(ring);
+  const auto* rzb = static_cast<const __nv_bfloat16*>(rz);
+  const auto* rzf = static_cast<const float*>(rz);
+  cudaError_t err;
+  if (S == 1)
+    err = rz_bf16 ? step(zf, i_, ff, of, rzb, c0f, n0f, h0f, m0f, hsf, cf, nf,
+                         hf, mf, B, R, st)
+                  : step(zf, i_, ff, of, rzf, c0f, n0f, h0f, m0f, hsf, cf, nf,
+                         hf, mf, B, R, st);
+  else
+    err = rz_bf16 ? chain(zf, i_, ff, of, rzb, c0f, n0f, h0f, m0f, hsf, cf, nf,
+                          hf, mf, rg, B, S, R, st)
+                  : chain(zf, i_, ff, of, rzf, c0f, n0f, h0f, m0f, hsf, cf, nf,
+                          hf, mf, rg, B, S, R, st);
   return static_cast<int>(err);
 }

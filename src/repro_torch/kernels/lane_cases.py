@@ -756,23 +756,43 @@ def rg_lru_bwd_inputs(case, seed: int = 0):
 
 # B12 mlstm_chunkwise: (B, S, H, hd, carried): chunks c = ref.mlstm_chunk(S)
 # of 6, 8 (S = 200), 100 (not a power of two), 128 (three chunks: the
-# prefill's form) and 48, at hd 16 (the reduced config) and 512
-# (xlstm-1.3b), B 1 and 3, from zeros or from a carried state
+# prefill's form; and 32 chunks at hd 512) and 48, at hd 16 (the reduced
+# config) and 512 (xlstm-1.3b), B 1 and 3, from zeros or from a carried
+# state
 MLSTM_CHUNK_CASES = [(1, 6, 2, 16, False), (3, 200, 2, 16, True),
                      (1, 100, 4, 512, True), (1, 384, 4, 512, False),
                      (3, 256, 2, 16, True), (3, 48, 4, 512, True),
-                     (1, 256, 4, 512, True)]
+                     (1, 256, 4, 512, True), (1, 4096, 4, 512, True)]
+# B12 with its scratch cut to `seg` chunks a segment, so that the carried
+# state crosses segment boundaries, the last segment short: (B, S, H, hd,
+# carried, seg); state_bytes = seg B H hd^2 4 (mlstm_segment_bytes)
+MLSTM_SEGMENT_CASES = [(1, 640, 4, 512, True, 2), (3, 200, 2, 16, True, 4),
+                       (2, 384, 2, 64, False, 1)]
+
+
+def mlstm_segment_bytes(case) -> int:
+    """state_bytes of an MLSTM_SEGMENT_CASES case: exactly `seg` chunks of
+    C's states."""
+    B, S, H, hd, _, seg = case
+    return seg * B * H * hd * hd * 4
+
+
 # B13 mlstm_step: (B, H, hd, steps, n_scale) walked in place on one
 # state; n_scale > 1 makes |q . n'| well above 1 at every step (see
 # mlstm_inputs), so that the normalizer divides
 MLSTM_STEP_CASES = [(1, 2, 16, 5, 1.0), (3, 4, 512, 3, 1.0),
                     (3, 2, 16, 4, 1.0), (16, 4, 512, 2, 1.0),
                     (1, 4, 512, 1, 1.0), (3, 2, 16, 4, 64.0)]
-# B14 slstm_scan: (B, S, R, rz in bf16): S = 1 (decode) at R 64 and 2048,
-# short and ragged S, B > 1, and 4,096 steps of the grid barrier
+# B14 slstm_scan: (B, S, R, rz in bf16): S = 1 (decode: the step kernel)
+# at R 64 and 2048, B 1, 3 and 128 (xlstm-1.3b's serving batch); the
+# chain at short and ragged S, R 64, 100 (a partial block of columns) and
+# 2048, B > 1 stepped together, and 4,096 steps (the exchange ring's tag
+# wraps every 4 steps)
 SLSTM_CASES = [(1, 1, 64, False), (3, 1, 2048, True), (1, 5, 64, True),
                (3, 37, 64, False), (3, 20, 2048, False),
-               (1, 300, 2048, True), (1, 4096, 2048, True)]
+               (1, 300, 2048, True), (1, 4096, 2048, True),
+               (128, 1, 2048, True), (3, 300, 2048, True),
+               (2, 9, 100, False)]
 
 
 def mlstm_inputs(B: int, S: int, H: int, hd: int, carried: bool,

@@ -7,7 +7,8 @@ cells in jnp (repro/models/lm.py `_mlstm_chunkwise`, the `step` of
 kernels/ref.py (the same name) in f32, summing in another order, and is
 held to it within ref.xlstm_tol. CUDA tensors only (kernels/ops.py routes
 CPU tensors to kernels/ref.py); launches are counted one a call in
-`<name>.launches` (mlstm_chunkwise is three launches a call).
+`<name>.launches` (mlstm_chunkwise is 2 + 2 x segments launches a call,
+slstm_scan one).
 """
 from __future__ import annotations
 
@@ -21,8 +22,11 @@ from ._launch import I32, I64, PTR, check, function, launch
 
 Tensor = torch.Tensor
 
-# head dims the chunkwise kernel is built for (its carry pass is templated)
+# head dims the chunkwise kernel is built for (its carry passes are
+# templated)
 CHUNKWISE_HD = (16, 32, 64, 128, 256, 512)
+# the most bytes of chunk-entry states of C mlstm_chunkwise keeps at once
+STATE_BYTES = 1 << 30
 
 
 def _aligned(name: str, *xs: Tensor) -> None:
@@ -32,11 +36,15 @@ def _aligned(name: str, *xs: Tensor) -> None:
 
 
 def mlstm_chunkwise(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
-                    C0: Tensor, n0: Tensor, m0: Tensor
+                    C0: Tensor, n0: Tensor, m0: Tensor,
+                    state_bytes: int = STATE_BYTES
                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """q, k, v (B, S, H, hd), i, f (B, S, H), C0 (B, H, hd, hd), n0 (B, H,
     hd), m0 (B, H), contiguous float32, hd in CHUNKWISE_HD, chunks of
-    ref.mlstm_chunk(S). Returns (h (B, S, H, hd), C, n, m), new tensors."""
+    ref.mlstm_chunk(S). Returns (h (B, S, H, hd), C, n, m), new tensors.
+    The states entering the chunks are kept in scratch for segments of
+    chunk_segment(...) chunks (C's states at most `state_bytes`, one chunk
+    at least): 2 + 2 x segments launches, counted as one call."""
     if q.dim() != 4:
         raise ValueError(f"mlstm_chunkwise: q must be (B, S, H, hd), got "
                          f"{tuple(q.shape)}")
@@ -52,6 +60,7 @@ def mlstm_chunkwise(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
                          f"65536 needed, got hd={hd} B={B} H={H}")
     _aligned("mlstm_chunkwise", q, k, v, C0)
     c = ref.mlstm_chunk(S)
+    seg = chunk_segment(B, S, H, hd, state_bytes)
     h = torch.empty_like(q)
     C = torch.empty_like(C0)
     n = torch.empty_like(n0)
@@ -60,12 +69,24 @@ def mlstm_chunkwise(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
                      (I64, I32, I64, I32))
     words.restype = ctypes.c_longlong
     work = torch.empty(words(B, H, S, c), dtype=torch.float32, device=dev)
+    states = torch.empty(B * H * seg * hd * (hd + 1), dtype=torch.float32,
+                         device=dev)
     fn = function("mlstm", "repro_mlstm_chunkwise",
-                  (PTR,) * 13 + (I64, I64, I32, I32, I32, PTR))
+                  (PTR,) * 14 + (I64, I64, I32, I32, I32, I32, PTR))
     launch(fn, "mlstm_chunkwise", dev, *(x.data_ptr() for x in (
-        q, k, v, i, f, C0, n0, m0, h, C, n, m, work)), B, S, H, hd, c)
+        q, k, v, i, f, C0, n0, m0, h, C, n, m, work, states)), B, S, H, hd,
+        c, seg)
     mlstm_chunkwise.launches += 1
     return h, C, n, m
+
+
+def chunk_segment(B: int, S: int, H: int, hd: int,
+                  state_bytes: int = STATE_BYTES) -> int:
+    """The chunks of a segment of mlstm_chunkwise's scratch: as many as
+    keep C's entering states (B H hd^2 f32 a chunk) within state_bytes, at
+    least one, at most all S / ref.mlstm_chunk(S)."""
+    nc = S // ref.mlstm_chunk(S)
+    return max(1, min(nc, state_bytes // (B * H * hd * hd * 4)))
 
 
 mlstm_chunkwise.launches = 0
@@ -107,8 +128,11 @@ def slstm_scan(z: Tensor, i: Tensor, f: Tensor, o: Tensor, rz: Tensor,
                c0: Tensor, n0: Tensor, h0: Tensor, m0: Tensor
                ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """z, i, f, o (B, S, R), c0, n0, h0, m0 (B, R) contiguous float32; rz
-    (R, R) contiguous bfloat16 or float32. Returns (hs (B, S, R), c, n, h,
-    m), new tensors."""
+    (R, R) contiguous bfloat16 or float32; S > 1 needs R <= 2048. Returns
+    (hs (B, S, R), c, n, h, m), new tensors. S == 1 is one launch of the
+    step kernel; S > 1 one cooperative launch of the chain, which
+    exchanges h through a ring of 2 B R words allocated here (and zeroed
+    by the launcher) each call."""
     if z.dim() != 3:
         raise ValueError(f"slstm_scan: z must be (B, S, R), got "
                          f"{tuple(z.shape)}")
@@ -122,21 +146,27 @@ def slstm_scan(z: Tensor, i: Tensor, f: Tensor, o: Tensor, rz: Tensor,
         raise ValueError(f"slstm_scan: rz must be bfloat16 or float32, got "
                          f"{rz.dtype}")
     check("rz", rz, rz.dtype, (R, R), dev)
-    bf16 = int(rz.dtype == torch.bfloat16)
-    smem = function("slstm", "repro_slstm_scan_smem_bytes", (I32, I32, I32))
-    smem.restype = ctypes.c_longlong
-    if B >= 2 ** 16 or smem(B, R, bf16) > 232448:
-        raise ValueError(f"slstm_scan: B={B}, R={R} need {smem(B, R, bf16)} "
-                         f"bytes of shared memory a block (at most 232,448)")
+    if B >= 2 ** 16 or R >= 2 ** 24:
+        raise ValueError(f"slstm_scan: B < 65536 and R < 2**24 needed, got "
+                         f"B={B} R={R}")
+    ring = None
+    if S > 1:
+        smem = function("slstm", "repro_slstm_scan_smem_bytes", (I32, I32))
+        smem.restype = ctypes.c_longlong
+        need = smem(B, R)
+        if need < 0 or need > 232448:
+            raise ValueError(f"slstm_scan: S > 1 needs R <= 2048 and at most "
+                             f"232,448 bytes of shared memory a block; B={B}, "
+                             f"R={R} need {need}")
+        ring = torch.empty(2 * B * R, dtype=torch.int64, device=dev)
     hs = torch.empty_like(z)
     c, n, h, m = (torch.empty_like(c0) for _ in range(4))
-    count = torch.empty(1, dtype=torch.int32, device=dev)
     fn = function("slstm", "repro_slstm_scan",
                   (PTR,) * 5 + (I32,) + (PTR,) * 10 + (I32, I64, I32, PTR))
     launch(fn, "slstm_scan", dev, z.data_ptr(), i.data_ptr(), f.data_ptr(),
-           o.data_ptr(), rz.data_ptr(), bf16,
-           *(x.data_ptr() for x in (c0, n0, h0, m0, hs, c, n, h, m, count)),
-           B, S, R)
+           o.data_ptr(), rz.data_ptr(), int(rz.dtype == torch.bfloat16),
+           *(x.data_ptr() for x in (c0, n0, h0, m0, hs, c, n, h, m)),
+           None if ring is None else ring.data_ptr(), B, S, R)
     slstm_scan.launches += 1
     return hs, c, n, h, m
 

@@ -558,6 +558,47 @@ def _decode_attn_masked(q: Tensor, k: Tensor, v: Tensor, valid: Tensor
 
 
 # ===========================================================================
+# JAX's sigmoid and silu
+# ===========================================================================
+def _logistic(x: Tensor) -> Tensor:
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+class _Sigmoid(torch.autograd.Function):
+    """_logistic forward; backward by the JVP of lax.logistic, g * (s *
+    (1 - s)) from the saved output s. Autograd through _logistic itself
+    gives NaN where exp(-x) overflows (x <= -89 in f32); this gives 0, as
+    JAX and torch.sigmoid do."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = _logistic(x)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        s, = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
+def _sigmoid(x: Tensor) -> Tensor:
+    """jax.nn.sigmoid as XLA expands it: 1 / (1 + exp(-x)), each op
+    rounded in x's dtype, with JAX's gradient. torch.sigmoid rounds once;
+    in bfloat16 the two differ by one step on about a quarter of the
+    values. Without grad there is no autograd wrapper."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Sigmoid.apply(x)
+    return _logistic(x)
+
+
+def _silu(x: Tensor) -> Tensor:
+    """jax.nn.silu: x * sigmoid(x), each op rounded in x's dtype (F.silu
+    rounds once); its gradient follows through the product."""
+    return x * _sigmoid(x)
+
+
+# ===========================================================================
 # RG-LRU block
 # ===========================================================================
 class RgLruScan(torch.autograd.Function):
@@ -586,8 +627,8 @@ def rglru_block(p: Block, x: Tensor, cfg: ArchConfig,
     last position)."""
     h = rms_norm(x, p.norm, cfg.norm_eps)
     xr = h @ p.wx
-    gate = torch.sigmoid(h @ p.wg)
-    r = torch.sigmoid(h @ p.wr).float()
+    gate = _sigmoid(h @ p.wg)
+    r = _sigmoid(h @ p.wr).float()
     log_a = 8.0 * r * F.logsigmoid(p.a_param)[None, None, :]
     a = torch.exp(log_a)
     b = (torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
@@ -609,13 +650,6 @@ def _rnn_state(*shapes, device) -> Tuple[Tensor, ...]:
            for s in shapes[:-1]]
     return (*out, torch.full(shapes[-1], -1e30, dtype=torch.float32,
                              device=device))
-
-
-def _sigmoid(x: Tensor) -> Tensor:
-    """jax.nn.sigmoid as XLA expands it: 1 / (1 + exp(-x)), each op
-    rounded in x's dtype. torch.sigmoid rounds once; in bfloat16 the two
-    differ by one step on about a quarter of the values."""
-    return 1.0 / (1.0 + torch.exp(-x))
 
 
 def _no_backward(what: str) -> None:
@@ -692,7 +726,7 @@ def mlp_block(p: Block, x: Tensor, cfg: ArchConfig, w1="w1", w3="w3",
     """SwiGLU FFN on rms_norm(x) with the block's own `norm` (a MoE's
     shared experts use the MoE's norm, as in JAX)."""
     h = rms_norm(x, p.norm, cfg.norm_eps)
-    u = F.silu(h @ getattr(p, w1)) * (h @ getattr(p, w3))
+    u = _silu(h @ getattr(p, w1)) * (h @ getattr(p, w3))
     return u @ getattr(p, w2)
 
 
@@ -738,7 +772,7 @@ def _expert_ffn(we1: Tensor, we3: Tensor, we2: Tensor, buf: Tensor) -> Tensor:
     """buf (E, C, D) -> (E, C, D) through each expert's SwiGLU."""
     u = torch.bmm(buf, we1)
     g = torch.bmm(buf, we3)
-    return torch.bmm(F.silu(u) * g, we2)
+    return torch.bmm(_silu(u) * g, we2)
 
 
 def _moe_local(p: Block, h: Tensor, cfg: ArchConfig,

@@ -1033,9 +1033,10 @@ def _xlstm_close(name, got, want, what):
 
 @pytest.mark.parametrize("case", lane_cases.MLSTM_CHUNK_CASES)
 def test_mlstm_chunkwise_kernel_matches_plain_version(cuda_device, case):
-    """B12 on chunks of 6, 8, 100 (not a power of two), 128 and 48, hd 16
-    and 512, B 1 and 3, from zeros and from a carried state: h and the
-    final (C, n, m); the state it is given stays as it was."""
+    """B12 on chunks of 6, 8, 100 (not a power of two), 128 (3 and 32 of
+    them at hd 512) and 48, hd 16 and 512, B 1 and 3, from zeros and from
+    a carried state: h and the final (C, n, m); the state it is given
+    stays as it was."""
     B, S, H, hd, carried = case
     xs, st = lane_cases.mlstm_inputs(*case)
     args = _on(cuda_device, *xs, *st)
@@ -1045,6 +1046,26 @@ def test_mlstm_chunkwise_kernel_matches_plain_version(cuda_device, case):
         same(a, b)
     want = kref.mlstm_chunkwise(*args)
     _xlstm_close("mlstm_chunkwise", got, want, f"mlstm_chunkwise {case}")
+
+
+@pytest.mark.parametrize("case", lane_cases.MLSTM_SEGMENT_CASES)
+def test_mlstm_chunkwise_segments_match_plain_version(cuda_device, case):
+    """B12 with its scratch cut to a few chunks, so that (C, n) crosses
+    segment boundaries (the last segment short): against the plain
+    version, and bit for bit against one segment of all chunks (the same
+    sums in the same order)."""
+    from repro_torch.kernels import xlstm as kx
+    xs, st = lane_cases.mlstm_inputs(*case[:5])
+    args = _on(cuda_device, *xs, *st)
+    nbytes = lane_cases.mlstm_segment_bytes(case)
+    B, S, H, hd, _, seg = case
+    assert kx.chunk_segment(B, S, H, hd, nbytes) == seg
+    assert seg < S // kref.mlstm_chunk(S)
+    got = kx.mlstm_chunkwise(*args, state_bytes=nbytes)
+    _xlstm_close("mlstm_chunkwise", got, kref.mlstm_chunkwise(*args),
+                 f"mlstm_chunkwise {case}")
+    for g, w in zip(got, kx.mlstm_chunkwise(*args)):
+        same(g, w)
 
 
 @pytest.mark.parametrize("case", lane_cases.MLSTM_STEP_CASES)
@@ -1071,9 +1092,10 @@ def test_mlstm_step_kernel_matches_plain_version(cuda_device, case):
 
 @pytest.mark.parametrize("case", lane_cases.SLSTM_CASES)
 def test_slstm_scan_kernel_matches_plain_version(cuda_device, case):
-    """B14 at S = 1 (decode) with R 64 and 2048, short and ragged S, B 3,
-    rz in bf16 and f32, and 4,096 steps of its grid barrier: hs and the
-    final (c, n, h, m)."""
+    """B14 at S = 1 (decode, the step kernel) with R 64 and 2048 and B up
+    to 128; the chain at short and ragged S, ragged R, B 3, rz in bf16 and
+    f32, and 4,096 steps (the ring's tag wraps every 4): hs and the final
+    (c, n, h, m)."""
     B, S, R, bf16 = case
     xs, st = lane_cases.slstm_inputs(B, S, R)
     z, i, f, o, rz = _on(cuda_device, *xs)
@@ -1086,8 +1108,30 @@ def test_slstm_scan_kernel_matches_plain_version(cuda_device, case):
     torch.testing.assert_close(got[4], want[4], rtol=1e-6, atol=1e-6)
 
 
+def test_slstm_scan_second_call_gives_the_same_bits(cuda_device):
+    """B14's chain called twice right after each other on the same inputs
+    (its exchange ring zeroed again: a ring left at the first call's tags
+    would let the second read stale h) and at decode: the same bits both
+    times (a fixed summation order), and the plain version's values."""
+    for B, S, R, bf16 in ((3, 300, 2048, True), (1, 1000, 2048, True),
+                          (128, 1, 2048, True)):
+        xs, st = lane_cases.slstm_inputs(B, S, R, seed=5)
+        z, i, f, o, rz = _on(cuda_device, *xs)
+        if bf16:
+            rz = rz.to(torch.bfloat16)
+        state = _on(cuda_device, *st)
+        first = kops.slstm_scan(z, i, f, o, rz, *state)
+        second = kops.slstm_scan(z, i, f, o, rz, *state)
+        for a, b in zip(first, second):
+            same(a, b)
+        want = kref.slstm_scan(z, i, f, o, rz, *state)
+        _xlstm_close("slstm_scan", second[:4], want[:4],
+                     f"slstm_scan second call {(B, S, R)}")
+
+
 def test_xlstm_kernels_count_one_launch_a_call(cuda_device):
-    """Each wrapper counts one launch a call (B12 is three launches)."""
+    """Each wrapper counts one launch a call (B12 is 2 + 2 x segments
+    launches, B14 one, at S == 1 and S > 1)."""
     from repro_torch.kernels import xlstm as kx
     xs, st = lane_cases.mlstm_inputs(1, 8, 2, 16, False)
     args = _on(cuda_device, *xs, *st)
@@ -1097,6 +1141,7 @@ def test_xlstm_kernels_count_one_launch_a_call(cuda_device):
     kops.mlstm_step(*(x[:, 0].contiguous() for x in args[:5]), *args[5:])
     xs, st = lane_cases.slstm_inputs(1, 3, 64)
     kops.slstm_scan(*_on(cuda_device, *xs, *st))
+    xs, st = lane_cases.slstm_inputs(2, 1, 64)
     kops.slstm_scan(*_on(cuda_device, *xs, *st))
     assert (kx.mlstm_chunkwise.launches, kx.mlstm_step.launches,
             kx.slstm_scan.launches) == (before[0] + 1, before[1] + 1,

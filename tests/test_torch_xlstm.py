@@ -87,6 +87,26 @@ def test_mlstm_chunkwise_matches_jax(S, carried):
         _close(g.numpy(), w)
 
 
+def test_chunk_segment_bounds_the_scratch():
+    """kernels/xlstm.py chunk_segment, the wrapper's segments of B12's
+    chunk-entry states: the 1 x 32,768 prefill of xlstm-1.3b (4 heads of
+    512) is one segment of 256 chunks (1 GiB), batch 2 two of 128, a cap
+    below one chunk's states still one chunk, never more than the chunks
+    there are, and the card cases' caps give their segments."""
+    from repro_torch.kernels import lane_cases
+    from repro_torch.kernels import xlstm as kx
+    assert kx.STATE_BYTES == 2 ** 30
+    assert kx.chunk_segment(1, 32768, 4, 512) == 256
+    assert kx.chunk_segment(2, 32768, 4, 512) == 128
+    assert kx.chunk_segment(1, 32768, 4, 512, state_bytes=1) == 1
+    assert kx.chunk_segment(3, 200, 2, 16) == 200 // tref.mlstm_chunk(200)
+    for case in lane_cases.MLSTM_SEGMENT_CASES:
+        B, S, H, hd, _, seg = case
+        assert kx.chunk_segment(B, S, H, hd,
+                                lane_cases.mlstm_segment_bytes(case)) == seg
+        assert seg < S // tref.mlstm_chunk(S)
+
+
 def test_mlstm_step_matches_chunkwise():
     """The plain step, walked over S = 8 positions, gives the chunkwise
     form's h and state (the stabilizer is the same, JAX's decode ==
