@@ -311,12 +311,13 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    (the 2048 window binds), accum 2 of 1 sequence: also rg_lru_scan twice
    and rg_lru_scan_bwd once a RG-LRU layer a microbatch, their first
    calls held bit for bit, and flash_attention_bwd at d = 256.
-18. CPU against GPU for the train step: reduced smollm-135m and
-   recurrentgemma-9b in float32, the same seeded weights built once and
-   moved, TF32 off, two steps of make_train_step on the same batches:
-   loss and grad norm within 1e-5, the weights within 1e-4 (relative, and
-   of max(1, each leaf's largest magnitude) absolute); the train kernels
-   must launch on the card.
+18. CPU against GPU for the train step: reduced smollm-135m,
+   recurrentgemma-9b and deepseek-moe-16b in float32, the same seeded
+   weights built once and moved, TF32 off, two steps of make_train_step
+   on the same batches: loss and grad norm within 1e-5, the weights
+   within 1e-4 (relative, and of max(1, each leaf's largest magnitude)
+   absolute); the train kernels (and moe_dispatch) must launch on the
+   card.
 
 19. Serving xlstm-1.3b at full width (48 layers: 42 mLSTM and 6 sLSTM in
    6 groups of 7 + 1; d_model 2048, 4 heads of 512, sLSTM width 2048,
@@ -342,9 +343,36 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    position), with the launches each must make, and 48 teacher-forced
    decode steps, within LOGITS_TOL; on both devices decode at each step
    equal to the forward within DECODE_VS_PREFILL_TOL.
+22. Training deepseek-moe-16b as phase 16 trains smollm-135m, at full
+   width (d_model 2048, 16 heads of 128, 64 routed experts top-6 and 2
+   shared of d_ff 1,408, vocab 102,400, bf16, seeded weights) with its
+   depth cut from 28 to the first 3 layers (1.97 B weights; at 28 the
+   weights, f32 gradient sums and AdamW's moments need 233 GB; printed
+   with the reason), at the train_4k shape (seq 4,096) with the global
+   batch cut from 256 to 2 and accum from 8 to 2 (printed):
+   flash_attention must launch 48 times a step, flash_attention_bwd 24
+   (at d = 128) and moe_dispatch 12 (expected_train_launches), nothing
+   else; the first calls of the three held to their plain versions
+   (moe_dispatch bit for bit; B10's limit must reject the causal
+   frontier one key short); the checkpoint restored bit for bit. Also
+   printed: the MoE arm _moe_backend chose and the share of (token,
+   choice) pairs the capacity (480 rows an expert) dropped at the first
+   call.
+23. optim.compressed_mean_grads over 4 ranks (a leading axis) for two
+   steps, the second fed the first's error, on seeded gradients shaped
+   as one deepseek-moe-16b layer's leaves without its routed experts
+   (34.2 M values a rank): the means, the error state and compress_int8's
+   codes and scales equal on the card and the CPU bit for bit, timed
+   against its bytes' bound. Then examples/torch_quickstart.py's calls
+   on the CPU and the card: its data-structure and cost-model lines
+   equal, the owner lanes and handlers each launching. Then the
+   exchanges (routing.sharding_hook) of one planned fused insert and one
+   find at phase 2's size (64 ranks x 1,024 keys into 2**18 slots a
+   rank): one occupancy exchange, then a request and its reply a probe
+   phase (costmodel.exchange_count); the RPC insert and find 3 each.
 
-Phases 5, 7 and 19 (a decode step), 5b, 8 and 20 (a prefill) and 16 and
-17 (a train step) also count the calls of models/lm.py's _sigmoid and
+Phases 5, 7 and 19 (a decode step), 5b, 8 and 20 (a prefill) and 16, 17
+and 22 (a train step) also count the calls of models/lm.py's _sigmoid and
 _silu (JAX's expansions, each op rounded in the input's type: ROADMAP C1)
 by shape and print their time against torch.sigmoid's and F.silu's on
 inputs of the same shapes (`ActivationCalls`).
@@ -419,16 +447,35 @@ SMOLLM_TRAIN = dict(shape="train_4k", seq_len=4096, accum=2, batch=8,
 RGEMMA_TRAIN = dict(layers=3, seq_len=4096, accum=2, batch=2,
                     shape_batch=256)
 TRAIN_STEPS = 4          # timed, after one warm-up step (captured)
+# phase 22: deepseek-moe-16b at full width with its depth cut from 28 to
+# the first three layers (at 28 its 16.67 B weights, their f32 gradient
+# sums and AdamW's two f32 moments need about 233 GB; at 3, 1.97 B weights
+# and about 32 GB of state before activations), at the train_4k shape
+# (seq 4,096) with the global batch cut from 256 to 2 and accum from 8 to
+# 2 (1 sequence a microbatch). DS_TRAIN_PEAK_GB is the peak the depth was
+# chosen for: a peak past it fails phase 22, which then asks for 2 layers
+DS = "deepseek-moe-16b"
+DS_TRAIN = dict(layers=3, seq_len=4096, accum=2, batch=2, shape="train_4k",
+                shape_batch=256, shape_accum=8)
+DS_TRAIN_PEAK_GB = 70
 # flash_attention_bwd's launch plans printed for each head dim: (B, S, Skv,
 # H, Hkv, d) of smollm-135m's first train call (d 64), deepseek-moe-16b's
-# heads on a 1,024-row chunk of 4,096 tokens (d 128, not trained here) and
-# recurrentgemma-9b's first train call (d 256, keys cut to its window)
+# heads on a 1,024-row chunk of 4,096 tokens (d 128, trained in phase 22)
+# and recurrentgemma-9b's first train call (d 256, keys cut to its window)
 BWD_PLAN_SHAPES = (("smollm-135m train", (4, 1024, 4096, 9, 3, 64)),
-                   ("deepseek-moe-16b heads", (1, 1024, 4096, 16, 16, 128)),
+                   ("deepseek-moe-16b train", (1, 1024, 4096, 16, 16, 128)),
                    ("recurrentgemma-9b train", (1, 1024, 3071, 16, 1, 256)))
 TRAIN_LR = dict(lr=3e-4, warmup=2, total_steps=100)
 TRAIN_CHECK = dict(batch=4, seq_len=64, accum=2, steps=2,
                    lr=dict(lr=1e-3, warmup=1, total_steps=4))
+# phase 23: compressed_mean_grads over COMPRESS_RANKS ranks for
+# COMPRESS_STEPS steps (the second fed the first's error) on seeded
+# gradients shaped as one deepseek-moe-16b layer's leaves without its
+# routed experts; the quickstart twin's calls; the exchanges of one
+# planned fused insert and one find at phase 2's size
+COMPRESS_RANKS = 4
+COMPRESS_STEPS = 2
+QUICKSTART_SAME = ("[rdma]", "[rpc ]", "[model]", "[auto ] insert+find ok=")
 # phase 18: loss and grad norm CPU against GPU (f32 sums in other orders);
 # the weights within 1e-4 relative and 1e-4 of max(1, the leaf's largest
 # magnitude) absolute. AdamW's step lr m / (sqrt(v) + eps) moves a weight
@@ -4614,6 +4661,43 @@ def train_flops(model, B: int, S: int) -> tuple:
     return 6 * (n_mat + cfg.top_k * n_expert) * B * S, 3.5 * attn
 
 
+def moe_drops(cfg, args, kw) -> dict:
+    """At a captured moe_dispatch call of a train step: the MoE arm
+    _moe_backend chose for its tokens, the capacity (rows an expert), and
+    the (token, choice) pairs whose ticket fell at or past it (dropped)."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models import lm
+    ids = args[0]
+    T = ids.numel() // cfg.top_k
+    cap = lm._capacity(T, cfg)
+    _, pos = kref.moe_dispatch(ids, **kw)
+    dropped = int((pos >= cap).sum())
+    return dict(arm=lm._moe_backend(cfg, T).value, tokens=T,
+                pairs=ids.numel(), capacity=cap, dropped=dropped,
+                dropped_share=dropped / max(ids.numel(), 1))
+
+
+def ds_train_cfg():
+    """deepseek-moe-16b at full width, its depth cut to DS_TRAIN's first
+    layers; and the cut as printed."""
+    from repro_torch.configs import registry
+    full = registry.get(DS)
+    cfg = dataclasses.replace(full, n_layers=DS_TRAIN["layers"])
+    d = DS_TRAIN
+    cut = (f"depth {full.n_layers} -> {cfg.n_layers}: at {full.n_layers} "
+           f"layers its {full.params_count() / 1e9:.2f} B weights, their "
+           f"f32 gradient sums and AdamW's two f32 moments need "
+           f"{full.params_count() * 14 / 1e9:.0f} GB (at {cfg.n_layers}, "
+           f"{cfg.params_count() / 1e9:.2f} B weights need "
+           f"{cfg.params_count() * 16 / 1e9:.1f} GB with autograd's bf16 "
+           f"gradients, before activations); global batch "
+           f"{d['shape_batch']} -> {d['batch']} "
+           f"({d['batch'] // d['accum']} a microbatch) and accum "
+           f"{d['shape_accum']} -> {d['accum']} of the {d['shape']} shape "
+           f"(seq {d['seq_len']})")
+    return cfg, cut
+
+
 def rgemma_train_cfg():
     """recurrentgemma-9b at full width, its depth cut to the first three
     layers of its pattern (one group)."""
@@ -4692,6 +4776,14 @@ def phase_train(cfg, seed: int, device, phase: int, tag: str, batch: int,
         acts.on = True
         first_s = run(0)
     rows = phase_captured(capture.calls, names, phase)
+    moe = None
+    if "moe_dispatch" in want:
+        moe = moe_drops(cfg, *capture.calls[("moe_dispatch", tag)])
+        log(f"phase {phase}: MoE arm {moe['arm']} (_moe_backend at "
+            f"{moe['tokens']} tokens a microbatch); capacity "
+            f"{moe['capacity']} rows an expert; the first layer's first "
+            f"call dropped {moe['dropped']} of {moe['pairs']} (token, "
+            f"choice) pairs ({moe['dropped_share']:.4f})")
     activations = acts.cost(device)
     log_activations(phase, "a train step", activations)
     edge = bwd_edge_fault_rejected(
@@ -4745,7 +4837,7 @@ def phase_train(cfg, seed: int, device, phase: int, tag: str, batch: int,
                   bound_ms=(mat_flops + attn_flops)
                   / PEAK_FLOPS["torch.bfloat16"] * 1e3,
                   profile=profile, limit_check=edge,
-                  activations=activations,
+                  activations=activations, moe=moe,
                   checkpoint=dict(leaves=len(pairs), bytes=ckpt_bytes,
                                   seconds=ckpt_s))
     del model, opt
@@ -4754,13 +4846,14 @@ def phase_train(cfg, seed: int, device, phase: int, tag: str, batch: int,
 
 
 def phase_train_cpu_vs_gpu(seed: int, device) -> dict:
-    """Reduced smollm-135m and recurrentgemma-9b in float32, weights built
-    once on the CPU and moved, TF32 off: TRAIN_CHECK["steps"] steps of
-    make_train_step on each device on the same batches. Loss and grad norm
-    of every step within TRAIN_CHECK_TOL's loss_rtol, the weights after
-    the last within its weight_rtol (relative, and of max(1, each leaf's
-    largest magnitude) absolute); on the card the train kernels must
-    launch."""
+    """Reduced smollm-135m, recurrentgemma-9b and deepseek-moe-16b in
+    float32, weights built once on the CPU and moved, TF32 off:
+    TRAIN_CHECK["steps"] steps of make_train_step on each device on the
+    same batches. Loss and grad norm of every step within
+    TRAIN_CHECK_TOL's loss_rtol, the weights after the last within its
+    weight_rtol (relative, and of max(1, each leaf's largest magnitude)
+    absolute); on the card the train kernels (moe_dispatch with them for
+    deepseek-moe-16b) must launch."""
     import torch
     from repro_torch.configs import registry
     from repro_torch.launch import steps
@@ -4769,7 +4862,8 @@ def phase_train_cpu_vs_gpu(seed: int, device) -> dict:
     c, tol = TRAIN_CHECK, TRAIN_CHECK_TOL
     out = {}
     for name, names in ((SMOLLM, TRAIN_KERNELS),
-                        (RGEMMA, RGEMMA_TRAIN_KERNELS)):
+                        (RGEMMA, RGEMMA_TRAIN_KERNELS),
+                        (DS, TRAIN_KERNELS + ("moe_dispatch",))):
         cfg = registry.get(name).reduced()
         cpu = lm.init_lm(cfg, seed, "cpu")
         gpu = copy.deepcopy(cpu).to(device)
@@ -4825,6 +4919,10 @@ def log_train(v: dict, card: str) -> None:
         f"{v['checkpoint']['leaves']} leaves, "
         f"{v['checkpoint']['bytes'] / 1e9:.2f} GB, written, restored and "
         f"compared in {v['checkpoint']['seconds']:.1f} s")
+    if v.get("moe"):
+        log(f"train {v['arch']}: MoE arm {v['moe']['arm']}, capacity "
+            f"{v['moe']['capacity']} rows an expert, dropped share "
+            f"{v['moe']['dropped_share']:.4f} at the first call")
     log_profile(f"train {v['arch']}", v["profile"], "step")
 
 
@@ -4908,6 +5006,215 @@ def phases_xlstm(seed: int, device, record, add_rows) -> tuple:
         f"{xl_check['decode_vs_forward']:.3e}); "
         f"{time.perf_counter() - t0:.1f} s")
     return xv, xpf, xl_check
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: the int8 gradient compression, the quickstart, the exchanges
+# ---------------------------------------------------------------------------
+def compress_leaves(cfg) -> dict:
+    """name -> (shape, dtype) of one layer's gradients without its routed
+    experts: attention's norm and projections, the MoE block's norm, its
+    router (f32) and its shared experts."""
+    D, hd, H, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    Fs = cfg.n_shared_experts * cfg.moe_d_ff
+    dt = str(cfg.compute_dtype).replace("torch.", "")
+    return {"attn.norm": ((D,), dt), "attn.wq": ((D, H * hd), dt),
+            "attn.wk": ((D, Hkv * hd), dt), "attn.wv": ((D, Hkv * hd), dt),
+            "attn.wo": ((H * hd, D), dt), "moe.norm": ((D,), dt),
+            "moe.router": ((D, cfg.n_experts), "float32"),
+            "moe.ws1": ((D, Fs), dt), "moe.ws3": ((D, Fs), dt),
+            "moe.ws2": ((Fs, D), dt)}
+
+
+def compress_grads(seed: int, leaves: dict, ranks: int, step: int) -> dict:
+    """Seeded gradients (ranks, *shape) of each leaf on the CPU, normal
+    with a scale of 1, 0.1, 0.01 or 0.001 by leaf, in the leaf's dtype."""
+    import torch
+    gen = torch.Generator().manual_seed(seed * 1000 + 23 * 10 + step)
+    return {name: (torch.randn((ranks,) + shape, generator=gen)
+                   * 10.0 ** -(i % 4)).to(getattr(torch, dtype))
+            for i, (name, (shape, dtype)) in enumerate(leaves.items())}
+
+
+def same_bytes(a, b) -> bool:
+    """Equal dtype, shape and bits (-0.0 is not 0.0 here)."""
+    import torch
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def phase_compression(seed: int, device, cfg) -> dict:
+    """optim.compressed_mean_grads over COMPRESS_RANKS ranks (a leading
+    axis) for COMPRESS_STEPS steps, each fed the last's error, on seeded
+    gradients shaped as compress_leaves(cfg), on the card and on the CPU:
+    the means, the error state, and compress_int8's codes and scales of
+    each leaf's error-fed gradients must be equal bit for bit. The last
+    step is timed on the card (mean of 5 calls back to back) against the
+    bound of its bytes (gradients and errors read once, means and errors
+    written once)."""
+    import torch
+    from repro_torch.optim import compress_int8, compressed_mean_grads
+    leaves = compress_leaves(cfg)
+    n = sum(int(np.prod(shape)) for shape, _ in leaves.values())
+    err = {"cpu": None, "gpu": None}
+    for step in range(COMPRESS_STEPS):
+        g_cpu = compress_grads(seed, leaves, COMPRESS_RANKS, step)
+        g_gpu = {k: v.to(device) for k, v in g_cpu.items()}
+        inputs = (g_gpu, err["gpu"])
+        fed, out = {}, {}
+        for dev, g in (("cpu", g_cpu), ("gpu", g_gpu)):
+            e = err[dev]
+            fed[dev] = {k: compress_int8(v.float() if e is None
+                                         else v.float() + e[k])
+                        for k, v in g.items()}
+            out[dev] = compressed_mean_grads(g, e)
+        (mean_c, err_c), (mean_g, err_g) = out["cpu"], out["gpu"]
+        for k in leaves:
+            pairs = (("mean", mean_c[k], mean_g[k]),
+                     ("error", err_c[k], err_g[k]),
+                     ("codes", fed["cpu"][k][0], fed["gpu"][k][0]),
+                     ("scales", fed["cpu"][k][1], fed["gpu"][k][1]))
+            for what, a, b in pairs:
+                b = b.cpu()
+                if not same_bytes(a, b):
+                    err_ = float((a.double() - b.double()).abs().max())
+                    raise AssertionError(
+                        f"phase 23: compression step {step} {k} {what} "
+                        f"differs CPU vs GPU (max abs err {err_})")
+            if not (mean_g[k] == mean_g[k][:1]).all():
+                raise AssertionError(f"phase 23: {k}'s mean differs across "
+                                     f"ranks")
+        err = {"cpu": err_c, "gpu": err_g}
+    ms = None
+    if device.type == "cuda":
+        compressed_mean_grads(*inputs)
+        ms = cuda_ms(lambda: compressed_mean_grads(*inputs), 5)
+    g_bytes = sum(v.numel() * v.element_size() for v in inputs[0].values())
+    nbytes = 2 * g_bytes + 2 * 4 * COMPRESS_RANKS * n
+    nblocks = sum(-(-int(np.prod(shape)) // 128)
+                  for shape, _ in leaves.values())
+    return dict(ranks=COMPRESS_RANKS, steps=COMPRESS_STEPS,
+                leaves=len(leaves),
+                values_per_rank=n, ms=ms, bytes=nbytes,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                wire_bytes_per_rank=n + 4 * nblocks,
+                f32_bytes_per_rank=4 * n)
+
+
+def phase_quickstart(device) -> dict:
+    """examples/torch_quickstart.py's main on the CPU and on `device`: the
+    data-structure and cost-model lines (QUICKSTART_SAME) must be equal;
+    on the card its launches are counted (the owner lanes and handlers
+    must each launch)."""
+    import contextlib
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", ROOT / "examples" / "torch_quickstart.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lines, counts = {}, None
+    for dev in ("cpu", str(device)):
+        with contextlib.redirect_stdout(io.StringIO()):
+            if dev != "cpu":
+                zero_counts()
+            lines[dev] = mod.main(["--device", dev])
+            if dev != "cpu" and device.type == "cuda":
+                counts = read_counts(DS_KERNELS)
+    same = {dev: [ln for ln in out if ln.startswith(QUICKSTART_SAME)]
+            for dev, out in lines.items()}
+    if same["cpu"] != same[str(device)] or len(same["cpu"]) != 11:
+        raise AssertionError(f"phase 23: the quickstart's lines differ: "
+                             f"CPU {same['cpu']} against {device} "
+                             f"{same[str(device)]}")
+    return dict(lines=lines[str(device)], same=len(same["cpu"]),
+                launches=counts)
+
+
+def phase_exchanges(seed: int, device) -> dict:
+    """The exchanges (routing.sharding_hook) of one planned fused C_RW
+    insert of P x N keys into a fresh table of P ranks x NSLOTS slots and
+    one fused C_R find of them, and of an RPC insert and find of the same
+    keys: the RDMA ops exchange the occupancy mask once (first) and then a
+    request and its reply a probe phase, PLAN_EXCHANGES +
+    costmodel.exchange_count(probes=the insert's deepest probe); each RPC
+    op makes exchange_count's 3 (request, its mask, reply). Every key must
+    be inserted and found with its value."""
+    import torch
+    from repro_torch.core import am as am_mod
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core import hashtable as ht_mod
+    from repro_torch.core import routing
+    from repro_torch.core.types import Backend, Promise
+    keys_np = make_keys(seed + 23, P * N).reshape(P, N)
+    keys = torch.as_tensor(keys_np, device=device)
+    vals = torch.as_tensor(val_of(keys_np)[..., None], device=device)
+    roles: list = []
+
+    def hook(x, role):
+        if role.endswith("_pre"):
+            roles.append(role[:-4])
+        return x
+
+    def count(fn):
+        roles.clear()
+        with routing.sharding_hook(hook):
+            out = fn()
+        return list(roles), out
+
+    def check(what, got, want):
+        phases = got[1:]
+        if (len(got) != want or not got[0].endswith("_mask")
+                or sum(r.endswith("_mask") for r in got) != 1
+                or any(b != a + "_rep" for a, b in zip(phases[::2],
+                                                       phases[1::2]))):
+            raise AssertionError(f"phase 23: {what} exchanges {got}, want "
+                                 f"{want}")
+        return len(got)
+
+    def rdma(op, promise, probes):
+        return cm.PLAN_EXCHANGES + cm.exchange_count(
+            op, promise, Backend.RDMA, fused=True, probes=probes)
+
+    table = ht_mod.make_hashtable(P, NSLOTS, 1, device=device)
+    r_ins, (table, ok, probes) = count(lambda: ht_mod.insert_rdma(
+        table, keys, vals, promise=Promise.CRW, fused=True))
+    # a probe phase for each slot of the deepest probe, in both ops: a key
+    # is found where it was inserted
+    deepest = int(probes.max())
+    n_ins = check("fused insert", r_ins,
+                  rdma(cm.DSOp.HT_INSERT, Promise.CRW, deepest))
+    r_find, (table, found, got) = count(lambda: ht_mod.find_rdma(
+        table, keys, promise=Promise.CR, fused=True))
+    n_find = check("fused find", r_find,
+                   rdma(cm.DSOp.HT_FIND, Promise.CR, deepest))
+    if not (bool(ok.all()) and bool(found.all())
+            and torch.equal(got, vals)):
+        raise AssertionError("phase 23: the fused insert and find lost keys")
+    engine = am_mod.AMEngine(P)
+    t2 = ht_mod.make_hashtable(P, NSLOTS, 1, device=device)
+    ht_mod.build_am_handlers(t2, engine)
+    r_rins, (t2, ok2, _) = count(lambda: ht_mod.insert_rpc(t2, engine, keys,
+                                                           vals))
+    r_rfind, (found2, got2) = count(lambda: ht_mod.find_rpc(t2, engine,
+                                                            keys))
+    for what, r, op, promise in (("rpc insert", r_rins, cm.DSOp.HT_INSERT,
+                                  Promise.CRW),
+                                 ("rpc find", r_rfind, cm.DSOp.HT_FIND,
+                                  Promise.CR)):
+        want = cm.exchange_count(op, promise, Backend.RPC, fused=False)
+        if r != ["am_req", "am_req_mask", "am_rep"] or len(r) != want:
+            raise AssertionError(f"phase 23: {what} exchanges {r}, want "
+                                 f"{want}")
+    if not (bool(ok2.all()) and bool(found2.all())
+            and torch.equal(got2, vals)):
+        raise AssertionError("phase 23: the RPC insert and find lost keys")
+    return dict(ranks=P, keys_per_rank=N, nslots=NSLOTS,
+                fused_insert=n_ins, fused_insert_deepest_probe=deepest,
+                fused_find=n_find, rpc_insert=len(r_rins),
+                rpc_find=len(r_rfind), roles=dict(
+                    fused_insert=r_ins[:3], fused_find=r_find[:3],
+                    rpc_insert=r_rins, rpc_find=r_rfind))
 
 
 def card_line() -> str:
@@ -5232,7 +5539,7 @@ def main() -> int:
     t0 = time.perf_counter()
     train_check = phase_train_cpu_vs_gpu(args.seed, device)
     log(f"phase 18: {TRAIN_CHECK['steps']} train steps of reduced "
-        f"{SMOLLM} and {RGEMMA} (f32) equal CPU vs GPU within "
+        f"{SMOLLM}, {RGEMMA} and {DS} (f32) equal CPU vs GPU within "
         f"{TRAIN_CHECK_TOL}: " + "; ".join(
             f"{n}: loss, grad norm CPU {v['loss_gnorm_cpu']} GPU "
             f"{v['loss_gnorm_gpu']}, worst weight error "
@@ -5242,6 +5549,51 @@ def main() -> int:
         + f"; {time.perf_counter() - t0:.1f} s")
 
     xv, xpf, xl_check = phases_xlstm(args.seed, device, record, add_rows)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg, cut = ds_train_cfg()
+    tr22, train_rows = phase_train(cfg, args.seed, device, 22, "ds train",
+                                   DS_TRAIN["batch"], DS_TRAIN["seq_len"],
+                                   DS_TRAIN["accum"], cut)
+    add_rows(train_rows)
+    record("phase 22", tr22["launches"], tuple(tr22["launches"]))
+    peak_gb = tr22["max_memory_allocated"] / 1e9
+    if peak_gb > DS_TRAIN_PEAK_GB:
+        raise AssertionError(
+            f"phase 22: peak {peak_gb:.2f} GB at {cfg.n_layers} layers is "
+            f"past DS_TRAIN_PEAK_GB = {DS_TRAIN_PEAK_GB}: cut "
+            f"DS_TRAIN['layers'] to 2")
+    log(f"phase 22: launches {tr22['launches_per_step']} a step (the "
+        f"formula) in each of {len(tr22['losses'])} steps; losses and grad "
+        f"norms finite; the checkpoint restored bit for bit; peak "
+        f"{peak_gb:.2f} GB, under the {DS_TRAIN_PEAK_GB} GB the depth of "
+        f"{cfg.n_layers} was chosen for; {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    comp23 = phase_compression(args.seed, device, registry.get(DS))
+    log(f"phase 23: compressed_mean_grads over {comp23['ranks']} ranks x "
+        f"{comp23['values_per_rank']} values ({comp23['leaves']} leaves of "
+        f"one {DS} layer without its routed experts), {comp23['steps']} "
+        f"steps fed back: means, error state, codes and scales equal CPU vs "
+        f"GPU bit for bit; a step {comp23['ms']:.4f} ms against the bound "
+        f"{comp23['bound_ms']:.4f} ms ({comp23['bytes'] / 1e9:.3f} GB); "
+        f"{comp23['wire_bytes_per_rank']} int8 + scale bytes a rank "
+        f"against {comp23['f32_bytes_per_rank']} of f32 ({card})")
+    quick = phase_quickstart(device)
+    record("phase 23", quick["launches"], DS_KERNELS)
+    log(f"phase 23: examples/torch_quickstart.py's {quick['same']} "
+        f"data-structure and model lines equal on the CPU and the card; "
+        f"launches {quick['launches']}")
+    for line in quick["lines"]:
+        log(f"phase 23: quickstart: {line}")
+    exch = phase_exchanges(args.seed, device)
+    log(f"phase 23: exchanges at {exch['ranks']} ranks x "
+        f"{exch['keys_per_rank']} keys: fused insert {exch['fused_insert']} "
+        f"(1 occupancy + 2 a probe phase, deepest probe "
+        f"{exch['fused_insert_deepest_probe']}), fused find "
+        f"{exch['fused_find']}, rpc insert {exch['rpc_insert']}, rpc find "
+        f"{exch['rpc_find']}: the table's; {time.perf_counter() - t0:.1f} s")
 
     for arm in ARMS:
         r = report[arm]
@@ -5281,10 +5633,14 @@ def main() -> int:
     report["serve_rgemma"] = rv
     report["prefill"] = pf
     report["rgemma_cpu_vs_gpu"] = rg_check
-    for v in (tr16, tr17):
+    for v in (tr16, tr17, tr22):
         log_train(v, card)
     report["train_smollm"] = tr16
     report["train_rgemma"] = tr17
+    report["train_deepseek"] = tr22
+    report["compression"] = comp23
+    report["quickstart"] = quick
+    report["exchanges"] = exch
     report["train_cpu_vs_gpu"] = train_check
     report["serve_xlstm"] = xv
     report["prefill_xlstm"] = xpf

@@ -149,6 +149,44 @@ def test_train_restart_bit_exact(tmp_path):
     np.testing.assert_allclose(l_straight[3:], l_resumed, rtol=1e-5)
 
 
+def test_moe_train_state_roundtrip_bit_for_bit(tmp_path):
+    """Reduced deepseek-moe-16b after one AdamW step (its stacked expert
+    leaves, router and shared experts, both moments and the count) through
+    AsyncCheckpointer and back into a fresh model and optimizer state:
+    every leaf equal bit for bit, as chip_smoke.py's train phases check at
+    full width."""
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import lm
+    from repro_torch.runtime import AsyncCheckpointer
+
+    cfg = treg.get("deepseek-moe-16b").reduced()
+    init_fn, train_step = steps.make_train_step(cfg, lr=1e-3, warmup=1,
+                                                total_steps=4)
+    model = lm.init_lm(cfg, 0, "cpu")
+    opt = init_fn(model)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 2, 16)).astype(np.int32))
+    model, opt, _ = train_step(model, opt, {"tokens": toks}, 0)
+    writer = AsyncCheckpointer(str(tmp_path), keep=1)
+    writer.submit(1, train_mod.state_tree(model, opt))
+    writer.close()
+    fresh = lm.init_lm(cfg, 1, "cpu")
+    fresh_opt = init_fn(fresh)
+    train_mod.restore_state(str(tmp_path), ck.latest_step(str(tmp_path)),
+                            fresh, fresh_opt)
+    want = _leaves(train_mod.state_tree(model, opt))
+    got = _leaves(train_mod.state_tree(fresh, fresh_opt))
+    assert len(got) == len(want)
+    assert any(a.dim() == 3 for a in want)          # the stacked experts
+    assert int(fresh_opt["count"]) == 1
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        # compared as bytes: -0.0 and 0.0, or two NaNs, are not equal bits
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+
+
 # ---------------------------------------------------------------------------
 # The port's own: bfloat16 leaves, restore onto a device
 # ---------------------------------------------------------------------------

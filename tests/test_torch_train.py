@@ -193,13 +193,15 @@ def test_lm_to_numpy_inverts_lm_from_numpy():
 # ---------------------------------------------------------------------------
 # Train steps
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", ["smollm-135m", "deepseek-coder-33b"])
+@pytest.mark.parametrize("name", ["smollm-135m", "deepseek-coder-33b",
+                                  "deepseek-moe-16b"])
 def test_train_steps_match_jax(name):
     """Two steps of make_train_step (accum 2 microbatches of 2 x 24
     tokens, lr 1e-3, warm-up 1 of 4 steps) in both packages, AdamW
-    (smollm-135m) and Adafactor (deepseek-coder-33b): the loss and grad
-    norm within 1e-5 and the weights after each step within 1e-5 relative
-    and 1e-5 of each leaf's largest magnitude. The first AdamW step moves
+    (smollm-135m, deepseek-moe-16b: its stacked expert leaves, the router
+    and the shared experts) and Adafactor (deepseek-coder-33b): the loss
+    and grad norm within 1e-5 and the weights after each step within 1e-5
+    relative and 1e-5 of each leaf's largest magnitude. The first AdamW step moves
     each weight by about lr whatever its gradient's size, so the weights
     agree only where both packages' gradients agree in sign: they do."""
     jcfg, params, tcfg, model = jax_and_port_models(name)
