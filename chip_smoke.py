@@ -51,7 +51,19 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    kernel, at R 64 and 2048 and B up to 128; the chain at short and ragged
    S, R 100, B 3, rz in bf16 and f32, 4,096 steps: its ring's tag wraps
    every 4), and called twice on one input (the chain, B 3 x 300, and
-   decode): the same bits both times.
+   decode): the same bits both times. Their backwards on
+   kernels/lane_cases.py's cases, within kernels/ref.py's xlstm_bwd_tol
+   of the plain versions (autograd through the plain forwards), the
+   forward kernels' outputs as their inputs: mlstm_chunkwise_bwd on
+   MLSTM_BWD_CASES (one chunk, a ragged chunk of 8, 3 and 32 chunks of
+   128 at hd 512, hd 16, 64 and 512, |q . n| below and above 1, large
+   gate logits, from zeros and from a carried state, with the final
+   state's gradients) and MLSTM_BWD_SEGMENT_CASES (its scratch cut to a
+   few chunks; also bit for bit against one segment), mlstm_step_bwd on
+   MLSTM_STEP_BWD_CASES (hd 16, 128, 512, B up to 16, |q . n'| above 1),
+   slstm_scan_bwd on SLSTM_BWD_CASES (S = 1, ragged S and R, B 6: two row
+   tiles, rz in bf16 and f32, 4,096 steps), and twice on one input: the
+   same bits.
    Then the owner-lane cases of kernels/lane_cases.py, the
    inputs tests/test_torch_cuda.py holds amo_apply and fused_apply to: every
    op on one word (16,384 FAAs, mixed codes with offsets outside [0, L) in
@@ -317,7 +329,11 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    on the same batches: loss and grad norm within 1e-5, the weights
    within 1e-4 (relative, and of max(1, each leaf's largest magnitude)
    absolute); the train kernels (and moe_dispatch) must launch on the
-   card.
+   card. Also reduced xlstm-1.3b (B12, B14, B15, B17 launching), and then
+   one more step at 63 tokens, a step a position (B13 and B16 launching):
+   its loss within 1e-5, its grad norm within XLSTM_ODD_GNORM_RTOL =
+   5e-4 (an ill-conditioned path in f32; printed beside the same step on
+   the card with the plain versions).
 
 19. Serving xlstm-1.3b at full width (48 layers: 42 mLSTM and 6 sLSTM in
    6 groups of 7 + 1; d_model 2048, 4 heads of 512, sLSTM width 2048,
@@ -370,9 +386,24 @@ Phases, in order; any mismatch raises and the script exits non-zero:
    find at phase 2's size (64 ranks x 1,024 keys into 2**18 slots a
    rank): one occupancy exchange, then a request and its reply a probe
    phase (costmodel.exchange_count); the RPC insert and find 3 each.
+24. Training xlstm-1.3b as phase 16 trains smollm-135m, at full width and
+   depth (48 layers: 42 mLSTM, 6 sLSTM; d_model 2048, 4 heads of 512,
+   sLSTM width 2048, vocab 50,304, bf16, 1.03 B seeded weights) at the
+   train_4k shape (seq 4,096, accum 4 uncut) with the global batch cut
+   from 256 to 8, 2 a microbatch (printed): mlstm_chunkwise must launch
+   336 times a step (forward and remat recompute), mlstm_chunkwise_bwd
+   168, slstm_scan 48 and slstm_scan_bwd 24 (expected_train_launches),
+   nothing else; their first calls held to their plain versions within
+   xlstm_tol / xlstm_bwd_tol and timed; the checkpoint restored bit for
+   bit; a peak past XLSTM_TRAIN_PEAK_GB = 70 GB fails. The bound adds the
+   cells' f32 operations at the f32 peak to the products' at the bf16
+   peak. Then one step on 2 x 255 tokens, a step a position: mlstm_step
+   twice and mlstm_step_bwd once a position and mLSTM layer, slstm_scan
+   12 and slstm_scan_bwd 6, nothing else; mlstm_step_bwd's first call
+   held to its plain version and timed.
 
-Phases 5, 7 and 19 (a decode step), 5b, 8 and 20 (a prefill) and 16, 17
-and 22 (a train step) also count the calls of models/lm.py's _sigmoid and
+Phases 5, 7 and 19 (a decode step), 5b, 8 and 20 (a prefill) and 16, 17,
+22 and 24 (a train step) also count the calls of models/lm.py's _sigmoid and
 _silu (JAX's expansions, each op rounded in the input's type: ROADMAP C1)
 by shape and print their time against torch.sigmoid's and F.silu's on
 inputs of the same shapes (`ActivationCalls`).
@@ -484,6 +515,14 @@ QUICKSTART_SAME = ("[rdma]", "[rpc ]", "[model]", "[auto ] insert+find ok=")
 # (a zero-initialized norm leaf has a scale of about lr after two steps);
 # a gradient of the other sign would move it by 2 lr = 2e-3
 TRAIN_CHECK_TOL = dict(loss_rtol=1e-5, weight_rtol=1e-4)
+# phase 18's odd step of reduced xlstm-1.3b (63 tokens, a step a
+# position): its grad norm is held within 5e-4 of the CPU's. That path's
+# gradient is ill-conditioned in f32: on the CPU, a relative 1e-7 change
+# of every weight moves the grad norm by 4.1e-5 (the even steps' by 7e-6),
+# and the card's kernels, each within its limit of its plain version on
+# every call, gave 1.1e-4. A step backward that drops the dm or dn carry
+# moves it by 4.6e-3 and 4.8e-3, one that halves df by 1.1e-3.
+XLSTM_ODD_GNORM_RTOL = 5e-4
 # phases 19-21: xlstm-1.3b served at full width with decode_32k's batch of
 # 128 uncut (its state does not grow with context: 176 MB a sequence), 256
 # prompt tokens and 64 generated as phases 5 and 7; its prefill step at
@@ -503,6 +542,25 @@ XLSTM_STEPS = 48
 # version, a Python loop of about a dozen launches a step (seconds at
 # 32,768 steps), is timed on one call
 XLSTM_KERNELS = ("mlstm_chunkwise", "mlstm_step", "slstm_scan")
+# their backwards (B15-B17), held within kernels/ref.py xlstm_bwd_tol and
+# timed as the forwards (slstm_scan_bwd's plain version, autograd through
+# the plain scan, on one call)
+XLSTM_BWD_KERNELS = ("mlstm_chunkwise_bwd", "mlstm_step_bwd",
+                     "slstm_scan_bwd")
+# phase 24: xlstm-1.3b trained at full width and depth (48 layers: 42
+# mLSTM, 6 sLSTM; 1.03 B bf16 weights) at the train_4k shape (seq 4,096,
+# accum 4 uncut) with the global batch cut from 256 to 8, 2 a microbatch
+# (at 256 a microbatch of 64 sequences takes 26 GB of f32 logits and its
+# mLSTM layers' chunk states 8.6 GB a layer); XLSTM_TRAIN_PEAK_GB is the
+# peak that batch was chosen for (a peak past it fails phase 24). Then one
+# step on XLSTM_ODD (2 x 255 tokens, accum 1): a step a position, B13 and
+# B16 at full width
+XLSTM_TRAIN = dict(shape="train_4k", seq_len=4096, accum=4, batch=8,
+                   shape_batch=256)
+XLSTM_TRAIN_PEAK_GB = 70
+XLSTM_ODD = dict(batch=2, seq_len=255)
+XLSTM_TRAIN_KERNELS = ("mlstm_chunkwise", "mlstm_chunkwise_bwd",
+                       "slstm_scan", "slstm_scan_bwd")
 SLSTM_ERR_AT = (0, 1000, 10000)     # positions (and the last) printed
 # written before each timed call: > the 50 MB L2, and about 0.3 ms of
 # work, so the host has launched the timed call before the card reaches it
@@ -805,6 +863,13 @@ KERNELS = {
                    "src/repro/models/lm.py:830"),
     "slstm_scan": ("src/repro_torch/kernels/csrc/slstm.cu",
                    "src/repro/models/lm.py:883"),
+    # no TPU counterparts: JAX differentiates its jnp cells with autodiff
+    "mlstm_chunkwise_bwd": ("src/repro_torch/kernels/csrc/mlstm.cu",
+                            "src/repro/models/lm.py:755"),
+    "mlstm_step_bwd": ("src/repro_torch/kernels/csrc/mlstm.cu",
+                       "src/repro/models/lm.py:830"),
+    "slstm_scan_bwd": ("src/repro_torch/kernels/csrc/slstm.cu",
+                       "src/repro/models/lm.py:883"),
 }
 # the kernels each main path runs (phase 2, phase 5, phase 7; a prefill's
 # come from expected_prefill_launches)
@@ -820,7 +885,11 @@ XLSTM_DECODE_KERNELS = ("mlstm_step", "slstm_scan")
 # the model kernels: their plain versions are timed as the kernels are
 # (cold, 10 calls; slstm_scan's once); the data structures' serial walks
 # once
-FLOAT_KERNELS = MODEL_KERNELS + RGEMMA_TRAIN_KERNELS + XLSTM_KERNELS
+FLOAT_KERNELS = (MODEL_KERNELS + RGEMMA_TRAIN_KERNELS + XLSTM_KERNELS
+                 + XLSTM_BWD_KERNELS)
+# the plain versions timed on one call: Python loops of a dozen launches a
+# step (seconds over thousands of steps)
+ONCE_KERNELS = ("slstm_scan", "slstm_scan_bwd")
 # why a kernel's row has no library time
 NO_LIBRARY = {
     "amo_apply": "no single PyTorch call",
@@ -836,6 +905,9 @@ NO_LIBRARY = {
                        "computes a chunkwise mLSTM",
     "mlstm_step": "no TPU counterpart; no single PyTorch call",
     "slstm_scan": "no TPU counterpart; PyTorch has no eager sLSTM scan",
+    "mlstm_chunkwise_bwd": "none: no single PyTorch call",
+    "mlstm_step_bwd": "none: no single PyTorch call",
+    "slstm_scan_bwd": "none: no single PyTorch call",
 }
 
 
@@ -855,7 +927,10 @@ def wrappers():
             "rg_lru_scan": krg.rg_lru_scan,
             "rg_lru_scan_bwd": krg.rg_lru_scan_bwd,
             "mlstm_chunkwise": kx.mlstm_chunkwise,
-            "mlstm_step": kx.mlstm_step, "slstm_scan": kx.slstm_scan}
+            "mlstm_step": kx.mlstm_step, "slstm_scan": kx.slstm_scan,
+            "mlstm_chunkwise_bwd": kx.mlstm_chunkwise_bwd,
+            "mlstm_step_bwd": kx.mlstm_step_bwd,
+            "slstm_scan_bwd": kx.slstm_scan_bwd}
 
 
 def plain_versions():
@@ -867,7 +942,8 @@ def plain_versions():
         "flash_attention_bwd": kref.flash_bwd,
         "rg_lru_scan": kref.rg_lru_scan,
         "rg_lru_scan_bwd": kref.rg_lru_scan_bwd} | {
-        name: getattr(kref, name) for name in XLSTM_KERNELS}
+        name: getattr(kref, name) for name in XLSTM_KERNELS
+        + XLSTM_BWD_KERNELS}
 
 
 def plain_mha(q, k, v, return_lse=False, **kw):
@@ -1157,6 +1233,8 @@ def kernel_err(name: str, got, want, what: str):
         return decode_err(got, want, what)
     if name in XLSTM_KERNELS:
         return xlstm_err(name, got, want, what)
+    if name in XLSTM_BWD_KERNELS:
+        return xlstm_bwd_err(name, got, want, what)
     if name == "flash_attention" and isinstance(got, tuple):
         try:
             torch.testing.assert_close(got[1], want[1], **LSE_TOL)
@@ -1230,6 +1308,27 @@ def xlstm_err(name: str, got, want, what: str) -> float:
     return max(errs)
 
 
+def xlstm_bwd_err(name: str, got, want, what: str) -> float:
+    """Each gradient of an xLSTM backward within kernels/ref.py
+    xlstm_bwd_tol of the plain version's (raises otherwise). Returns the
+    largest abs error."""
+    import torch
+    from repro_torch.kernels import ref as kref
+    terms, errs = kref.xlstm_bwd_terms(name, got), []
+    for part, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name} at {what}: output {part} {g.dtype} "
+                                 f"{tuple(g.shape)} against {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        try:
+            torch.testing.assert_close(g, w, **kref.xlstm_bwd_tol(w, terms))
+        except AssertionError as e:
+            raise AssertionError(f"{name} at {what}: output {part} != plain "
+                                 f"version: {e}") from None
+        errs.append(float((g - w).abs().max()) if g.numel() else 0.0)
+    return max(errs)
+
+
 def fresh(name: str, args) -> list:
     """The arguments of a call, with copies of the state mlstm_step
     updates in place (so that the kernel and the plain version, and each
@@ -1291,9 +1390,17 @@ def bound_flops(name: str, args, kw) -> tuple:
     if name == "mlstm_step":        # C' and q . C': 2 multiply-adds a C entry
         B, H, hd = args[0].shape
         return 4 * B * H * hd * hd, f32
-    if name == "slstm_scan":        # h_{t-1} rz: R^2 multiply-adds a step
+    if name in ("slstm_scan", "slstm_scan_bwd"):
+        # h_{t-1} rz, or gpre_{t+1} rz^T: R^2 multiply-adds a step
         B, S, R = args[0].shape
         return 2 * B * S * R * R, f32
+    if name == "mlstm_chunkwise_bwd":
+        return mlstm_bwd_flops(*args[0].shape), f32
+    if name == "mlstm_step_bwd":
+        # C' again, q . C', G = dC' + q g^T, G v, C' g, G^T k, G . C: 8
+        # multiply-adds a C entry
+        B, H, hd = args[0].shape
+        return 16 * B * H * hd * hd, f32
     return 0, f32
 
 
@@ -1306,6 +1413,18 @@ def mlstm_cell_flops(B: int, S: int, H: int, hd: int) -> int:
     from repro_torch.kernels import ref as kref
     c = kref.mlstm_chunk(S)
     return 4 * B * H * S * hd * hd + 2 * B * H * S * (c + 1) * hd
+
+
+def mlstm_bwd_flops(B: int, S: int, H: int, hd: int) -> int:
+    """The chunkwise mLSTM backward's f32 operations: 2 per multiply-add of
+    the five products with a chunk's state (its entering C, which no input
+    holds; the walk of dC over the chunk; C g for dq, dC' v for dk, dC'^T
+    k for dv: c hd^2 each a chunk) and of the five over its causal pairs s
+    <= t only (q k^T, dh v^T, E k, E^T q, S^T dh: c (c + 1) / 2 hd each a
+    chunk): 10 B H S hd^2 + 5 B H S (c + 1) hd, c = ref.mlstm_chunk(S)."""
+    from repro_torch.kernels import ref as kref
+    c = kref.mlstm_chunk(S)
+    return 10 * B * H * S * hd * hd + 5 * B * H * S * (c + 1) * hd
 
 
 def bound(name: str, args, kw, out) -> tuple:
@@ -1610,6 +1729,32 @@ def edge_cases(device) -> None:
             args[4] = args[4].to(torch.bfloat16)
         cases.append(("slstm_scan", kops.slstm_scan, kref.slstm_scan,
                       tuple(args), {}))
+    # the backwards B15-B17 on their lane cases (the forwards' outputs from
+    # the forward kernels on the card); B15 cut to segments also bit for bit
+    # against one segment; B17 twice the same bits
+    for name, lane in (("mlstm_chunkwise_bwd", lc.MLSTM_BWD_CASES),
+                       ("mlstm_step_bwd", lc.MLSTM_STEP_BWD_CASES),
+                       ("slstm_scan_bwd", lc.SLSTM_BWD_CASES)):
+        for case in lane:
+            cases.append((name, getattr(kops, name), getattr(kref, name),
+                          lc.xlstm_bwd_args(name, case, device), {}))
+    for case in lc.MLSTM_BWD_SEGMENT_CASES if device.type == "cuda" else ():
+        B_, S_, H_, hd_, carried, seg = case
+        args = lc.xlstm_bwd_args("mlstm_chunkwise_bwd",
+                                 (B_, S_, H_, hd_, carried, 1.0, 1.0), device)
+        got = kx.mlstm_chunkwise_bwd(
+            *args, state_bytes=2 * lc.mlstm_segment_bytes(case))
+        kernel_err("mlstm_chunkwise_bwd", got,
+                   kref.mlstm_chunkwise_bwd(*args), f"segment case {case}")
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got, kx.mlstm_chunkwise_bwd(*args))):
+            raise AssertionError(f"phase 1: mlstm_chunkwise_bwd in segments "
+                                 f"of {seg} chunks != one segment")
+    args = lc.xlstm_bwd_args("slstm_scan_bwd", (3, 300, 2048, True), device)
+    if not all(torch.equal(a, b) for a, b in zip(kops.slstm_scan_bwd(*args),
+                                                 kops.slstm_scan_bwd(*args))):
+        raise AssertionError("phase 1: slstm_scan_bwd called twice gave "
+                             "other bits")
     for B_, S_ in ((3, 300), (128, 1)):
         xs, st = lc.slstm_inputs(B_, S_, 2048, seed=5)
         args = [t(x, torch.float32) for x in (*xs, *st)]
@@ -1664,7 +1809,10 @@ HEADLINE = {"amo_apply": "ht rdma_unfused insert last",
             "txn_group_apply": "txn rdma_fused",
             "mlstm_chunkwise": "xlstm prefill",
             "mlstm_step": "xlstm-1.3b last step",
-            "slstm_scan": "xlstm prefill"}
+            "slstm_scan": "xlstm prefill",
+            "mlstm_chunkwise_bwd": "xlstm train",
+            "mlstm_step_bwd": "xlstm odd",
+            "slstm_scan_bwd": "xlstm train"}
 
 
 def live_count(name: str, args, kw) -> int:
@@ -1732,7 +1880,7 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
         out_k = kernel(*fresh(name, args), **kw)
         torch.cuda.synchronize()
         targs = fresh(name, args)   # the timings' (mlstm_step: a copy)
-        if name in FLOAT_KERNELS and name != "slstm_scan":
+        if name in FLOAT_KERNELS and name not in ONCE_KERNELS:
             out_p = plain(*fresh(name, args), **kw)
             plain_ms = cuda_ms_cold(lambda: plain(*targs, **kw), 10, flush)
         else:       # the serial walks and the sLSTM's step loop: once
@@ -1745,7 +1893,7 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
             plain_ms = t0.elapsed_time(t1)
         err = kernel_err(name, out_k, out_p, tag)
         reps = 20 if serial_chain(name, args) is not None else 100
-        if name in XLSTM_KERNELS:
+        if name in XLSTM_KERNELS + XLSTM_BWD_KERNELS:
             one = cuda_ms(lambda: kernel(*targs, **kw), 1)
             reps = max(3, min(reps, int(1000 / max(one, 1e-3))))
         ms = cuda_ms_cold(lambda: kernel(*targs, **kw), reps, flush)
@@ -1776,6 +1924,8 @@ def phase_captured(calls: dict, names, phase: int) -> dict:
             S = args[0].shape[1]
             extra = dict(us_per_step=ms * 1e3 / S,
                          drift=slstm_drift(out_k, out_p, S))
+        if name == "slstm_scan_bwd":
+            extra = dict(us_per_step=ms * 1e3 / args[0].shape[1])
         out_rms = (float(out_p.float().square().mean().sqrt())
                    if torch.is_tensor(out_p) and out_p.is_floating_point()
                    and out_p.numel() else None)
@@ -4634,7 +4784,10 @@ def expected_train_launches(cfg, S: int, accum: int) -> dict:
     and each call launches flash_attention twice (the forward and its
     recompute under remat) and flash_attention_bwd once; each RG-LRU
     layer rg_lru_scan twice and rg_lru_scan_bwd once; each MoE layer
-    moe_dispatch twice (once each without remat)."""
+    moe_dispatch twice (once each without remat); each mLSTM layer
+    mlstm_chunkwise twice and mlstm_chunkwise_bwd once at an even S > 1,
+    else mlstm_step twice and mlstm_step_bwd once a position; each sLSTM
+    layer slstm_scan twice and slstm_scan_bwd once."""
     kinds = [k for ks in cfg.layer_pattern() for k in ks] * cfg.n_groups
     chunks = min(8, S // 1024) if S > 2 * 1024 else 1
     fwd = 2 if cfg.remat else 1
@@ -4644,6 +4797,13 @@ def expected_train_launches(cfg, S: int, accum: int) -> dict:
             "rg_lru_scan": fwd * kinds.count("rglru") * accum,
             "rg_lru_scan_bwd": kinds.count("rglru") * accum,
             "moe_dispatch": fwd * kinds.count("moe") * accum}
+    n_m, n_s = kinds.count("mlstm") * accum, kinds.count("slstm") * accum
+    chunked = S > 1 and S % 2 == 0
+    want |= {"mlstm_chunkwise": fwd * n_m if chunked else 0,
+             "mlstm_chunkwise_bwd": n_m if chunked else 0,
+             "mlstm_step": 0 if chunked else fwd * n_m * S,
+             "mlstm_step_bwd": 0 if chunked else n_m * S,
+             "slstm_scan": fwd * n_s, "slstm_scan_bwd": n_s}
     return {name: n for name, n in want.items() if n}
 
 
@@ -4659,6 +4819,19 @@ def train_flops(model, B: int, S: int) -> tuple:
     n_expert = sum(p[0].numel() for p in model.parameters() if p.dim() == 3)
     _, attn, _ = prefill_flops(model, B, S)
     return 6 * (n_mat + cfg.top_k * n_expert) * B * S, 3.5 * attn
+
+
+def train_cell_flops(cfg, B: int, S: int) -> int:
+    """The xLSTM cells' f32 operations in one train step over B x S
+    tokens (no remat recompute): each mLSTM layer's chunkwise forward
+    (mlstm_cell_flops) and backward (mlstm_bwd_flops), each sLSTM layer's
+    recurrent products forward and back (2 R^2 a row and step each)."""
+    kinds = [k for ks in cfg.layer_pattern() for k in ks] * cfg.n_groups
+    R = cfg.rnn_width or cfg.d_model
+    return (kinds.count("mlstm") * (
+        mlstm_cell_flops(B, S, cfg.n_heads, cfg.hd)
+        + mlstm_bwd_flops(B, S, cfg.n_heads, cfg.hd))
+        + kinds.count("slstm") * 4 * B * S * R * R)
 
 
 def moe_drops(cfg, args, kw) -> dict:
@@ -4786,11 +4959,13 @@ def phase_train(cfg, seed: int, device, phase: int, tag: str, batch: int,
             f"choice) pairs ({moe['dropped_share']:.4f})")
     activations = acts.cost(device)
     log_activations(phase, "a train step", activations)
-    edge = bwd_edge_fault_rejected(
-        *capture.calls[("flash_attention_bwd", tag)], str(phase))
-    log(f"phase {phase}: the flash_attention_bwd limit rejects the "
-        f"{edge['edge']} one key short at the first call (on "
-        f"{edge['output']}, max abs err {edge['max_abs_err']:.6g})")
+    edge = None
+    if "flash_attention_bwd" in want:
+        edge = bwd_edge_fault_rejected(
+            *capture.calls[("flash_attention_bwd", tag)], str(phase))
+        log(f"phase {phase}: the flash_attention_bwd limit rejects the "
+            f"{edge['edge']} one key short at the first call (on "
+            f"{edge['output']}, max abs err {edge['max_abs_err']:.6g})")
     del capture
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
@@ -4825,6 +5000,7 @@ def phase_train(cfg, seed: int, device, phase: int, tag: str, batch: int,
     ckpt_s = time.perf_counter() - t0
     del fresh, fresh_opt
     mat_flops, attn_flops = train_flops(model, batch, seq)
+    cell_flops = train_cell_flops(cfg, batch, seq)
     report = dict(arch=cfg.name, layers=cfg.n_layers, batch=batch,
                   seq_len=seq, accum=accum, cut=cut,
                   params=sum(p.numel() for p in model.parameters()),
@@ -4834,8 +5010,10 @@ def phase_train(cfg, seed: int, device, phase: int, tag: str, batch: int,
                   tok_per_s=batch * seq / (step_ms / 1e3),
                   max_memory_allocated=max_mem, traced_s=traced_s,
                   matmul_flops=mat_flops, attention_flops=attn_flops,
+                  cell_flops=cell_flops,
                   bound_ms=(mat_flops + attn_flops)
-                  / PEAK_FLOPS["torch.bfloat16"] * 1e3,
+                  / PEAK_FLOPS["torch.bfloat16"] * 1e3
+                  + cell_flops / PEAK_FLOPS["torch.float32"] * 1e3,
                   profile=profile, limit_check=edge,
                   activations=activations, moe=moe,
                   checkpoint=dict(leaves=len(pairs), bytes=ckpt_bytes,
@@ -4846,14 +5024,15 @@ def phase_train(cfg, seed: int, device, phase: int, tag: str, batch: int,
 
 
 def phase_train_cpu_vs_gpu(seed: int, device) -> dict:
-    """Reduced smollm-135m, recurrentgemma-9b and deepseek-moe-16b in
-    float32, weights built once on the CPU and moved, TF32 off:
-    TRAIN_CHECK["steps"] steps of make_train_step on each device on the
-    same batches. Loss and grad norm of every step within
+    """Reduced smollm-135m, recurrentgemma-9b, deepseek-moe-16b and
+    xlstm-1.3b in float32, weights built once on the CPU and moved, TF32
+    off: TRAIN_CHECK["steps"] steps of make_train_step on each device on
+    the same batches. Loss and grad norm of every step within
     TRAIN_CHECK_TOL's loss_rtol, the weights after the last within its
     weight_rtol (relative, and of max(1, each leaf's largest magnitude)
     absolute); on the card the train kernels (moe_dispatch with them for
-    deepseek-moe-16b) must launch."""
+    deepseek-moe-16b) must launch. xlstm-1.3b then takes one step at an
+    odd length (xlstm_odd_cpu_vs_gpu)."""
     import torch
     from repro_torch.configs import registry
     from repro_torch.launch import steps
@@ -4863,7 +5042,8 @@ def phase_train_cpu_vs_gpu(seed: int, device) -> dict:
     out = {}
     for name, names in ((SMOLLM, TRAIN_KERNELS),
                         (RGEMMA, RGEMMA_TRAIN_KERNELS),
-                        (DS, TRAIN_KERNELS + ("moe_dispatch",))):
+                        (DS, TRAIN_KERNELS + ("moe_dispatch",)),
+                        (XLSTM, XLSTM_TRAIN_KERNELS)):
         cfg = registry.get(name).reduced()
         cpu = lm.init_lm(cfg, seed, "cpu")
         gpu = copy.deepcopy(cpu).to(device)
@@ -4871,7 +5051,7 @@ def phase_train_cpu_vs_gpu(seed: int, device) -> dict:
         toks = [torch.as_tensor(rng.integers(0, cfg.vocab, (
             c["accum"], c["batch"] // c["accum"], c["seq_len"])).astype(
                 np.int32)) for _ in range(c["steps"])]
-        metrics = {}
+        metrics, states = {}, {}
         for dev, model in (("cpu", cpu), ("gpu", gpu)):
             init_fn, train_step = steps.make_train_step(cfg, **c["lr"])
             opt = init_fn(model)
@@ -4880,6 +5060,7 @@ def phase_train_cpu_vs_gpu(seed: int, device) -> dict:
                 [float(x) for x in train_step(
                     model, opt, {"tokens": t.to(model.embed.device)},
                     i)[2].values()] for i, t in enumerate(toks)]
+            states[dev] = (model, opt, train_step)
             if dev == "gpu":
                 read_counts(names)
         if not np.allclose(metrics["gpu"], metrics["cpu"], atol=0,
@@ -4900,7 +5081,48 @@ def phase_train_cpu_vs_gpu(seed: int, device) -> dict:
         out[name] = dict(loss_gnorm_cpu=metrics["cpu"],
                          loss_gnorm_gpu=metrics["gpu"],
                          worst_weight_err_of_scale=worst)
+        if name == XLSTM:
+            out[name]["odd"] = xlstm_odd_cpu_vs_gpu(
+                states, torch.as_tensor(rng.integers(0, cfg.vocab, (
+                    c["accum"], c["batch"] // c["accum"],
+                    c["seq_len"] - 1)).astype(np.int32)), c["steps"], device)
     return out
+
+
+def xlstm_odd_cpu_vs_gpu(states: dict, toks, step: int, device) -> dict:
+    """Phase 18's odd step of reduced xlstm-1.3b (each position a step: B13
+    and B16) after its two steps, on the CPU, on the card, and on the card
+    with the xLSTM cells' plain versions standing in for the kernels (the
+    same code as the CPU's, summed in the card's order). The loss within
+    TRAIN_CHECK_TOL's loss_rtol of the CPU's; the grad norm within
+    XLSTM_ODD_GNORM_RTOL; B13 and B16 must launch. Returns the three
+    (loss, grad norm) and the card's relative grad norm errors."""
+    from repro_torch.kernels import ops as kops, ref as kref
+    (cpu, copt, cstep), (gpu, gopt, gstep) = states["cpu"], states["gpu"]
+    plain_gpu, plain_opt = copy.deepcopy(gpu), copy.deepcopy(gopt)
+    zero_counts()
+    got = {"gpu": gstep(gpu, gopt, {"tokens": toks.to(device)}, step)[2]}
+    read_counts(("mlstm_step", "mlstm_step_bwd"))
+    got["cpu"] = cstep(cpu, copt, {"tokens": toks}, step)[2]
+    names = XLSTM_KERNELS + XLSTM_BWD_KERNELS
+    saved = {n: getattr(kops, n) for n in names}
+    try:
+        for n in names:
+            setattr(kops, n, getattr(kref, n))
+        got["gpu plain"] = gstep(plain_gpu, plain_opt,
+                                 {"tokens": toks.to(device)}, step)[2]
+    finally:
+        for n, fn in saved.items():
+            setattr(kops, n, fn)
+    vals = {k: [float(x) for x in v.values()] for k, v in got.items()}
+    rel = {k: abs(vals[k][1] - vals["cpu"][1]) / vals["cpu"][1]
+           for k in ("gpu", "gpu plain")}
+    if (abs(vals["gpu"][0] - vals["cpu"][0])
+            > TRAIN_CHECK_TOL["loss_rtol"] * abs(vals["cpu"][0])
+            or rel["gpu"] > XLSTM_ODD_GNORM_RTOL):
+        raise AssertionError(f"phase 18: {XLSTM}'s odd step, loss and grad "
+                             f"norm: {vals} (grad norm errors {rel})")
+    return dict(loss_gnorm=vals, gnorm_rel=rel)
 
 
 def log_train(v: dict, card: str) -> None:
@@ -4911,7 +5133,8 @@ def log_train(v: dict, card: str) -> None:
         f"first step {v['first_s']:.2f} s captured), bound "
         f"{v['bound_ms']:.1f} ms ({v['matmul_flops'] / 1e12:.2f} TFLOP of "
         f"matrix products + {v['attention_flops'] / 1e12:.2f} of attention "
-        f"at the bf16 peak); peak memory "
+        f"at the bf16 peak + {v['cell_flops'] / 1e12:.2f} of the xLSTM "
+        f"cells at the f32 peak); peak memory "
         f"{v['max_memory_allocated'] / 1e9:.2f} GB ({card})")
     log(f"train {v['arch']}: losses {[round(x, 4) for x in v['losses']]}, "
         f"grad norms {[round(x, 4) for x in v['grad_norms']]}; launches a "
@@ -5006,6 +5229,94 @@ def phases_xlstm(seed: int, device, record, add_rows) -> tuple:
         f"{xl_check['decode_vs_forward']:.3e}); "
         f"{time.perf_counter() - t0:.1f} s")
     return xv, xpf, xl_check
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: xlstm-1.3b's train step at full width and depth
+# ---------------------------------------------------------------------------
+def xlstm_train_cut(cfg) -> str:
+    """Phase 24's cut of the train_4k shape, as printed."""
+    d = XLSTM_TRAIN
+    micro = d["shape_batch"] // d["accum"]
+    return (f"global batch {d['shape_batch']} -> {d['batch']} "
+            f"({d['batch'] // d['accum']} a microbatch) of the {d['shape']} "
+            f"shape (seq {d['seq_len']}, accum {d['accum']} uncut): at "
+            f"{d['shape_batch']} a microbatch of {micro} sequences takes "
+            f"{micro * d['seq_len'] * cfg.vocab_padded * 4 / 1e9:.0f} GB of "
+            f"f32 logits and {micro * d['seq_len'] // 128 * cfg.n_heads * cfg.hd ** 2 * 4 / 1e9:.1f} "
+            f"GB of chunk states a mLSTM layer; depth ({cfg.n_layers} "
+            f"layers) and width uncut")
+
+
+def xlstm_odd_step(cfg, seed: int, device, record, add_rows) -> dict:
+    """One make_train_step step (AdamW) of xlstm-1.3b at full width on
+    XLSTM_ODD's 2 x 255 tokens (accum 1): each position is one step, so
+    B13 and B16 run at full width. Counts zeroed before and read after:
+    mlstm_step twice and mlstm_step_bwd once a position and mLSTM layer,
+    slstm_scan twice and slstm_scan_bwd once an sLSTM layer, nothing else;
+    loss and grad norm finite; B16's first call held to its plain version
+    and timed (phase_captured)."""
+    import math
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    B, S = XLSTM_ODD["batch"], XLSTM_ODD["seq_len"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    model = lm.init_lm(cfg, seed, device)
+    init_fn, train_step = steps.make_train_step(cfg, **TRAIN_LR)
+    opt = init_fn(model)
+    toks = torch.as_tensor(np.random.default_rng(seed + 24).integers(
+        0, cfg.vocab, (1, B, S)).astype(np.int32)).to(device)
+    want = expected_train_launches(cfg, S, 1)
+    with Capture() as capture:
+        capture.mark("xlstm odd")
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = train_step(model, opt, {"tokens": toks}, 0)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        counts = read_counts(tuple(want))
+    if any(counts[n] != want.get(n, 0) for n in counts):
+        raise AssertionError(f"phase 24: the odd step launched {counts}, "
+                             f"want {want}")
+    loss, gn = float(m["loss"]), float(m["grad_norm"])
+    if not (math.isfinite(loss) and math.isfinite(gn)):
+        raise AssertionError(f"phase 24: the odd step's loss {loss} grad "
+                             f"norm {gn}")
+    record("phase 24 odd", counts, tuple(want))
+    peak = torch.cuda.max_memory_allocated(device)
+    del model, opt
+    torch.cuda.empty_cache()
+    add_rows(phase_captured(capture.calls, ("mlstm_step_bwd",), 24))
+    return dict(batch=B, seq_len=S, launches=want, step_s=step_s,
+                loss=loss, grad_norm=gn, max_memory_allocated=peak)
+
+
+def phase_xlstm_train(seed: int, device, record, add_rows) -> dict:
+    """Phase 24: xlstm-1.3b at full width and depth through phase_train
+    (XLSTM_TRAIN: 8 x 4,096 tokens a step in 4 microbatches, AdamW, remat
+    per layer): mlstm_chunkwise 336, mlstm_chunkwise_bwd 168, slstm_scan
+    48 and slstm_scan_bwd 24 launches a step (expected_train_launches),
+    nothing else; the first calls held to their plain versions and timed;
+    the checkpoint restored bit for bit; a peak past XLSTM_TRAIN_PEAK_GB
+    fails. Then xlstm_odd_step. Returns the report."""
+    from repro_torch.configs import registry
+    cfg = registry.get(XLSTM)
+    d = XLSTM_TRAIN
+    tr, rows = phase_train(cfg, seed, device, 24, "xlstm train", d["batch"],
+                           d["seq_len"], d["accum"], xlstm_train_cut(cfg))
+    add_rows(rows)
+    record("phase 24", tr["launches"], tuple(tr["launches"]))
+    peak_gb = tr["max_memory_allocated"] / 1e9
+    if peak_gb > XLSTM_TRAIN_PEAK_GB:
+        raise AssertionError(
+            f"phase 24: peak {peak_gb:.2f} GB at {d['batch']} x "
+            f"{d['seq_len']} tokens is past XLSTM_TRAIN_PEAK_GB = "
+            f"{XLSTM_TRAIN_PEAK_GB}: cut XLSTM_TRAIN's batch to 4, accum 2")
+    tr["odd"] = xlstm_odd_step(cfg, seed, device, record, add_rows)
+    return tr
 
 
 # ---------------------------------------------------------------------------
@@ -5538,15 +5849,20 @@ def main() -> int:
 
     t0 = time.perf_counter()
     train_check = phase_train_cpu_vs_gpu(args.seed, device)
+    odd = train_check[XLSTM]["odd"]
     log(f"phase 18: {TRAIN_CHECK['steps']} train steps of reduced "
-        f"{SMOLLM}, {RGEMMA} and {DS} (f32) equal CPU vs GPU within "
+        f"{SMOLLM}, {RGEMMA}, {DS} and {XLSTM} (f32) equal CPU vs GPU within "
         f"{TRAIN_CHECK_TOL}: " + "; ".join(
             f"{n}: loss, grad norm CPU {v['loss_gnorm_cpu']} GPU "
             f"{v['loss_gnorm_gpu']}, worst weight error "
             f"{v['worst_weight_err_of_scale']:.3e} of max(1, its leaf's "
             f"scale)"
             for n, v in train_check.items())
-        + f"; {time.perf_counter() - t0:.1f} s")
+        + f"; {XLSTM}'s odd step (a step a position) loss and grad norm "
+        f"{odd['loss_gnorm']}, grad norm error of the card's kernels "
+        f"{odd['gnorm_rel']['gpu']:.3e} (limit {XLSTM_ODD_GNORM_RTOL}), of "
+        f"the plain versions on the card {odd['gnorm_rel']['gpu plain']:.3e}"
+        f"; {time.perf_counter() - t0:.1f} s")
 
     xv, xpf, xl_check = phases_xlstm(args.seed, device, record, add_rows)
     torch.cuda.empty_cache()
@@ -5595,6 +5911,20 @@ def main() -> int:
         f"{exch['fused_find']}, rpc insert {exch['rpc_insert']}, rpc find "
         f"{exch['rpc_find']}: the table's; {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    tr24 = phase_xlstm_train(args.seed, device, record, add_rows)
+    odd = tr24["odd"]
+    log(f"phase 24: launches {tr24['launches_per_step']} a step (the "
+        f"formula) in each of {len(tr24['losses'])} steps; losses and grad "
+        f"norms finite; the checkpoint restored bit for bit; peak "
+        f"{tr24['max_memory_allocated'] / 1e9:.2f} GB (limit "
+        f"{XLSTM_TRAIN_PEAK_GB}); the odd step on {odd['batch']} x "
+        f"{odd['seq_len']} tokens launched {odd['launches']} in "
+        f"{odd['step_s']:.2f} s, loss {odd['loss']:.4f}, grad norm "
+        f"{odd['grad_norm']:.4f}, peak "
+        f"{odd['max_memory_allocated'] / 1e9:.2f} GB; "
+        f"{time.perf_counter() - t0:.1f} s")
+
     for arm in ARMS:
         r = report[arm]
         log(f"median ms per batch, hash table {arm}: insert "
@@ -5633,11 +5963,12 @@ def main() -> int:
     report["serve_rgemma"] = rv
     report["prefill"] = pf
     report["rgemma_cpu_vs_gpu"] = rg_check
-    for v in (tr16, tr17, tr22):
+    for v in (tr16, tr17, tr22, tr24):
         log_train(v, card)
     report["train_smollm"] = tr16
     report["train_rgemma"] = tr17
     report["train_deepseek"] = tr22
+    report["train_xlstm"] = tr24
     report["compression"] = comp23
     report["quickstart"] = quick
     report["exchanges"] = exch

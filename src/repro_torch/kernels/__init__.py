@@ -11,7 +11,8 @@
 #   rg_lru_scan, rg_lru_scan_bwd — the RG-LRU block's gated linear
 #     recurrence and its backward
 #   mlstm_chunkwise, mlstm_step, slstm_scan — the xLSTM cells (the mLSTM
-#     over a sequence and one step, the sLSTM recurrence)
+#     over a sequence and one step, the sLSTM recurrence), and their
+#     backwards mlstm_chunkwise_bwd, mlstm_step_bwd, slstm_scan_bwd
 from . import ops, ref
 
 __all__ = ["ops", "ref"]

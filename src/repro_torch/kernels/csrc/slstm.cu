@@ -1,10 +1,13 @@
 // slstm.cu — the xLSTM sLSTM recurrence on Hopper (kernel B14,
-// slstm_scan).
+// slstm_scan) and its backward (kernel B17, slstm_scan_bwd).
 //
-// Replaces no Pallas kernel: the JAX package scans the cell in jnp
-// (repro/models/lm.py slstm_block, :864-908). It was added because the
-// scan as eager PyTorch is about 12 launches a step, and the prefill of
-// xlstm-1.3b makes 6 layers x 32,768 steps. The contract is that of
+// Neither replaces a Pallas kernel: the JAX package scans the cell in jnp
+// (repro/models/lm.py slstm_block, :864-908) and differentiates the scan
+// with autodiff. B14 was added because the scan as eager PyTorch is about
+// 12 launches a step, and the prefill of xlstm-1.3b makes 6 layers x
+// 32,768 steps; B17 because its autograd is twice that. B17 is bound as
+// B14 (2 R^2 f32 operations a row and step, gpre_{t+1} rz^T) and is a
+// chain like it: its design is B14's chain run backwards (see below). The contract is that of
 // repro_torch/kernels/ref.py slstm_scan: z, i, f, o (B, S, R) f32
 // contiguous (pre-activations; o the output gate), rz (R, R) bf16 or f32,
 // the state c0, n0, h0, m0 (B, R) f32. Per step t and column j:
@@ -119,13 +122,31 @@ __device__ __forceinline__ Gate gate_terms(float it, float ft, float m) {
   return {m_new, expf(it - m_new), expf(lf + m - m_new)};
 }
 
-// One (row, step) of the cell from pre = (h_{t-1} rz)_j; updates c and n.
+// d max(a, b) / da with JAX's (and torch.maximum's) halves at a tie
+__device__ __forceinline__ float tie_share(float a, float b) {
+  return a > b ? 1.f : (a == b ? 0.5f : 0.f);
+}
+
+// One (row, step) of the cell from pre = (h_{t-1} rz)_j; updates c and n
+// and gives tanh(z + pre) in zz.
 __device__ __forceinline__ float cell(float zt, float ot, float pre, Gate g,
-                                      float& c, float& n) {
-  const float zz = tanhf(zt + pre);
+                                      float& c, float& n, float& zz) {
+  zz = tanhf(zt + pre);
   c = g.fg * c + g.ig * zz;
   n = g.fg * n + g.ig;
   return ot * c / fmaxf(n, 1.f);
+}
+
+// Under grad the forward keeps each step's c, n, m' and zz, (4, B, S, R)
+// (`kept`, null otherwise), for the backward (B17).
+__device__ __forceinline__ void keep_step(float* kept, long long at,
+                                          long long BSR, float c, float n,
+                                          float m, float zz) {
+  if (kept == nullptr) return;
+  kept[at] = c;
+  kept[BSR + at] = n;
+  kept[2 * BSR + at] = m;
+  kept[3 * BSR + at] = zz;
 }
 
 // ---------------------------------------------------------------------------
@@ -147,7 +168,8 @@ slstm_chain_kernel(const float* __restrict__ z, const float* __restrict__ gi,
                    const float* __restrict__ m0, float* __restrict__ hs,
                    float* __restrict__ c_out, float* __restrict__ n_out,
                    float* __restrict__ h_out, float* __restrict__ m_out,
-                   unsigned long long* ring, int B, long long S, int R) {
+                   float* __restrict__ kept, unsigned long long* ring, int B,
+                   long long S, int R) {
   constexpr int kRows = kGroups * RPG;           // rows of h kept (>= R)
   constexpr int kPer = (RPG + 15) / 16;          // rows a thread polls
   extern __shared__ __align__(16) float smem[];
@@ -276,10 +298,11 @@ slstm_chain_kernel(const float* __restrict__ z, const float* __restrict__ gi,
                            ((p1.x + p1.y) + (p1.z + p1.w))) +
                           (((p2.x + p2.y) + (p2.z + p2.w)) +
                            ((p3.x + p3.y) + (p3.z + p3.w)));
-        float c = cs[sidx], n = ns[sidx];
-        const float h = cell(gates.x, gates.w, pre, g, c, n);
+        float c = cs[sidx], n = ns[sidx], zz;
+        const float h = cell(gates.x, gates.w, pre, g, c, n, zz);
         const long long b = b0 + bb_cell;
         if (t + 1 < S) publish(slot_out + b * R + j, h, tag_out);
+        keep_step(kept, b * RS + t * R + j, B * RS, c, n, g.m_new, zz);
         cs[sidx] = c;
         ns[sidx] = n;
         ms[sidx] = g.m_new;
@@ -315,8 +338,8 @@ cudaError_t launch_chain(const float* z, const float* i, const float* f,
                          const float* o, const T* rz, const float* c0,
                          const float* n0, const float* h0, const float* m0,
                          float* hs, float* c, float* n, float* h, float* m,
-                         unsigned long long* ring, int B, long long S, int R,
-                         cudaStream_t st) {
+                         float* kept, unsigned long long* ring, int B,
+                         long long S, int R, cudaStream_t st) {
   const size_t smem = chain_smem<RPG>(B);
   cudaError_t err = cudaFuncSetAttribute(
       slstm_chain_kernel<T, RPG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -327,7 +350,7 @@ cudaError_t launch_chain(const float* z, const float* i, const float* f,
   if (err != cudaSuccess) return err;
   const dim3 grid((R + kCols - 1) / kCols), block(kThreads);
   void* args[] = {&z, &i, &f, &o, &rz, &c0, &n0, &h0, &m0, &hs, &c, &n,
-                  &h, &m, &ring, &B, &S, &R};
+                  &h, &m, &kept, &ring, &B, &S, &R};
   return cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(slstm_chain_kernel<T, RPG>), grid, block,
       args, smem, st);
@@ -337,14 +360,14 @@ template <typename T>
 cudaError_t chain(const float* z, const float* i, const float* f,
                   const float* o, const T* rz, const float* c0,
                   const float* n0, const float* h0, const float* m0, float* hs,
-                  float* c, float* n, float* h, float* m,
+                  float* c, float* n, float* h, float* m, float* kept,
                   unsigned long long* ring, int B, long long S, int R,
                   cudaStream_t st) {
   switch (chain_rpg(R)) {
 #define CHAIN_CASE(P)                                                        \
   case P:                                                                    \
     return launch_chain<T, P>(z, i, f, o, rz, c0, n0, h0, m0, hs, c, n, h, m, \
-                              ring, B, S, R, st);
+                              kept, ring, B, S, R, st);
     CHAIN_CASE(4)
     CHAIN_CASE(8)
     CHAIN_CASE(16)
@@ -379,8 +402,8 @@ slstm_step_kernel(const float* __restrict__ z, const float* __restrict__ gi,
                   const float* __restrict__ n0, const float* __restrict__ h0,
                   const float* __restrict__ m0, float* __restrict__ hs,
                   float* __restrict__ c_out, float* __restrict__ n_out,
-                  float* __restrict__ h_out, float* __restrict__ m_out, int B,
-                  int R) {
+                  float* __restrict__ h_out, float* __restrict__ m_out,
+                  float* __restrict__ kept, int B, int R) {
   extern __shared__ __align__(16) float step_smem[];
   const int part = threadIdx.x / kPart, t = threadIdx.x % kPart;
   const int tx = t % 16, ty = t / 16;            // cols tx*4.., rows ty*4..
@@ -474,8 +497,9 @@ slstm_step_kernel(const float* __restrict__ z, const float* __restrict__ gi,
       const long long at = static_cast<long long>(b) * R + jc;
       const float pre = (acc[r][c] + o[1][c]) + (o[2][c] + o[3][c]);
       const Gate g = gate_terms(gi[at], gf[at], m0[at]);
-      float cc = c0[at], nn = n0[at];
-      const float h = cell(z[at], go[at], pre, g, cc, nn);
+      float cc = c0[at], nn = n0[at], zz;
+      const float h = cell(z[at], go[at], pre, g, cc, nn, zz);
+      keep_step(kept, at, static_cast<long long>(B) * R, cc, nn, g.m_new, zz);
       hs[at] = h;
       c_out[at] = cc;
       n_out[at] = nn;
@@ -489,7 +513,8 @@ template <typename T>
 cudaError_t step(const float* z, const float* i, const float* f,
                  const float* o, const T* rz, const float* c0, const float* n0,
                  const float* h0, const float* m0, float* hs, float* c,
-                 float* n, float* h, float* m, int B, int R, cudaStream_t st) {
+                 float* n, float* h, float* m, float* kept, int B, int R,
+                 cudaStream_t st) {
   const size_t smem = sizeof(float) * kParts * kPartFloats;
   const cudaError_t err = cudaFuncSetAttribute(
       slstm_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -497,8 +522,248 @@ cudaError_t step(const float* z, const float* i, const float* f,
   if (err != cudaSuccess) return err;
   const dim3 grid((R + kStepN - 1) / kStepN, (B + kStepM - 1) / kStepM);
   slstm_step_kernel<T><<<grid, kParts * kPart, smem, st>>>(
-      z, i, f, o, rz, c0, n0, h0, m0, hs, c, n, h, m, B, R);
+      z, i, f, o, rz, c0, n0, h0, m0, hs, c, n, h, m, kept, B, R);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// B17: the backward, the chain run in reverse
+// ---------------------------------------------------------------------------
+// The chain of slstm_chain_kernel walked from t = S - 1 down to 0, with rz
+// transposed: block g owns indices j of [16 g, 16 g + 16) and thread (group
+// q, index c) holds row j of rz, columns [q RPG, q RPG + RPG), in registers.
+// Per step, gh_t = dhs_t + gpre_{t+1} rz^T (row b: gh_t[j] = sum_r
+// gpre_{t+1}[r] rz[j, r]; gpre_S = 0, and the final state's dh joins
+// gh_{S-1}) is formed from gpre_{t+1}, exchanged through the forward's ring
+// of tagged 8-byte words (the tag of iteration u = S - 1 - t), and the cell
+// steps back from the forward's kept c, n, m', zz (its c, n, m at t - 1 are
+// the entering ones; c0, n0, m0 at t = 0):
+//   do = gh c / N,  dc = dc' + gh o / N,  N = max(n, 1),
+//   dn = dn' + tie(n, 1) (-gh o c / N^2),
+//   dfg = dc c_{t-1} + dn n_{t-1},  dig = dc zz + dn,
+//   gpre_t = dz_t = dc ig (1 - zz^2),  (dc', dn') <- fg (dc, dn),
+//   dm' = dm'_{t+1} - dig ig - dfg fg, split at max(lf + m, i) (halves at a
+//   tie): di = dig ig + (1 - s) dm', dlf = dfg fg + s dm', dm = dlf,
+//   df = dlf sigmoid(-f).
+// gate_terms recomputes m', ig and fg as the forward formed them. Every sum
+// runs in one fixed order: a call gives the same bits every time.
+template <typename T, int RPG>
+__global__ void __launch_bounds__(kThreads, 1)
+slstm_chain_bwd_kernel(const float* __restrict__ gi,
+                       const float* __restrict__ gf,
+                       const float* __restrict__ go, const T* __restrict__ rz,
+                       const float* __restrict__ c0,
+                       const float* __restrict__ n0,
+                       const float* __restrict__ m0,
+                       const float* __restrict__ kept,
+                       const float* __restrict__ dhs,
+                       const float* __restrict__ dc_T,
+                       const float* __restrict__ dn_T,
+                       const float* __restrict__ dh_T,
+                       const float* __restrict__ dm_T, float* __restrict__ dz,
+                       float* __restrict__ di, float* __restrict__ df,
+                       float* __restrict__ dout, unsigned long long* ring,
+                       int B, long long S, int R) {
+  constexpr int kRows = kGroups * RPG;
+  constexpr int kPer = (RPG + 15) / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* gsm = smem;                             // kRowTile x kRows
+  float* part = gsm + kRowTile * kRows;  // 2 x kRowTile x kCols x kGroups
+  float* dcs = part + 2 * kRowTile * kCols * kGroups;  // B x kCols
+  float* dns = dcs + B * kCols;
+  float* dms = dns + B * kCols;
+  const int tid = threadIdx.x;
+  const int col = tid % kCols, grp = tid / kCols;
+  const int j0 = blockIdx.x * kCols;
+  const int j = j0 + col;
+  const bool jok = j < R;
+  const int row0 = grp * RPG;
+  float w[RPG];
+#pragma unroll
+  for (int r = 0; r < RPG; ++r)
+    w[r] = (jok && row0 + r < R)
+               ? widen(rz[static_cast<long long>(j) * R + row0 + r])
+               : 0.f;
+  for (int x = tid; x < kRowTile * kRows; x += kThreads) gsm[x] = 0.f;
+  for (int x = tid; x < B * kCols; x += kThreads) {
+    const int b = x / kCols, jj = j0 + x % kCols;
+    const long long at = static_cast<long long>(b) * R + jj;
+    const bool in = jj < R;
+    dcs[x] = in ? dc_T[at] : 0.f;
+    dns[x] = in ? dn_T[at] : 0.f;
+    dms[x] = in ? dm_T[at] : 0.f;
+  }
+  const int bb_cell = tid / kCols;
+  const bool cell_thread = tid < kRowTile * kCols && jok;
+  const long long RS = static_cast<long long>(R) * S;
+  const long long BSR = B * RS;
+  __syncthreads();
+  constexpr int kStride = RPG < 32 ? 1 : 16;
+  const int rbase = row0 + (tid & 15);
+  const bool polls = rbase - row0 < RPG && rbase < R;
+  int it = 0;
+  for (long long u = 0; u < S; ++u) {
+    const long long t = S - 1 - u;
+    const unsigned tag_in = u > 0 ? step_tag(u - 1) : 0u;
+    const unsigned tag_out = step_tag(u);
+    const long long BR = static_cast<long long>(B) * R;
+    const unsigned long long* slot_in = ring + ((u - 1) & 1) * BR;
+    unsigned long long* slot_out = ring + (u & 1) * BR;
+    for (int b0 = 0; b0 < B; b0 += kRowTile) {
+      const int nb = B - b0 < kRowTile ? B - b0 : kRowTile;
+      // the cell's inputs, loaded before the wait
+      const long long b = b0 + bb_cell;
+      const bool cell_live = cell_thread && bb_cell < nb;
+      const long long at = b * RS + t * R + j;
+      float x_dh = 0.f, x_o = 0.f, x_i = 0.f, x_f = 0.f, x_c = 0.f,
+            x_n = 0.f, x_zz = 0.f, x_cp = 0.f, x_np = 0.f, x_mp = 0.f;
+      if (cell_live) {
+        x_dh = dhs[at] + (u == 0 ? dh_T[b * R + j] : 0.f);
+        x_o = go[at];
+        x_i = gi[at];
+        x_f = gf[at];
+        x_c = kept[at];
+        x_n = kept[BSR + at];
+        x_zz = kept[3 * BSR + at];
+        if (t > 0) {
+          x_cp = kept[at - R];
+          x_np = kept[BSR + at - R];
+          x_mp = kept[2 * BSR + at - R];
+        } else {
+          x_cp = c0[b * R + j];
+          x_np = n0[b * R + j];
+          x_mp = m0[b * R + j];
+        }
+      }
+      // gpre_{t+1} of this group's rows, each row of the tile
+      for (int bb = 0; bb < nb; ++bb) {
+        const long long br = b0 + bb;
+        float* grow = gsm + bb * kRows;
+        if (!polls || u == 0) continue;   // gpre_S = 0: gsm stays zero
+        const unsigned long long* src = slot_in + br * R + rbase;
+        unsigned long long got[kPer];
+        for (unsigned spins = 0, wait = 1; wait; ++spins) {
+          if (spins == kMaxSpins) __trap();
+          wait = 0;
+#pragma unroll
+          for (int k = 0; k < kPer; ++k)
+            if (rbase + k * kStride < R) {
+              got[k] = peek(src + k * kStride);
+              wait |= static_cast<unsigned>(got[k] >> 32) != tag_in;
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < kPer; ++k)
+          if (rbase + k * kStride < R)
+            grow[rbase + k * kStride] =
+                __uint_as_float(static_cast<unsigned>(got[k]));
+      }
+      __syncwarp();
+      for (int bb = 0; bb < nb; ++bb) {
+        const float4* gv =
+            reinterpret_cast<const float4*>(gsm + bb * kRows + row0);
+        float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int q = 0; q < RPG / 4; ++q) {
+          const float4 g4 = gv[q];
+          float* s = a + 4 * (q & 1);
+          s[0] += g4.x * w[4 * q];
+          s[1] += g4.y * w[4 * q + 1];
+          s[2] += g4.z * w[4 * q + 2];
+          s[3] += g4.w * w[4 * q + 3];
+        }
+        part[((it & 1) * kRowTile + bb) * kCols * kGroups + col * kGroups +
+             grp] =
+            ((a[0] + a[4]) + (a[1] + a[5])) + ((a[2] + a[6]) + (a[3] + a[7]));
+      }
+      __syncthreads();
+      if (cell_live) {
+        const float4* p4 = reinterpret_cast<const float4*>(
+            part + ((it & 1) * kRowTile + bb_cell) * kCols * kGroups +
+            col * kGroups);
+        const float4 p0 = p4[0], p1 = p4[1], p2 = p4[2], p3 = p4[3];
+        const float rec = (((p0.x + p0.y) + (p0.z + p0.w)) +
+                           ((p1.x + p1.y) + (p1.z + p1.w))) +
+                          (((p2.x + p2.y) + (p2.z + p2.w)) +
+                           ((p3.x + p3.y) + (p3.z + p3.w)));
+        const int sidx = (b0 + bb_cell) * kCols + col;
+        const Gate g = gate_terms(x_i, x_f, x_mp);
+        const float gh = x_dh + rec;
+        const float N = fmaxf(x_n, 1.f);
+        const float dct = dcs[sidx] + gh * x_o / N;
+        const float dnt = dns[sidx] + tie_share(x_n, 1.f) *
+                                          (-(gh * x_o * x_c) / (N * N));
+        const float dfg = dct * x_cp + dnt * x_np;
+        const float dig = dct * x_zz + dnt;
+        const float gpre = dct * g.ig * (1.f - x_zz * x_zz);
+        if (t > 0) publish(slot_out + b * R + j, gpre, tag_out);
+        const float dm_new = dms[sidx] - dig * g.ig - dfg * g.fg;
+        const float sa = tie_share(log_sigmoid(x_f) + x_mp, x_i);
+        const float dlf = dfg * g.fg + sa * dm_new;
+        dcs[sidx] = dct * g.fg;
+        dns[sidx] = dnt * g.fg;
+        dms[sidx] = dlf;
+        dz[at] = gpre;
+        di[at] = dig * g.ig + (1.f - sa) * dm_new;
+        df[at] = dlf / (1.f + expf(x_f));
+        dout[at] = gh * x_c / N;
+      }
+      ++it;
+    }
+  }
+}
+
+template <typename T, int RPG>
+cudaError_t launch_chain_bwd(const float* i, const float* f, const float* o,
+                             const T* rz, const float* c0, const float* n0,
+                             const float* m0, const float* kept,
+                             const float* dhs, const float* dc_T,
+                             const float* dn_T, const float* dh_T,
+                             const float* dm_T, float* dz, float* di,
+                             float* df, float* dout,
+                             unsigned long long* ring, int B, long long S,
+                             int R, cudaStream_t st) {
+  const size_t smem = chain_smem<RPG>(B);
+  cudaError_t err = cudaFuncSetAttribute(
+      slstm_chain_bwd_kernel<T, RPG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(ring, 0, sizeof(unsigned long long) * 2 *
+                                     static_cast<size_t>(B) * R, st);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((R + kCols - 1) / kCols), block(kThreads);
+  void* args[] = {&i, &f, &o, &rz, &c0, &n0, &m0, &kept, &dhs, &dc_T,
+                  &dn_T, &dh_T, &dm_T, &dz, &di, &df, &dout, &ring, &B,
+                  &S, &R};
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(slstm_chain_bwd_kernel<T, RPG>), grid,
+      block, args, smem, st);
+}
+
+template <typename T>
+cudaError_t chain_bwd(const float* i, const float* f, const float* o,
+                      const T* rz, const float* c0, const float* n0,
+                      const float* m0, const float* kept, const float* dhs,
+                      const float* dc_T, const float* dn_T, const float* dh_T,
+                      const float* dm_T, float* dz, float* di, float* df,
+                      float* dout, unsigned long long* ring, int B,
+                      long long S, int R, cudaStream_t st) {
+  switch (chain_rpg(R)) {
+#define CHAIN_BWD_CASE(P)                                                   \
+  case P:                                                                   \
+    return launch_chain_bwd<T, P>(i, f, o, rz, c0, n0, m0, kept, dhs, dc_T, \
+                                  dn_T, dh_T, dm_T, dz, di, df, dout, ring, \
+                                  B, S, R, st);
+    CHAIN_BWD_CASE(4)
+    CHAIN_BWD_CASE(8)
+    CHAIN_BWD_CASE(16)
+    CHAIN_BWD_CASE(32)
+    CHAIN_BWD_CASE(64)
+    CHAIN_BWD_CASE(128)
+#undef CHAIN_BWD_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -519,15 +784,17 @@ extern "C" long long repro_slstm_scan_smem_bytes(int B, int R) {
 
 // B14: z, i, f, o (B, S, R) f32, rz (R, R) bf16 (rz_bf16 != 0) or f32, the
 // state c0, n0, h0, m0 (B, R) f32, all contiguous. Writes hs (B, S, R) and
-// the final c, n, h, m (B, R). S == 1: one step launch; S > 1: the chain,
-// with `ring` 2 B R 8-byte words of device memory, zeroed here first.
+// the final c, n, h, m (B, R), and, where `kept` is not null, each step's
+// c, n, m and tanh(z + h rz) into kept (4, B, S, R). S == 1: one step
+// launch; S > 1: the chain, with `ring` 2 B R 8-byte words of device
+// memory, zeroed here first.
 extern "C" int repro_slstm_scan(const void* z, const void* i, const void* f,
                                 const void* o, const void* rz, int rz_bf16,
                                 const void* c0, const void* n0,
                                 const void* h0, const void* m0, void* hs,
                                 void* c, void* n, void* h, void* m,
-                                void* ring, int B, long long S, int R,
-                                void* stream) {
+                                void* kept, void* ring, int B, long long S,
+                                int R, void* stream) {
   if (B <= 0 || S <= 0 || R <= 0) return static_cast<int>(cudaGetLastError());
   if (S > 1 && R > kMaxR) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -544,19 +811,52 @@ extern "C" int repro_slstm_scan(const void* z, const void* i, const void* f,
   float* nf = static_cast<float*>(n);
   float* hf = static_cast<float*>(h);
   float* mf = static_cast<float*>(m);
+  float* kf = static_cast<float*>(kept);
   auto* rg = static_cast<unsigned long long*>(ring);
   const auto* rzb = static_cast<const __nv_bfloat16*>(rz);
   const auto* rzf = static_cast<const float*>(rz);
   cudaError_t err;
   if (S == 1)
     err = rz_bf16 ? step(zf, i_, ff, of, rzb, c0f, n0f, h0f, m0f, hsf, cf, nf,
-                         hf, mf, B, R, st)
+                         hf, mf, kf, B, R, st)
                   : step(zf, i_, ff, of, rzf, c0f, n0f, h0f, m0f, hsf, cf, nf,
-                         hf, mf, B, R, st);
+                         hf, mf, kf, B, R, st);
   else
     err = rz_bf16 ? chain(zf, i_, ff, of, rzb, c0f, n0f, h0f, m0f, hsf, cf, nf,
-                          hf, mf, rg, B, S, R, st)
+                          hf, mf, kf, rg, B, S, R, st)
                   : chain(zf, i_, ff, of, rzf, c0f, n0f, h0f, m0f, hsf, cf, nf,
-                          hf, mf, rg, B, S, R, st);
+                          hf, mf, kf, rg, B, S, R, st);
+  return static_cast<int>(err);
+}
+
+// B17: the backward of B14 from the state it started at (c0, n0, m0; its
+// h0 takes no gradient here): i, f, o (B, S, R) f32, rz (R, R) bf16
+// (rz_bf16 != 0) or f32, B14's kept (4, B, S, R), dhs (B, S, R) and the
+// final state's gradients dc, dn, dh, dm (B, R), all contiguous; R <=
+// 2048, any S >= 1. Writes dz (the pre-activation's gradient, gpre), di,
+// df and do (B, S, R): one cooperative launch of the reverse chain, with
+// `ring` 2 B R 8-byte words, zeroed here first.
+extern "C" int repro_slstm_scan_bwd(
+    const void* i, const void* f, const void* o, const void* rz,
+    int rz_bf16, const void* c0, const void* n0, const void* m0,
+    const void* kept, const void* dhs, const void* dc, const void* dn,
+    const void* dh, const void* dm, void* dz, void* di, void* df, void* dout,
+    void* ring, int B, long long S, int R, void* stream) {
+  if (B <= 0 || S <= 0 || R <= 0) return static_cast<int>(cudaGetLastError());
+  if (R > kMaxR) return static_cast<int>(cudaErrorInvalidValue);
+  auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  auto fp = [](void* p) { return static_cast<float*>(p); };
+  auto* rg = static_cast<unsigned long long*>(ring);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      rz_bf16
+          ? chain_bwd(cf(i), cf(f), cf(o),
+                      static_cast<const __nv_bfloat16*>(rz), cf(c0), cf(n0),
+                      cf(m0), cf(kept), cf(dhs), cf(dc), cf(dn), cf(dh),
+                      cf(dm), fp(dz), fp(di), fp(df), fp(dout), rg, B, S, R,
+                      st)
+          : chain_bwd(cf(i), cf(f), cf(o), cf(rz), cf(c0), cf(n0), cf(m0),
+                      cf(kept), cf(dhs), cf(dc), cf(dn), cf(dh), cf(dm),
+                      fp(dz), fp(di), fp(df), fp(dout), rg, B, S, R, st);
   return static_cast<int>(err);
 }

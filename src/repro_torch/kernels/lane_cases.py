@@ -32,7 +32,10 @@ take their cases from `FLASH_BWD_CASES` and `RG_LRU_BWD_CASES` (inputs by
 kernels/ref.py's flash_bwd_tol, B11 bit for bit. The xLSTM kernels B12-B14
 take theirs from `MLSTM_CHUNK_CASES`, `MLSTM_STEP_CASES` and `SLSTM_CASES`
 (inputs by `mlstm_inputs` / `slstm_inputs`), within kernels/ref.py's
-xlstm_tol.
+xlstm_tol; their backwards B15-B17 from `MLSTM_BWD_CASES`,
+`MLSTM_BWD_SEGMENT_CASES`, `MLSTM_STEP_BWD_CASES` and `SLSTM_BWD_CASES`
+(cotangents by `mlstm_bwd_cotangents` / `slstm_bwd_cotangents`), within
+xlstm_bwd_tol.
 """
 from __future__ import annotations
 
@@ -833,3 +836,95 @@ def slstm_inputs(B: int, S: int, R: int, seed: int = 0):
     c, n, m = (rng.normal(size=(B, R)).astype(np.float32) for _ in range(3))
     h = (0.5 * rng.normal(size=(B, R))).astype(np.float32)
     return (z, i, f, o, rz), (c, n, h, m)
+
+
+# B15 mlstm_chunkwise_bwd: (B, S, H, hd, carried, q_scale, i_scale): one
+# chunk (S = 6), a ragged chunk (S = 200: 25 chunks of 8), three and 32
+# chunks of 128 at hd 512; q scaled (q_scale) so that |q . n| is mostly
+# above 1 (the normalizer divides) or kept mostly below it (q_scale 1: the
+# normalizer is 1 and h depends on the stabilizer); i scaled (i_scale) so
+# that the stabilizer's max moves between m and the gate logits
+MLSTM_BWD_CASES = [(1, 6, 2, 16, False, 1.0, 1.0),
+                   (3, 200, 2, 16, True, 1.0, 1.0),
+                   (3, 200, 2, 16, True, 30.0, 1.0),
+                   (1, 384, 4, 512, False, 1.0, 1.0),
+                   (2, 256, 4, 512, True, 8.0, 1.0),
+                   (1, 256, 4, 512, True, 1.0, 10.0),
+                   (2, 48, 2, 64, True, 1.0, 1.0),
+                   (1, 4096, 4, 512, True, 1.0, 1.0)]
+# B15 with its scratch cut to `seg` chunks a segment (state_bytes = 2 seg
+# B H hd^2 4, mlstm_segment_bytes doubled): the states entering the
+# segments recomputed in order, the gradient carried across them
+MLSTM_BWD_SEGMENT_CASES = [(1, 640, 4, 512, True, 2),
+                           (3, 200, 2, 16, True, 4)]
+# B16 mlstm_step_bwd: (B, H, hd, n_scale) from a carried state; n_scale >
+# 1 keeps |q . n'| above 1 (mlstm_inputs)
+MLSTM_STEP_BWD_CASES = [(1, 2, 16, 1.0), (3, 4, 512, 1.0),
+                        (16, 4, 512, 1.0), (3, 2, 16, 64.0),
+                        (2, 4, 128, 1.0)]
+# B17 slstm_scan_bwd: (B, S, R, rz in bf16): S = 1, short and ragged S, R
+# 64, 100 (a partial block of indices) and 2048, B 3 and 6 (two row tiles
+# of 4), rz in bf16 and f32, and 4,096 steps (the ring's tag wraps)
+SLSTM_BWD_CASES = [(1, 1, 64, False), (3, 37, 64, False),
+                   (2, 9, 100, False), (3, 20, 2048, False),
+                   (6, 50, 2048, True), (1, 300, 2048, True),
+                   (2, 4096, 2048, True)]
+
+
+def mlstm_bwd_inputs(B: int, S: int, H: int, hd: int, carried: bool,
+                     q_scale: float = 1.0, i_scale: float = 1.0):
+    """mlstm_inputs with q times q_scale and i times i_scale."""
+    (q, k, v, i, f), state = mlstm_inputs(B, S, H, hd, carried)
+    return (q * np.float32(q_scale), k, v, i * np.float32(i_scale), f), state
+
+
+def mlstm_bwd_cotangents(shapes):
+    """Unit normal f32 arrays of the given shapes, seeded by them: dh and
+    the left state's dC, dn, dm (the backwards' incoming gradients)."""
+    rng = np.random.default_rng([1, *[d for s in shapes for d in s]])
+    return tuple(rng.normal(size=s).astype(np.float32) for s in shapes)
+
+
+def slstm_bwd_cotangents(B: int, S: int, R: int):
+    """dhs (B, S, R) and the final state's dc, dn, dh, dm (B, R), unit
+    normal f32."""
+    return mlstm_bwd_cotangents([(B, S, R)] + [(B, R)] * 4)
+
+
+def xlstm_bwd_args(name: str, case, device) -> tuple:
+    """The arguments of the xLSTM backward `name` (mlstm_chunkwise_bwd,
+    mlstm_step_bwd, slstm_scan_bwd) on a case of its list, torch tensors
+    on `device`: the inputs, the forward's outputs that the kernel reads
+    (through kernels/ops.py: the forward kernel on the card) and the
+    cotangents."""
+    import torch
+    from . import ops
+
+    def t(x):
+        return torch.as_tensor(x).to(device)
+    if name == "mlstm_chunkwise_bwd":
+        B, S, H, hd = case[:4]
+        xs, st = mlstm_bwd_inputs(*case)
+        args = [t(x) for x in (*xs, *st)]
+        h, _, _, _, qn = ops.mlstm_chunkwise(*args, with_qn=True)
+        cts = mlstm_bwd_cotangents([(B, S, H, hd), (B, H, hd, hd), (B, H, hd),
+                                    (B, H)])
+        return (*args, h, qn, *map(t, cts))
+    if name == "mlstm_step_bwd":
+        B, H, hd, n_scale = case
+        xs, st = mlstm_inputs(B, 1, H, hd, True, n_scale=n_scale)
+        cts = mlstm_bwd_cotangents([(B, H, hd), (B, H, hd, hd), (B, H, hd),
+                                    (B, H)])
+        return (*(t(x[:, 0]) for x in xs), *map(t, st), *map(t, cts))
+    if name == "slstm_scan_bwd":
+        B, S, R, bf16 = case
+        xs, st = slstm_inputs(B, S, R)
+        z, i, f, o, rz = map(t, xs)
+        if bf16:
+            rz = rz.to(torch.bfloat16)
+        state = [t(x) for x in st]
+        hs, _, _, _, _, kept = ops.slstm_scan(z, i, f, o, rz, *state,
+                                              keep=True)
+        return (z, i, f, o, rz, *state, hs, kept,
+                *map(t, slstm_bwd_cotangents(B, S, R)))
+    raise ValueError(f"xlstm_bwd_args: {name!r} is not an xLSTM backward")

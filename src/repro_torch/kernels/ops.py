@@ -2,7 +2,7 @@
 included) and handler bodies of the data structures, and attention,
 decode attention, expert dispatch, the RG-LRU scan and the xLSTM cells
 (the chunkwise mLSTM, its step and the sLSTM scan) of the model, and the
-backwards of attention and of the RG-LRU scan.
+backwards of attention, of the RG-LRU scan and of the xLSTM cells.
 
 A CUDA tensor launches the hand-written kernel (inputs are made
 contiguous first, except the attention kernels' q, k, v, o and do and
@@ -158,15 +158,31 @@ def rg_lru_scan_bwd(a: Tensor, h: Tensor, h0: Optional[Tensor], dh: Tensor
 
 
 def mlstm_chunkwise(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
-                    C0: Tensor, n0: Tensor, m0: Tensor
-                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+                    C0: Tensor, n0: Tensor, m0: Tensor, with_qn: bool = False
+                    ) -> Tuple[Tensor, ...]:
     """The chunkwise mLSTM: q, k, v (B, S, H, hd), gate logits i, f (B, S,
     H), state C0 (B, H, hd, hd), n0 (B, H, hd), m0 (B, H), float32, in
-    chunks of ref.mlstm_chunk(S). Returns (h (B, S, H, hd), C, n, m)."""
+    chunks of ref.mlstm_chunk(S). Returns (h (B, S, H, hd), C, n, m), with
+    with_qn also the normalizers q . n (B, S, H) for the backward."""
     if q.is_cuda:
         return _xl.mlstm_chunkwise(*(x.contiguous() for x in (
-            q, k, v, i, f, C0, n0, m0)))
-    return ref.mlstm_chunkwise(q, k, v, i, f, C0, n0, m0)
+            q, k, v, i, f, C0, n0, m0)), with_qn=with_qn)
+    return ref.mlstm_chunkwise(q, k, v, i, f, C0, n0, m0, with_qn=with_qn)
+
+
+def mlstm_chunkwise_bwd(q: Tensor, k: Tensor, v: Tensor, i: Tensor,
+                        f: Tensor, C0: Tensor, n0: Tensor, m0: Tensor,
+                        h: Tensor, qn: Tensor, dh: Tensor, dC: Tensor,
+                        dn: Tensor, dm: Tensor
+                        ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The backward of mlstm_chunkwise: its inputs, its outputs h and qn
+    (with_qn), dh and the final state's gradients dC, dn, dm, float32.
+    Returns (dq, dk, dv, di, df)."""
+    if q.is_cuda:
+        return _xl.mlstm_chunkwise_bwd(*(x.contiguous() for x in (
+            q, k, v, i, f, C0, n0, m0, h, qn, dh, dC, dn, dm)))
+    return ref.mlstm_chunkwise_bwd(q, k, v, i, f, C0, n0, m0, h, qn, dh, dC,
+                                   dn, dm)
 
 
 def mlstm_step(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
@@ -181,13 +197,43 @@ def mlstm_step(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
     return ref.mlstm_step(q, k, v, i, f, C, n, m)
 
 
+def mlstm_step_bwd(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
+                   C: Tensor, n: Tensor, m: Tensor, dh: Tensor, dC: Tensor,
+                   dn: Tensor, dm: Tensor) -> Tuple[Tensor, ...]:
+    """The backward of one mLSTM step from the state (C, n, m) it entered:
+    dh (B, H, hd) and the left state's gradients dC, dn, dm, float32.
+    Returns (dq, dk, dv, di, df, dC, dn, dm), the last three the entering
+    state's."""
+    if q.is_cuda:
+        return _xl.mlstm_step_bwd(*(x.contiguous() for x in (
+            q, k, v, i, f, C, n, m, dh, dC, dn, dm)))
+    return ref.mlstm_step_bwd(q, k, v, i, f, C, n, m, dh, dC, dn, dm)
+
+
 def slstm_scan(z: Tensor, i: Tensor, f: Tensor, o: Tensor, rz: Tensor,
-               c0: Tensor, n0: Tensor, h0: Tensor, m0: Tensor
-               ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+               c0: Tensor, n0: Tensor, h0: Tensor, m0: Tensor,
+               keep: bool = False) -> Tuple[Tensor, ...]:
     """The sLSTM recurrence: z, i, f, o (B, S, R) float32, rz (R, R), the
     state c0, n0, h0, m0 (B, R) float32. Returns (hs (B, S, R), c, n, h,
-    m)."""
+    m), with keep also each step's (c, n, m, tanh(z + h rz)) (4, B, S, R)
+    for the backward."""
     if z.is_cuda:
         return _xl.slstm_scan(*(x.contiguous() for x in (
-            z, i, f, o, rz, c0, n0, h0, m0)))
-    return ref.slstm_scan(z, i, f, o, rz, c0, n0, h0, m0)
+            z, i, f, o, rz, c0, n0, h0, m0)), keep=keep)
+    return ref.slstm_scan(z, i, f, o, rz, c0, n0, h0, m0, keep=keep)
+
+
+def slstm_scan_bwd(z: Tensor, i: Tensor, f: Tensor, o: Tensor, rz: Tensor,
+                   c0: Tensor, n0: Tensor, h0: Tensor, m0: Tensor,
+                   hs: Tensor, kept: Tensor, dhs: Tensor, dc: Tensor,
+                   dn: Tensor, dh: Tensor, dm: Tensor
+                   ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The backward of slstm_scan: its inputs, its outputs hs and kept
+    (keep=True), dhs (B, S, R) and the final state's gradients dc, dn, dh,
+    dm (B, R), float32. Returns (dz, di, df, do); dz is the
+    pre-activation's gradient."""
+    if z.is_cuda:
+        return _xl.slstm_scan_bwd(*(x.contiguous() for x in (
+            z, i, f, o, rz, c0, n0, h0, m0, hs, kept, dhs, dc, dn, dh, dm)))
+    return ref.slstm_scan_bwd(z, i, f, o, rz, c0, n0, h0, m0, hs, kept, dhs,
+                              dc, dn, dh, dm)

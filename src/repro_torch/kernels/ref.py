@@ -19,6 +19,8 @@ across owners, so they are slow references, not fast paths.
 """
 from __future__ import annotations
 
+import math
+
 from typing import Tuple
 
 import torch
@@ -664,18 +666,25 @@ def mlstm_chunk(S: int, chunk: int = 128) -> int:
 
 
 def mlstm_chunkwise(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
-                    C0: Tensor, n0: Tensor, m0: Tensor
-                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+                    C0: Tensor, n0: Tensor, m0: Tensor, with_qn: bool = False
+                    ) -> Tuple[Tensor, ...]:
     """The chunkwise-parallel mLSTM of JAX's `_mlstm_chunkwise`
     (repro/models/lm.py), formula for formula: q, k, v (B, S, H, hd) f32
     (pre-scaled), the raw gate logits i, f (B, S, H) f32 and the state
     C0 (B, H, hd, hd), n0 (B, H, hd), m0 (B, H) f32, in chunks of
-    mlstm_chunk(S). Returns (h (B, S, H, hd), C, n, m), new tensors."""
+    mlstm_chunk(S). Returns (h (B, S, H, hd), C, n, m), new tensors; with
+    with_qn also each position's signed normalizer q . n (B, S, H), which
+    the backward kernel reads. Differentiable, with JAX's gradient: the
+    maxima split it in halves at a tie (torch.maximum, as jnp.maximum);
+    the cummax routes it to the latest position holding the running max
+    (torch.cummax's index; JAX's associative scan splits an exact tie of
+    rel values in its own proportions)."""
     B, S, H, hd = q.shape
     c = mlstm_chunk(S)
     C, n, m = C0, n0, m0
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
-    hs = []
+    one = torch.ones((), dtype=q.dtype, device=q.device)
+    hs, qns = [], []
     for lo in range(0, S, c):
         qc, kc, vc = q[:, lo:lo + c], k[:, lo:lo + c], v[:, lo:lo + c]
         ic, fc = i[:, lo:lo + c], f[:, lo:lo + c]
@@ -684,15 +693,20 @@ def mlstm_chunkwise(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
         rel = ic - F
         M = torch.maximum(m[:, None], torch.cummax(rel, dim=1).values)
         inter = torch.exp(m[:, None] - M)
-        d = torch.exp(rel[:, None] - M[:, :, None])            # (B, t, s, H)
-        d = torch.where(tri[None, :, :, None], d, 0.0)
+        # JAX's where(tri, exp(rel - M), 0), masked before the exp: the
+        # same values, and above the diagonal, where rel_s - M_t can pass
+        # 88.7 (128 positions of a forget gate near 0.5), a zero gradient
+        # instead of autodiff's 0 * exp(.) = 0 * inf = NaN
+        d = torch.exp(torch.where(tri[None, :, :, None],
+                                  rel[:, None] - M[:, :, None], -math.inf))
         scores = torch.einsum("bthd,bshd->btsh", qc, kc) * d
         num = (inter[..., None] * torch.einsum("bthd,bhde->bthe", qc, C)
                + torch.einsum("btsh,bshd->bthd", scores, vc))
         qn = (inter * torch.einsum("bthd,bhd->bth", qc, n)
               + torch.sum(scores, dim=2))
         den = torch.abs(qn)
-        hs.append(num / torch.clamp(den, min=1.0)[..., None])
+        hs.append(num / torch.maximum(den, one)[..., None])
+        qns.append(qn)
         M_end, F_end = M[:, -1], F[:, -1]
         w_end = torch.exp(rel - M_end[:, None])
         decay = torch.exp(m - M_end)
@@ -700,16 +714,18 @@ def mlstm_chunkwise(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
              + torch.einsum("bsh,bshd,bshe->bhde", w_end, kc, vc))
         n = decay[..., None] * n + torch.einsum("bsh,bshd->bhd", w_end, kc)
         m = F_end + M_end
-    return torch.cat(hs, dim=1), C, n, m
+    out = (torch.cat(hs, dim=1), C, n, m)
+    return out + (torch.cat(qns, dim=1),) if with_qn else out
 
 
-def mlstm_step(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
-               C: Tensor, n: Tensor, m: Tensor
-               ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """One mLSTM step, the `step` of JAX's mlstm_block: q, k, v (B, H, hd)
-    f32, i, f (B, H) f32 raw gate logits; the state C (B, H, hd, hd), n
-    (B, H, hd), m (B, H) f32 is updated in place. Returns (h (B, H, hd),
-    C, n, m)."""
+def mlstm_step_new(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
+                   C: Tensor, n: Tensor, m: Tensor
+                   ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """One mLSTM step, the `step` of JAX's mlstm_block, out of place: q,
+    k, v (B, H, hd) f32, i, f (B, H) f32 raw gate logits, the state C (B,
+    H, hd, hd), n (B, H, hd), m (B, H) f32. Returns (h (B, H, hd), C', n',
+    m'), new tensors; differentiable with JAX's gradient (the maxima split
+    it in halves at a tie)."""
     logf = torch.nn.functional.logsigmoid(f)
     m_new = torch.maximum(logf + m, i)
     ig = torch.exp(i - m_new)
@@ -719,7 +735,16 @@ def mlstm_step(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
     n_new = fg[..., None] * n + ig[..., None] * k
     num = torch.einsum("bhd,bhde->bhe", q, C_new)
     den = torch.abs(torch.einsum("bhd,bhd->bh", q, n_new))
-    h = num / torch.clamp(den, min=1.0)[..., None]
+    h = num / torch.maximum(den, torch.ones_like(den))[..., None]
+    return h, C_new, n_new, m_new
+
+
+def mlstm_step(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
+               C: Tensor, n: Tensor, m: Tensor
+               ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """mlstm_step_new with the state C, n, m updated in place (the decode
+    state's contract, kernel B13's). Returns (h (B, H, hd), C, n, m)."""
+    h, C_new, n_new, m_new = mlstm_step_new(q, k, v, i, f, C, n, m)
     C.copy_(C_new)
     n.copy_(n_new)
     m.copy_(m_new)
@@ -727,15 +752,20 @@ def mlstm_step(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
 
 
 def slstm_scan(z: Tensor, i: Tensor, f: Tensor, o: Tensor, rz: Tensor,
-               c0: Tensor, n0: Tensor, h0: Tensor, m0: Tensor
-               ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+               c0: Tensor, n0: Tensor, h0: Tensor, m0: Tensor,
+               keep: bool = False) -> Tuple[Tensor, ...]:
     """The sLSTM recurrence of JAX's slstm_block (its `step` scanned over
     the sequence): z, i, f (B, S, R) f32 pre-activations, o (B, S, R) f32
     output gates, rz (R, R) (cast to f32), the state c0, n0, h0, m0 (B, R)
-    f32. Returns (hs (B, S, R), c, n, h, m), new tensors."""
+    f32. Returns (hs (B, S, R), c, n, h, m), new tensors; with keep also
+    each step's (c, n, m, tanh(z + h rz)) stacked (4, B, S, R), which the
+    backward kernel reads. Differentiable with JAX's gradient: the maxima
+    split it in halves at a tie (n == 1 at the first step from a zero
+    state)."""
     rz = rz.float()
     c, n, hp, m = c0, n0, h0, m0
-    hs = torch.empty_like(z)
+    one = torch.ones((), dtype=z.dtype, device=z.device)
+    hs, kept = [], []
     for t in range(z.shape[1]):
         zz = torch.tanh(z[:, t] + hp @ rz)
         logf = torch.nn.functional.logsigmoid(f[:, t])
@@ -744,10 +774,67 @@ def slstm_scan(z: Tensor, i: Tensor, f: Tensor, o: Tensor, rz: Tensor,
         fg = torch.exp(logf + m - m_new)
         c = fg * c + ig * zz
         n = fg * n + ig
-        hp = o[:, t] * c / torch.clamp(n, min=1.0)
+        hp = o[:, t] * c / torch.maximum(n, one)
         m = m_new
-        hs[:, t] = hp
-    return hs, c, n, hp, m
+        hs.append(hp)
+        if keep:
+            kept.append(torch.stack((c, n, m, zz)))
+    out = (torch.stack(hs, dim=1), c, n, hp, m)
+    return out + (torch.stack(kept, dim=2),) if keep else out
+
+
+def _vjp(fn, xs, outs_grads):
+    """The gradients of fn's outputs, weighted by outs_grads (None: that
+    output is not used), with respect to the tensors xs, by autograd
+    through fn(*xs) on detached copies."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(True) for x in xs]
+        outs = fn(*xs)
+        pairs = [(o, g) for o, g in zip(outs, outs_grads) if g is not None]
+        grads = torch.autograd.grad([o for o, _ in pairs],
+                                    xs, [g for _, g in pairs],
+                                    allow_unused=True)
+    return tuple(torch.zeros_like(x) if g is None else g
+                 for x, g in zip(xs, grads))
+
+
+def mlstm_chunkwise_bwd(q: Tensor, k: Tensor, v: Tensor, i: Tensor,
+                        f: Tensor, C0: Tensor, n0: Tensor, m0: Tensor,
+                        h: Tensor, qn: Tensor, dh: Tensor, dC: Tensor,
+                        dn: Tensor, dm: Tensor
+                        ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The backward of mlstm_chunkwise with respect to q, k, v, i and f:
+    its inputs, its outputs h and qn (B, S, H) (with_qn; read by the
+    kernel, recomputed here), and the gradients dh (B, S, H, hd) and dC,
+    dn, dm of the final state. Returns (dq, dk, dv, di, df): autograd
+    through the plain forward, JAX's gradient (ties: mlstm_chunkwise)."""
+    return _vjp(lambda *xs: mlstm_chunkwise(*xs, C0, n0, m0),
+                (q, k, v, i, f), (dh, dC, dn, dm))
+
+
+def mlstm_step_bwd(q: Tensor, k: Tensor, v: Tensor, i: Tensor, f: Tensor,
+                   C: Tensor, n: Tensor, m: Tensor, dh: Tensor, dC: Tensor,
+                   dn: Tensor, dm: Tensor) -> Tuple[Tensor, ...]:
+    """The backward of one mLSTM step (mlstm_step_new): its inputs (the
+    state C, n, m entering the step), dh (B, H, hd) and the gradients dC,
+    dn, dm of the state it leaves. Returns (dq, dk, dv, di, df, dC, dn,
+    dm): the last three those of the entering state."""
+    return _vjp(mlstm_step_new, (q, k, v, i, f, C, n, m), (dh, dC, dn, dm))
+
+
+def slstm_scan_bwd(z: Tensor, i: Tensor, f: Tensor, o: Tensor, rz: Tensor,
+                   c0: Tensor, n0: Tensor, h0: Tensor, m0: Tensor,
+                   hs: Tensor, kept: Tensor, dhs: Tensor, dc: Tensor,
+                   dn: Tensor, dh: Tensor, dm: Tensor
+                   ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The backward of slstm_scan with respect to z, i, f and o: its
+    inputs, its outputs hs and kept (keep=True; read by the kernel,
+    recomputed here), dhs (B, S, R) and the gradients dc, dn, dh, dm (B,
+    R) of the final state. Returns (dz, di, df, do); dz is also the
+    pre-activation's gradient gpre, so rz's gradient is sum_t h_{t-1}^T
+    dz_t (h_{-1} = h0)."""
+    return _vjp(lambda *xs: slstm_scan(*xs, rz, c0, n0, h0, m0),
+                (z, i, f, o), (dhs, dc, dn, dh, dm))
 
 
 def xlstm_terms(name: str, h: Tensor) -> int:
@@ -773,3 +860,40 @@ def xlstm_tol(want: Tensor, terms: int) -> dict:
     the output's RMS (2.3e-5 of it at 512 terms) holds that with room."""
     rms = float(want.float().square().mean().sqrt()) if want.numel() else 0.0
     return dict(rtol=1e-5, atol=1e-6 * terms ** 0.5 * max(rms, 1e-30))
+
+
+def xlstm_bwd_terms(name: str, args) -> int:
+    """The products a value of an xLSTM backward's outputs sums, for
+    xlstm_bwd_tol, from the kernel's name and its arguments: for
+    mlstm_chunkwise_bwd (q (B, S, H, hd) first) c + hd S / c, c =
+    mlstm_chunk(S): dk and dv at position s sum over the later positions
+    of their chunk and, through dC', hd products a later chunk; hd for
+    mlstm_step_bwd (q (B, H, hd)): the rows and columns of dC' it
+    contracts; R for slstm_scan_bwd (z (B, S, R)): gh_{t-1} sums R
+    products a step along the reverse chain."""
+    q = args[0]
+    if name == "mlstm_chunkwise_bwd":
+        S, hd = q.shape[1], q.shape[-1]
+        c = mlstm_chunk(S)
+        return c + hd * (S // c)
+    if name in ("mlstm_step_bwd", "slstm_scan_bwd"):
+        return q.shape[-1]
+    raise ValueError(f"xlstm_bwd_terms: {name!r} is not an xLSTM backward")
+
+
+def xlstm_bwd_tol(want: Tensor, terms: int) -> dict:
+    """The limit (assert_close keywords) to which the xLSTM backward
+    kernels are held against these plain versions (autograd through the
+    plain forwards), on an f32 gradient `want` whose values sum `terms`
+    products (xlstm_bwd_terms). Both sides compute the same f32 formulas
+    in another order: a relative 2**-23 sqrt(terms) a sum, as xlstm_tol.
+    The gradients also pass through the stabilized exponentials exp(x)
+    with |x| up to f32's exp range of about 88, where one rounding of the
+    exponent is a relative 88 * 2**-23 = 1.05e-5 of the term: so 1e-5
+    sqrt(terms) of the gradient's RMS, and 1e-4 of the value for the
+    largest gradients, where the stabilizer's gradient nearly cancels
+    (the gate gradients). On the lane cases the plain version in f32
+    against the same in f64 takes at most 0.34 of this limit (hd 512 with
+    |q . n| above 1)."""
+    rms = float(want.float().square().mean().sqrt()) if want.numel() else 0.0
+    return dict(rtol=1e-4, atol=1e-5 * terms ** 0.5 * max(rms, 1e-30))

@@ -2,8 +2,7 @@
 for the ATTN, LATTN, RGLRU, MLP, MOE, MLSTM and SLSTM blocks of
 decoder-only models (dense GQA, fine-grained MoE, the RG-LRU hybrid
 recurrentgemma and the xLSTM ssm family), in decode mode and in train
-mode (the prefill's forward, and `loss_fn` with its gradients; not yet
-for the MLSTM and SLSTM blocks, whose kernels have no backward).
+mode (the prefill's forward, and `loss_fn` with its gradients).
 
 The paper's technique enters at two irregular-access points, each with a
 backend chosen by the cost model exactly as the JAX model chooses it
@@ -26,9 +25,12 @@ plain version, `kernels/ref.py` `mha`), and the xLSTM cells
 `kops.mlstm_chunkwise` (the mLSTM over an even S > 1), `kops.mlstm_step`
 (one mLSTM step: decode, and each position of an odd S > 1) and
 `kops.slstm_scan` (the sLSTM recurrence, in both modes). With grad
-enabled, attention and the scan run as autograd Functions (`FlashTrain`,
-JAX's flash_train custom_vjp, and `RgLruScan`) whose backwards are the
-kernels `kops.flash_attention_bwd` and `kops.rg_lru_scan_bwd`; the MoE
+enabled, attention, the scan and the xLSTM cells run as autograd
+Functions (`FlashTrain`, JAX's flash_train custom_vjp; `RgLruScan`;
+`MlstmChunkwise`, `MlstmStep`, `SlstmScan`) whose backwards are the
+kernels `kops.flash_attention_bwd`, `kops.rg_lru_scan_bwd`,
+`kops.mlstm_chunkwise_bwd`, `kops.mlstm_step_bwd` and
+`kops.slstm_scan_bwd` (JAX differentiates its jnp cells); the MoE
 block's gradient flows through the torch gathers and scatters around its
 integer tickets. With cfg.remat each layer runs under
 torch.utils.checkpoint (JAX remats per group: the same values).
@@ -44,13 +46,12 @@ that keeps one cache in memory. The RG-LRU state is (B, R) float32 per
 layer. An mLSTM layer holds (C (B, H, hd, hd), n (B, H, hd), m (B, H))
 float32, which a decode step updates in place (4 MiB of C a sequence at
 xlstm-1.3b's hd = 512: one state of 22.6 GB at batch 128 stays in
-memory); an sLSTM layer holds (c, n, h, m), each (B, R) float32,
-replaced each step. Weights are built
+memory; with grad enabled a step updates a copy); an sLSTM layer holds
+(c, n, h, m), each (B, R) float32, replaced each step. Weights are built
 with requires_grad False (serving); `set_trainable` turns it on.
 
 Not ported yet (each raises NotImplementedError): the CROSS and EATTN
-blocks, the encdec and vlm families, and the gradients of the MLSTM and
-SLSTM blocks.
+blocks and the encdec and vlm families.
 """
 from __future__ import annotations
 
@@ -74,8 +75,8 @@ Tensor = torch.Tensor
 def _not_ported(what: str):
     raise NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP A); the port "
-        f"serves and prefills decoder-only models of {tuple(BLOCKS)} blocks "
-        f"and trains those without MLSTM and SLSTM blocks")
+        f"serves, prefills and trains decoder-only models of "
+        f"{tuple(BLOCKS)} blocks")
 
 
 # ===========================================================================
@@ -652,11 +653,83 @@ def _rnn_state(*shapes, device) -> Tuple[Tensor, ...]:
                              device=device))
 
 
-def _no_backward(what: str) -> None:
-    """The xLSTM kernels have no backward yet: with grad enabled the
-    blocks raise, on the CPU as on the card."""
-    if torch.is_grad_enabled():
-        _not_ported(f"the backward of {what}")
+def _fresh_state(what: str, needs_grad) -> None:
+    """MlstmChunkwise and SlstmScan give no gradient to the state they
+    start from (loss_fn starts every block from zeros): they refuse one
+    that requires grad rather than drop its gradient."""
+    if any(needs_grad):
+        raise NotImplementedError(
+            f"{what}: the gradient of the entering state is not ported "
+            f"(ROADMAP C, port-only limits); start from a state that does "
+            f"not require grad")
+
+
+class MlstmChunkwise(torch.autograd.Function):
+    """kops.mlstm_chunkwise (B12) with kops.mlstm_chunkwise_bwd (B15) as
+    its backward: the gradient of q, k, v and the gate logits i, f that
+    JAX gets from autodiff of _mlstm_chunkwise, the stabilizer's included.
+    The forward also keeps each position's normalizer q . n. The entering
+    state must not require grad (_fresh_state); the final state's
+    gradients are taken."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i, f, C0, n0, m0):
+        _fresh_state("MlstmChunkwise", ctx.needs_input_grad[5:])
+        h, C, n, m, qn = kops.mlstm_chunkwise(q, k, v, i, f, C0, n0, m0,
+                                              with_qn=True)
+        ctx.save_for_backward(q, k, v, i, f, C0, n0, m0, h, qn)
+        return h, C, n, m
+
+    @staticmethod
+    def backward(ctx, dh, dC, dn, dm):
+        grads = kops.mlstm_chunkwise_bwd(*ctx.saved_tensors, dh, dC, dn, dm)
+        return (*grads, None, None, None)
+
+
+class MlstmStep(torch.autograd.Function):
+    """One mLSTM step out of place: kops.mlstm_step (B13) on a copy of
+    the state, with kops.mlstm_step_bwd (B16) as its backward, which also
+    gives the entering state's gradient (the steps of an odd S chain
+    through it). Keeps the entering state for the backward, as JAX's scan
+    keeps each step's carry."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i, f, C, n, m):
+        out = kops.mlstm_step(q, k, v, i, f, C.clone(), n.clone(), m.clone())
+        ctx.save_for_backward(q, k, v, i, f, C, n, m)
+        return out
+
+    @staticmethod
+    def backward(ctx, dh, dC, dn, dm):
+        return kops.mlstm_step_bwd(*ctx.saved_tensors, dh, dC, dn, dm)
+
+
+class SlstmScan(torch.autograd.Function):
+    """kops.slstm_scan (B14) with kops.slstm_scan_bwd (B17) as its
+    backward; the forward keeps each step's c, n, m and tanh(z + h rz).
+    rz's gradient, sum over (b, t) of h_{t-1}^T dz_t, is one torch.matmul
+    on B17's dz (JAX leaves it to XLA's scan backward), in rz's dtype. The
+    entering state must not require grad (_fresh_state)."""
+
+    @staticmethod
+    def forward(ctx, z, i, f, o, rz, c0, n0, h0, m0):
+        _fresh_state("SlstmScan", ctx.needs_input_grad[5:])
+        hs, c, n, h, m, kept = kops.slstm_scan(z, i, f, o, rz, c0, n0, h0,
+                                               m0, keep=True)
+        ctx.save_for_backward(z, i, f, o, rz, c0, n0, h0, m0, hs, kept)
+        return hs, c, n, h, m
+
+    @staticmethod
+    def backward(ctx, dhs, dc, dn, dh, dm):
+        saved = ctx.saved_tensors
+        dz, di, df, do = kops.slstm_scan_bwd(*saved, dhs, dc, dn, dh, dm)
+        drz = None
+        if ctx.needs_input_grad[4]:
+            rz, h0, hs = saved[4], saved[7], saved[9]
+            R = rz.shape[0]
+            hprev = torch.cat((h0[:, None], hs[:, :-1]), dim=1)
+            drz = (hprev.reshape(-1, R).t() @ dz.reshape(-1, R)).to(rz.dtype)
+        return dz, di, df, do, drz, None, None, None, None
 
 
 def mlstm_block(p: Block, x: Tensor, cfg: ArchConfig, state=None):
@@ -667,10 +740,12 @@ def mlstm_block(p: Block, x: Tensor, cfg: ArchConfig, state=None):
     dtype. JAX's branches: an even S > 1 runs chunkwise
     (kops.mlstm_chunkwise), S == 1 one step (kops.mlstm_step, which
     updates the given state in place), an odd S > 1 one step a position on
-    a copy of the state. Returns (residual delta, new state)."""
-    _no_backward("the mLSTM block (kernels mlstm_chunkwise, mlstm_step)")
+    a copy of the state. With grad enabled the cells are the autograd
+    Functions MlstmChunkwise and MlstmStep, which update no state in place.
+    Returns (residual delta, new state)."""
     B, S, D = x.shape
     H, hd = cfg.n_heads, cfg.hd
+    grad = torch.is_grad_enabled()
     h = rms_norm(x, p.norm, cfg.norm_eps)
     q = (h @ p.wq).reshape(B, S, H, hd).float() * hd ** -0.5
     kk = (h @ p.wk).reshape(B, S, H, hd).float() * hd ** -0.25
@@ -682,14 +757,16 @@ def mlstm_block(p: Block, x: Tensor, cfg: ArchConfig, state=None):
         state = _rnn_state((B, H, hd, hd), (B, H, hd), (B, H),
                            device=x.device)
     if S > 1 and S % 2 == 0:
-        hs, C, n, m = kops.mlstm_chunkwise(q, kk, v, it, ft, *state)
+        cell = MlstmChunkwise.apply if grad else kops.mlstm_chunkwise
+        hs, C, n, m = cell(q, kk, v, it, ft, *state)
     else:
-        if S > 1:
+        if S > 1 and not grad:
             state = tuple(t.clone() for t in state)
+        step = MlstmStep.apply if grad else kops.mlstm_step
         outs = []
         for t in range(S):
-            ht, C, n, m = kops.mlstm_step(q[:, t], kk[:, t], v[:, t],
-                                          it[:, t], ft[:, t], *state)
+            ht, C, n, m = step(q[:, t], kk[:, t], v[:, t], it[:, t],
+                               ft[:, t], *state)
             state = (C, n, m)
             outs.append(ht)
         hs = torch.stack(outs, dim=1)                        # (B, S, H, hd)
@@ -702,9 +779,9 @@ def slstm_block(p: Block, x: Tensor, cfg: ArchConfig, state=None):
     (c, n, h, m), each (B, R) float32, or None (zeros, m = -1e30). The
     pre-activations and the output gate are float32; rz reaches
     kops.slstm_scan in its own dtype (the plain version casts it to f32,
-    as JAX does; the kernel widens each bf16 value exactly). Returns
+    as JAX does; the kernel widens each bf16 value exactly). With grad
+    enabled the scan is the autograd Function SlstmScan. Returns
     (residual delta, new state)."""
-    _no_backward("the sLSTM block (kernel slstm_scan)")
     B, S, D = x.shape
     R = cfg.rnn_width or D
     h = rms_norm(x, p.norm, cfg.norm_eps)
@@ -714,7 +791,8 @@ def slstm_block(p: Block, x: Tensor, cfg: ArchConfig, state=None):
     og = _sigmoid((h @ p.wog).float())
     if state is None:
         state = _rnn_state(*[(B, R)] * 4, device=x.device)
-    hs, c, n, hl, m = kops.slstm_scan(z_in, i_in, f_in, og, p.rz, *state)
+    scan = SlstmScan.apply if torch.is_grad_enabled() else kops.slstm_scan
+    hs, c, n, hl, m = scan(z_in, i_in, f_in, og, p.rz, *state)
     return hs.to(x.dtype) @ p.wo, (c, n, hl, m)
 
 

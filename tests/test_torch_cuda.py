@@ -1129,6 +1129,144 @@ def test_slstm_scan_second_call_gives_the_same_bits(cuda_device):
                      f"slstm_scan second call {(B, S, R)}")
 
 
+def _bwd_close(name, got, want, what):
+    """An xLSTM backward kernel against its plain version on the same card:
+    kernels/ref.py xlstm_bwd_tol, output by output."""
+    terms = kref.xlstm_bwd_terms(name, got)
+    for part, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, (what, part)
+        torch.testing.assert_close(g, w, **kref.xlstm_bwd_tol(w, terms),
+                                   msg=lambda m: f"{what} output {part}: {m}")
+
+
+@pytest.mark.parametrize("case", lane_cases.MLSTM_BWD_CASES)
+def test_mlstm_chunkwise_bwd_kernel_matches_plain_version(cuda_device, case):
+    """B15 on one chunk, a ragged chunk of 8 (25 of them), three and 32
+    chunks of 128 at hd 512, hd 16 and 64, |q . n| below and above 1,
+    large gate logits, from zeros and from a carried state, with the final
+    state's gradients: dq, dk, dv, di, df within xlstm_bwd_tol; B12's q . n
+    under grad within xlstm_tol of the plain version's."""
+    args = lane_cases.xlstm_bwd_args("mlstm_chunkwise_bwd", case,
+                                     cuda_device)
+    _, _, _, _, qn = kref.mlstm_chunkwise(*args[:8], with_qn=True)
+    torch.testing.assert_close(args[9], qn, **kref.xlstm_tol(
+        qn, kref.xlstm_terms("mlstm_chunkwise", args[8])))
+    got = kops.mlstm_chunkwise_bwd(*args)
+    _bwd_close("mlstm_chunkwise_bwd", got, kref.mlstm_chunkwise_bwd(*args),
+               f"mlstm_chunkwise_bwd {case}")
+
+
+@pytest.mark.parametrize("case", lane_cases.MLSTM_BWD_SEGMENT_CASES)
+def test_mlstm_chunkwise_bwd_segments_match(cuda_device, case):
+    """B15 with its scratch cut to `seg` chunks a segment: within
+    xlstm_bwd_tol of the plain version, and bit for bit the one-segment
+    call (the same states and carries, summed in the same order)."""
+    from repro_torch.kernels import xlstm as kx
+    B, S, H, hd, carried, seg = case
+    args = lane_cases.xlstm_bwd_args("mlstm_chunkwise_bwd",
+                                     (B, S, H, hd, carried, 1.0, 1.0),
+                                     cuda_device)
+    nbytes = 2 * lane_cases.mlstm_segment_bytes(case)
+    assert kx.chunk_segment(B, S, H, hd, nbytes // 2) == seg
+    got = kx.mlstm_chunkwise_bwd(*args, state_bytes=nbytes)
+    _bwd_close("mlstm_chunkwise_bwd", got, kref.mlstm_chunkwise_bwd(*args),
+               f"mlstm_chunkwise_bwd {case}")
+    for g, w in zip(got, kx.mlstm_chunkwise_bwd(*args)):
+        same(g, w)
+
+
+@pytest.mark.parametrize("case", lane_cases.MLSTM_STEP_BWD_CASES)
+def test_mlstm_step_bwd_kernel_matches_plain_version(cuda_device, case):
+    """B16 from a carried state at hd 16, 128 and 512, B up to 16, |q .
+    n'| below and above 1: the eight gradients within xlstm_bwd_tol; the
+    entering state is left as it was."""
+    args = lane_cases.xlstm_bwd_args("mlstm_step_bwd", case, cuda_device)
+    kept = [a.clone() for a in args]
+    got = kops.mlstm_step_bwd(*args)
+    for a, b in zip(args, kept):
+        same(a, b)
+    _bwd_close("mlstm_step_bwd", got, kref.mlstm_step_bwd(*args),
+               f"mlstm_step_bwd {case}")
+
+
+@pytest.mark.parametrize("case", lane_cases.SLSTM_BWD_CASES)
+def test_slstm_scan_bwd_kernel_matches_plain_version(cuda_device, case):
+    """B17 at S = 1, short and ragged S, R 64, 100 and 2048, B up to 6 (two
+    row tiles), rz in bf16 and f32, 4,096 steps: dz, di, df, do within
+    xlstm_bwd_tol; B14's kept c, n, m, zz within xlstm_tol of the plain
+    version's."""
+    args = lane_cases.xlstm_bwd_args("slstm_scan_bwd", case, cuda_device)
+    want_kept = kref.slstm_scan(*args[:9], keep=True)[5]
+    torch.testing.assert_close(args[10], want_kept, **kref.xlstm_tol(
+        want_kept, args[0].shape[-1]))
+    got = kops.slstm_scan_bwd(*args)
+    _bwd_close("slstm_scan_bwd", got, kref.slstm_scan_bwd(*args),
+               f"slstm_scan_bwd {case}")
+
+
+def test_slstm_scan_bwd_second_call_gives_the_same_bits(cuda_device):
+    """B17 keeps B14's fixed summation order: two calls on one input give
+    the same bits."""
+    args = lane_cases.xlstm_bwd_args("slstm_scan_bwd", (3, 300, 2048, True),
+                                     cuda_device)
+    for a, b in zip(kops.slstm_scan_bwd(*args), kops.slstm_scan_bwd(*args)):
+        same(a, b)
+
+
+def test_xlstm_functions_launch_their_kernels(cuda_device):
+    """With grad enabled the blocks' Functions launch the forward kernels
+    and, in the backward, B15 once a chunkwise call, B16 once a step and
+    B17 once a scan; under no_grad nothing of the backward launches."""
+    from repro_torch.kernels import xlstm as kx
+    cfg = registry.get("xlstm-1.3b").reduced()
+    model = lm.set_trainable(lm.init_lm(cfg, seed=3, device=cuda_device))
+    names = ("mlstm_chunkwise", "mlstm_chunkwise_bwd", "mlstm_step",
+             "mlstm_step_bwd", "slstm_scan", "slstm_scan_bwd")
+    for S, want in ((8, (1, 1, 0, 0, 1, 1)), (3, (0, 0, 3, 3, 1, 1))):
+        x = torch.randn(2, S, cfg.d_model, device=cuda_device)
+        before = [getattr(kx, n).launches for n in names]
+        for layer in (0, 7):
+            y, _ = model.layers[layer].blocks[0](x, None)
+            y.sum().backward()
+        got = tuple(getattr(kx, n).launches - b for n, b in zip(names, before))
+        assert got == want, (S, got)
+        before = [getattr(kx, n).launches for n in names]
+        with torch.no_grad():
+            for layer in (0, 7):
+                model.layers[layer].blocks[0](x, None)
+        got = [getattr(kx, n).launches - b for n, b in zip(names, before)]
+        assert got[1] == got[3] == got[5] == 0
+
+
+def test_reduced_xlstm_train_step_on_cuda_equals_cpu(cuda_device):
+    """Two steps of make_train_step on reduced xlstm-1.3b (f32, accum 2 of
+    2 x 40 tokens, then 2 x 41: a step a position), weights built once and
+    moved, TF32 off: loss and grad norm within 1e-5, the weights within
+    1e-4 relative and 1e-4 of max(1, each leaf's largest magnitude)."""
+    import copy
+    from repro_torch.launch import steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.get("xlstm-1.3b").reduced()
+    cpu = lm.init_lm(cfg, seed=7, device="cpu")
+    gpu = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(7)
+    toks = [torch.as_tensor(rng.integers(0, cfg.vocab, (2, 2, S)).astype(
+        np.int32)) for S in (40, 41)]
+    out = []
+    for model in (cpu, gpu):
+        init, step = steps.make_train_step(cfg, lr=1e-3, warmup=1,
+                                           total_steps=4)
+        opt = init(model)
+        dev = model.embed.device
+        out.append([[float(v) for v in step(model, opt, {
+            "tokens": t.to(dev)}, i)[2].values()] for i, t in enumerate(toks)])
+    np.testing.assert_allclose(out[1], out[0], rtol=1e-5, atol=0)
+    for a, b in zip(cpu.parameters(), gpu.parameters()):
+        scale = max(float(a.detach().abs().max()), 1.0)
+        torch.testing.assert_close(b.detach().cpu(), a.detach(), rtol=1e-4,
+                                   atol=1e-4 * scale)
+
+
 def test_xlstm_kernels_count_one_launch_a_call(cuda_device):
     """Each wrapper counts one launch a call (B12 is 2 + 2 x segments
     launches, B14 one, at S == 1 and S > 1)."""

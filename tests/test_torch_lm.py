@@ -199,18 +199,26 @@ def test_generate_matches_jax_serve(name):
 def test_unported_archs_raise(name):
     """Blocks, families and modes not ported yet raise NotImplementedError
     naming what is missing: the encdec and vlm families before any weight
-    is drawn; xlstm-1.3b, whose blocks serve and prefill, in loss_fn with
-    grad enabled (its kernels have no backward yet); a block kind the
-    port does not know (CROSS) in the stack."""
+    is drawn; xlstm-1.3b, whose blocks serve, prefill and train (loss_fn
+    runs with grad enabled), only where a chunkwise cell's entering state
+    requires grad (that gradient is not ported); a block kind the port
+    does not know (CROSS) in the stack."""
     cfg = treg.get(name).reduced()
     if name == "xlstm-1.3b":
         model = tlm.init_lm(cfg, device="cpu")
         tlm.init_decode_state(cfg, 1, 4, device="cpu")
         tlm.set_trainable(model)
-        with torch.enable_grad(), pytest.raises(NotImplementedError,
-                                                match="backward.*not ported"):
-            tlm.loss_fn(model, cfg, {"tokens": torch.zeros(
+        with torch.enable_grad():
+            loss = tlm.loss_fn(model, cfg, {"tokens": torch.zeros(
                 1, 4, dtype=torch.int32)})
+            loss.backward()
+            assert torch.isfinite(loss)
+            state = tuple(torch.zeros(s, requires_grad=True) for s in (
+                (1, cfg.n_heads, cfg.hd, cfg.hd), (1, cfg.n_heads, cfg.hd),
+                (1, cfg.n_heads)))
+            with pytest.raises(NotImplementedError, match="not ported"):
+                tlm.mlstm_block(model.layers[0].blocks[0],
+                                torch.zeros(1, 4, cfg.d_model), cfg, state)
     else:
         with pytest.raises(NotImplementedError, match="not ported"):
             tlm.init_lm(cfg, device="cpu")

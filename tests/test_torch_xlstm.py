@@ -13,8 +13,9 @@ another order), logits within 1e-4, as tests/test_models.py's
 decode-against-forward test holds them. The bf16 block cases hold the
 output to one output step (2**-7 of the value, plus 2**-8 of its RMS for
 values near 0, as kernels/ref.py mha_tol) to pin where each side casts.
-The blocks run under torch.no_grad(): with grad enabled they raise (the
-kernels have no backward yet).
+The blocks run under torch.no_grad() here; with grad enabled they run
+as autograd Functions, whose gradients tests/test_torch_xlstm_train.py
+holds to JAX's.
 """
 import dataclasses
 
@@ -316,16 +317,25 @@ def test_lm_to_numpy_round_trips(xlstm):
         same(a, b)
 
 
-def test_grad_enabled_raises(xlstm):
-    """With grad enabled both blocks raise NotImplementedError naming
-    their kernels, and so does loss_fn of the model."""
+@pytest.mark.parametrize("S", [24, 7])
+def test_grad_enabled_gives_the_no_grad_values(xlstm, S):
+    """With grad enabled the blocks run as autograd Functions
+    (MlstmChunkwise at S = 24, MlstmStep a position at S = 7, SlstmScan):
+    the residual deltas and states are bit for bit those without grad, and
+    loss_fn runs (its gradients: tests/test_torch_xlstm_train.py)."""
     _, _, tcfg, model = xlstm
-    x = torch.zeros(1, 2, tcfg.d_model)
+    x = torch.as_tensor(np.random.default_rng(S).normal(
+        size=(2, S, tcfg.d_model)).astype(np.float32))
+    for layer in (0, 7):
+        block = model.layers[layer].blocks[0]
+        with torch.no_grad():
+            want = block(x, None)
+        with torch.enable_grad():
+            got = block(x.clone().requires_grad_(True), None)
+        same(got[0].detach(), want[0])
+        for a, b in zip(got[1], want[1]):
+            same(a.detach(), b)
     with torch.enable_grad():
-        with pytest.raises(NotImplementedError, match="mlstm_chunkwise"):
-            tlm.mlstm_block(model.layers[0].blocks[0], x, tcfg)
-        with pytest.raises(NotImplementedError, match="slstm_scan"):
-            tlm.slstm_block(model.layers[7].blocks[0], x, tcfg)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tlm.loss_fn(model, tcfg, {"tokens": torch.zeros(
-                1, 4, dtype=torch.int32)})
+        loss = tlm.loss_fn(model, tcfg, {"tokens": torch.zeros(
+            1, 4, dtype=torch.int32)})
+    assert loss.requires_grad is False and torch.isfinite(loss)
